@@ -1,0 +1,208 @@
+"""Model configurations and the presets this port serves.
+
+The JAX package reads ``configs/model_config.yaml`` through PyYAML.  The
+port carries the entries it needs as Python data instead (the GPU machine
+has no PyYAML); ``tests/test_torch_rules.py`` holds each preset equal to
+the YAML registry.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int
+    hidden_size: int
+    intermediate_size: int
+    num_layers: int
+    num_heads: int
+    num_kv_heads: int
+    rope_theta: float = 10000.0
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @classmethod
+    def from_registry(cls, arch) -> "LlamaConfig":
+        return cls(
+            vocab_size=int(arch["vocab_size"]),
+            hidden_size=int(arch["hidden_size"]),
+            intermediate_size=int(arch["intermediate_size"]),
+            num_layers=int(arch["num_layers"]),
+            num_heads=int(arch["num_heads"]),
+            num_kv_heads=int(arch["num_kv_heads"]),
+            rope_theta=float(arch.get("rope_theta", 10000.0)),
+            max_position_embeddings=int(arch.get("max_position_embeddings", 4096)),
+            rms_norm_eps=float(arch.get("rms_norm_eps", 1e-5)),
+        )
+
+
+@dataclass(frozen=True)
+class VitConfig:
+    hidden_size: int
+    intermediate_size: int
+    num_layers: int
+    num_heads: int
+    patch_size: int
+    image_size: int
+    layer_norm_eps: float = 1e-5
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    @property
+    def seq_len(self) -> int:
+        return self.num_patches + 1  # CLS
+
+    @classmethod
+    def from_registry(cls, arch) -> "VitConfig":
+        return cls(
+            hidden_size=int(arch["hidden_size"]),
+            intermediate_size=int(arch["intermediate_size"]),
+            num_layers=int(arch["num_layers"]),
+            num_heads=int(arch["num_heads"]),
+            patch_size=int(arch["patch_size"]),
+            image_size=int(arch["image_size"]),
+            layer_norm_eps=float(arch.get("layer_norm_eps", 1e-5)),
+        )
+
+
+@dataclass(frozen=True)
+class LlavaConfig:
+    decoder: LlamaConfig
+    vision: VitConfig
+    image_token_id: int
+    vision_feature_layer: int = -2
+    vision_feature_select: str = "patch"  # drop CLS
+
+    @property
+    def num_image_tokens(self) -> int:
+        n = self.vision.num_patches
+        return n if self.vision_feature_select == "patch" else n + 1
+
+    @classmethod
+    def from_registry(cls, arch) -> "LlavaConfig":
+        return cls(
+            decoder=LlamaConfig.from_registry(arch["decoder"]),
+            vision=VitConfig.from_registry(arch["vision"]),
+            image_token_id=int(arch["image_token_id"]),
+            vision_feature_layer=int(arch.get("vision_feature_layer", -2)),
+            vision_feature_select=str(arch.get("vision_feature_select", "patch")),
+        )
+
+
+# configs/model_config.yaml entries, the keys this port reads
+PRESETS: dict[str, dict] = {
+    "llava": {
+        "chat_template": "llava",
+        "arch": {
+            "kind": "llava",
+            "image_token": "<image>",
+            "image_token_id": 32000,
+            "vision_feature_layer": -2,
+            "vision_feature_select": "patch",
+            "decoder": {
+                "decoder": "llama",
+                "vocab_size": 32064,
+                "hidden_size": 4096,
+                "intermediate_size": 11008,
+                "num_layers": 32,
+                "num_heads": 32,
+                "num_kv_heads": 32,
+                "rope_theta": 10000.0,
+                "max_position_embeddings": 4096,
+                "rms_norm_eps": 1.0e-5,
+            },
+            "vision": {
+                "hidden_size": 1024,
+                "intermediate_size": 4096,
+                "num_layers": 24,
+                "num_heads": 16,
+                "patch_size": 14,
+                "image_size": 336,
+                "layer_norm_eps": 1.0e-5,
+            },
+            "projector": {"type": "mlp2x_gelu"},
+        },
+    },
+    "tiny-llava-test": {
+        "chat_template": "llava",
+        "arch": {
+            "kind": "llava",
+            "image_token": "<image>",
+            "image_token_id": 250,
+            "vision_feature_layer": -2,
+            "vision_feature_select": "patch",
+            "decoder": {
+                "decoder": "llama",
+                "vocab_size": 256,
+                "hidden_size": 64,
+                "intermediate_size": 128,
+                "num_layers": 2,
+                "num_heads": 4,
+                "num_kv_heads": 2,
+                "rope_theta": 10000.0,
+                "max_position_embeddings": 512,
+                "rms_norm_eps": 1.0e-5,
+            },
+            "vision": {
+                "hidden_size": 32,
+                "intermediate_size": 64,
+                "num_layers": 2,
+                "num_heads": 2,
+                "patch_size": 8,
+                "image_size": 32,
+                "layer_norm_eps": 1.0e-5,
+            },
+            "projector": {"type": "mlp2x_gelu"},
+        },
+    },
+    "tiny-llama-test": {
+        "question_start_tag": "[INST] ",
+        "question_end_tag": " [/INST]",
+        "answer_tag": "",
+        "arch": {
+            "decoder": "llama",
+            "vocab_size": 256,
+            "hidden_size": 64,
+            "intermediate_size": 128,
+            "num_layers": 2,
+            "num_heads": 4,
+            "num_kv_heads": 2,
+            "rope_theta": 10000.0,
+            "max_position_embeddings": 256,
+            "rms_norm_eps": 1.0e-5,
+        },
+    },
+}
+
+
+def get_model_identifiers(model_family: str) -> dict:
+    if model_family not in PRESETS:
+        raise KeyError(
+            f"Unknown model family {model_family!r} for the PyTorch port; "
+            f"known: {sorted(PRESETS)}")
+    return PRESETS[model_family]
+
+
+def model_kind(model_cfg) -> str:
+    arch = model_cfg["arch"]
+    return str(arch.get("kind") or "llama")
+
+
+def build_model_config(model_cfg):
+    """LlavaConfig or LlamaConfig for a preset entry."""
+    arch = model_cfg["arch"]
+    kind = model_kind(model_cfg)
+    if kind == "llava":
+        return LlavaConfig.from_registry(arch)
+    if kind == "llama" and str(arch.get("decoder", "llama")) == "llama":
+        return LlamaConfig.from_registry(arch)
+    raise NotImplementedError(
+        f"model kind {kind!r} (decoder {arch.get('decoder')!r}) is not ported yet")

@@ -1,0 +1,29 @@
+"""Parameter trees laid out like the JAX package's parameter dicts.
+
+A model of the port is an ``nn.Module`` whose parameters sit at the same
+paths, with the same shapes and the same ``[in, out]`` layouts, as the
+nested dict the JAX package's ``init_params`` returns (layer weights
+stacked on a leading L dimension).  That keeps each function of the port
+next to its counterpart and makes carrying weights across a walk over one
+tree (``models/convert.py``).  Serving needs no gradients, so the
+parameters are created with ``requires_grad=False``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+class ParamTree(nn.Module):
+    """Nested parameters from a spec ``{name: shape or {sub-spec}}``,
+    allocated uninitialised on ``device`` in ``dtype``."""
+
+    def __init__(self, spec: dict, *, device, dtype):
+        super().__init__()
+        for name, shape in spec.items():
+            if isinstance(shape, dict):
+                setattr(self, name, ParamTree(shape, device=device, dtype=dtype))
+            else:
+                setattr(self, name, nn.Parameter(
+                    torch.empty(shape, device=device, dtype=dtype), requires_grad=False))

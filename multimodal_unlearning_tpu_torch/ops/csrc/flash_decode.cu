@@ -1,0 +1,239 @@
+// Flash-decode (kernel B4) for Hopper: one query token per (batch row,
+// q-head) against layer `layer` of the stacked [L,B,Hkv,Smax,D] bf16 KV
+// cache, read in place (the layer slab is never copied out).
+//
+// Replaces multimodal_unlearning_tpu/ops/decode_attention.py:_kernel
+// (launcher _pallas_decode).  It computes
+//   o[b,h] = softmax_j(sm_scale q[b,h].k[l,b,h//G,j]) v[l,b,h//G,j]
+// over the columns j with valid[b,j] != 0.  A row with no valid column
+// gives o = 0 -- the documented rule for fully-masked rows, which the XLA
+// path of decode_attention follows; the Pallas kernel returns the mean of
+// V there instead.
+//
+// What bounds it on the card: it streams the valid K and V columns once
+// (bytes), with 2 flops per loaded element -- far below the card's
+// operations-per-byte ridge.  The design therefore serves bandwidth only:
+// one block per (kv-head, batch row) first compacts the row's valid columns
+// into shared memory, so that invalid columns cost no load at all; then
+// every group of D/8 lanes scores one key with 16-byte loads (a whole key
+// row per group, coalesced) while each warp keeps 4 key groups of K and V
+// loads in flight, with an online softmax per lane group in the log2
+// domain.  The per-group partial states are merged in shared memory at the
+// end.  The GQA group (G q-heads per kv-head) shares every loaded byte.
+// Splitting a long row across blocks (flash-decoding's split-K) is later
+// work.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int NTHREADS = 256;
+constexpr int NWARPS = NTHREADS / 32;
+constexpr int UNROLL = 4;  // key groups a warp keeps in flight per iteration
+
+template <int D, int G>
+struct DecLayout {
+  static constexpr int LPK = D / 8;     // lanes per key, 8 dims (16 bytes) each
+  static constexpr int KPW = 32 / LPK;  // keys a warp scores at once
+  static constexpr int NSLOT = NWARPS * KPW;
+  static size_t bytes(int Smax) {
+    return sizeof(int) * Smax + sizeof(float) * NSLOT * G * (2 + D);
+  }
+};
+
+template <int D, int G>
+__global__ void __launch_bounds__(NTHREADS)
+flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
+                    const __nv_bfloat16* __restrict__ vc, const int* __restrict__ valid,
+                    __nv_bfloat16* __restrict__ o, int B, int Hkv, int Smax, int layer,
+                    float scale_log2) {
+  using L = DecLayout<D, G>;
+  constexpr int LPK = L::LPK;
+  constexpr int KPW = L::KPW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* sIdx = reinterpret_cast<int*>(smem);  // [Smax] compacted valid columns
+  float* sM = reinterpret_cast<float*>(sIdx + Smax);  // [NSLOT][G]
+  float* sL = sM + L::NSLOT * G;                      // [NSLOT][G]
+  float* sAcc = sL + L::NSLOT * G;                    // [NSLOT][G][D]
+  __shared__ int sCount[NWARPS];
+
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int Hq = Hkv * G;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int sub = lane / LPK;   // which of the warp's KPW keys
+  const int part = lane % LPK;  // which 8 dims of the key
+  const int slot = warp * KPW + sub;
+
+  // 1. compact the row's valid columns (ascending) into sIdx
+  const int* vrow = valid + static_cast<long long>(b) * Smax;
+  int nvalid = 0;
+  for (int base = 0; base < Smax; base += NTHREADS) {
+    const int c = base + tid;
+    const int flag = c < Smax && vrow[c] != 0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, flag);
+    if (lane == 0) sCount[warp] = __popc(ballot);
+    __syncthreads();
+    int off = nvalid, total = 0;
+    for (int w = 0; w < NWARPS; ++w) {
+      if (w < warp) off += sCount[w];
+      total += sCount[w];
+    }
+    if (flag) sIdx[off + __popc(ballot & ((1u << lane) - 1u))] = c;
+    nvalid += total;
+    __syncthreads();  // sCount is rewritten next round
+  }
+
+  // 2. this lane's 8 dims of the G queries, scaled into the log2 domain
+  float qv[G][8];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const uint4 w = *reinterpret_cast<const uint4*>(
+        q + (static_cast<long long>(b) * Hq + hk * G + g) * D + part * 8);
+    mmu::bf16x8_to_float(w, qv[g]);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) qv[g][e] *= scale_log2;
+  }
+
+  // 3. online softmax over this lane group's share of the valid columns
+  float m[G], l[G], acc[G][8];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = mmu::kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
+  }
+  const long long slab = ((static_cast<long long>(layer) * B + b) * Hkv + hk) * Smax * D;
+  const __nv_bfloat16* kb = kc + slab + part * 8;
+  const __nv_bfloat16* vb = vc + slab + part * 8;
+  for (int base = warp * KPW * UNROLL; base < nvalid; base += NWARPS * KPW * UNROLL) {
+    uint4 kw[UNROLL], vw[UNROLL];
+    bool ok[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int i = base + u * KPW + sub;
+      ok[u] = i < nvalid;
+      kw[u] = make_uint4(0u, 0u, 0u, 0u);
+      vw[u] = kw[u];
+      if (ok[u]) {
+        const long long col = sIdx[i];
+        kw[u] = *reinterpret_cast<const uint4*>(kb + col * D);
+        vw[u] = *reinterpret_cast<const uint4*>(vb + col * D);
+      }
+    }
+    float s[UNROLL][G];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      float kf[8];
+      mmu::bf16x8_to_float(kw[u], kf);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float part_dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) part_dot = fmaf(qv[g][e], kf[e], part_dot);
+#pragma unroll
+        for (int off = LPK / 2; off > 0; off >>= 1)
+          part_dot += __shfl_xor_sync(0xffffffffu, part_dot, off);
+        s[u][g] = ok[u] ? part_dot : mmu::kNegInf;
+      }
+    }
+    float vf[UNROLL][8];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) mmu::bf16x8_to_float(vw[u], vf[u]);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float m_new = m[g];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) m_new = fmaxf(m_new, s[u][g]);
+      const float alpha = exp2f(m[g] - m_new);
+      float p[UNROLL], psum = 0.f;
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        p[u] = ok[u] ? exp2f(s[u][g] - m_new) : 0.f;
+        psum += p[u];
+      }
+      l[g] = l[g] * alpha + psum;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        float a = acc[g][e] * alpha;
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) a = fmaf(p[u], vf[u][e], a);
+        acc[g][e] = a;
+      }
+      m[g] = m_new;
+    }
+  }
+
+  // 4. merge the NSLOT partial states of each q-head
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (part == 0) {
+      sM[slot * G + g] = m[g];
+      sL[slot * G + g] = l[g];
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sAcc[(slot * G + g) * D + part * 8 + e] = acc[g][e];
+  }
+  __syncthreads();
+  for (int i = tid; i < G * D; i += NTHREADS) {
+    const int g = i / D, d = i % D;
+    float mx = mmu::kNegInf;
+    for (int s2 = 0; s2 < L::NSLOT; ++s2) mx = fmaxf(mx, sM[s2 * G + g]);
+    float den = 0.f, num = 0.f;
+    for (int s2 = 0; s2 < L::NSLOT; ++s2) {
+      const float w = exp2f(sM[s2 * G + g] - mx);
+      den += w * sL[s2 * G + g];
+      num += w * sAcc[(s2 * G + g) * D + d];
+    }
+    o[(static_cast<long long>(b) * Hq + hk * G + g) * D + d] =
+        __float2bfloat16(den > 0.f ? num / den : 0.f);
+  }
+}
+
+template <int D, int G>
+int launch(const void* q, const void* kc, const void* vc, const int* valid, void* o, int B,
+           int Hkv, int Smax, int layer, float sm_scale, cudaStream_t stream) {
+  const size_t bytes = DecLayout<D, G>::bytes(Smax);
+  if (bytes > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = mmu::allow_smem(flash_decode_kernel<D, G>, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(Hkv, B);
+  flash_decode_kernel<D, G><<<grid, NTHREADS, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kc),
+      static_cast<const __nv_bfloat16*>(vc), valid, static_cast<__nv_bfloat16*>(o), B, Hkv,
+      Smax, layer, sm_scale * mmu::kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_g(int G, const void* q, const void* kc, const void* vc, const int* valid, void* o,
+             int B, int Hkv, int Smax, int layer, float sm_scale, cudaStream_t stream) {
+  switch (G) {
+    case 1: return launch<D, 1>(q, kc, vc, valid, o, B, Hkv, Smax, layer, sm_scale, stream);
+    case 2: return launch<D, 2>(q, kc, vc, valid, o, B, Hkv, Smax, layer, sm_scale, stream);
+    case 4: return launch<D, 4>(q, kc, vc, valid, o, B, Hkv, Smax, layer, sm_scale, stream);
+    case 8: return launch<D, 8>(q, kc, vc, valid, o, B, Hkv, Smax, layer, sm_scale, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// q/o [B,Hq,1,D] bf16 contiguous; k/v cache [L,B,Hkv,Smax,D] bf16
+// contiguous; valid [B,Smax] int32 contiguous; 0 <= layer < L.
+extern "C" int mmu_flash_decode_bf16(const void* q, const void* k_cache, const void* v_cache,
+                                     const int* valid, void* o, int L, int B, int Hq, int Hkv,
+                                     int Smax, int D, int layer, float sm_scale, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || layer < 0 || layer >= L || B <= 0 || Smax <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int G = Hq / Hkv;
+  if (D == 128)
+    return launch_g<128>(G, q, k_cache, v_cache, valid, o, B, Hkv, Smax, layer, sm_scale, st);
+  if (D == 64)
+    return launch_g<64>(G, q, k_cache, v_cache, valid, o, B, Hkv, Smax, layer, sm_scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

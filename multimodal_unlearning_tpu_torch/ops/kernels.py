@@ -1,0 +1,140 @@
+"""Build, load and count the port's CUDA kernels.
+
+Each source in ``csrc/`` is compiled on first use by ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, one ``nvcc``
+process per source, all started together, and loaded with ``ctypes``.
+The libraries land in ``ops/_build/`` (listed in ``.gitignore``) under a
+name that hashes the sources and flags, so a changed source is rebuilt and
+an unchanged one is reused.  Nothing is built when this module is imported.
+
+``LAUNCHES`` counts the launches of each kernel; its wrapper adds one
+where it launches, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_decode": "flash_decode.cu"}
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+LAUNCHES = {name: 0 for name in SOURCES}
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# argtypes of each library's launcher (csrc/*.cu, extern "C")
+_SIGNATURES = {
+    "flash_fwd": ("mmu_flash_fwd_bf16",
+                  [_P] * 6 + [_I] * 6 + [_LL] * 12 + [_F, _I, _I, _P]),
+    "flash_decode": ("mmu_flash_decode_bf16", [_P] * 5 + [_I] * 7 + [_F, _P]),
+}
+
+_lock = threading.Lock()
+_launchers: dict[str, ctypes._CFuncPtr] = {}
+_error_string = None
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if Path("/usr/local/cuda/bin/nvcc").exists():
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError("nvcc not found: the port's kernels are built with the CUDA toolkit")
+
+
+def _library_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for f in [SOURCES[name]] + sorted(p.name for p in CSRC.glob("*.cuh")):
+        h.update((CSRC / f).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=None) -> dict[str, float]:
+    """Compile every named kernel library that is not built yet, one
+    ``nvcc`` per source, all in parallel.  Returns the wall seconds each
+    build took (0.0 for a library that was already there).  The compiler's
+    register and shared-memory report (``-Xptxas -v``) is kept beside each
+    library as ``<name>.log``."""
+    names = list(SOURCES) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs, took = {}, {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = _library_path(name)
+        if out.exists():
+            took[name] = 0.0
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        took[name] = time.perf_counter() - t0
+        (BUILD_DIR / f"{name}.log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return took
+
+
+def build_log(name: str) -> str:
+    path = BUILD_DIR / f"{name}.log"
+    return path.read_text() if path.exists() else ""
+
+
+def launcher(name: str):
+    """The C launcher of kernel ``name``, building its library on first use."""
+    global _error_string
+    fn = _launchers.get(name)
+    if fn is not None:
+        return fn
+    with _lock:
+        if name not in _launchers:
+            path = _library_path(name)
+            if not path.exists():
+                build([name])
+            lib = ctypes.CDLL(str(path))
+            sym, argtypes = _SIGNATURES[name]
+            fn = getattr(lib, sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            if _error_string is None:
+                _error_string = lib.mmu_error_string
+                _error_string.argtypes = [ctypes.c_int]
+                _error_string.restype = ctypes.c_char_p
+            _launchers[name] = fn
+    return _launchers[name]
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a launcher reported a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if err != 0:
+        msg = _error_string(err).decode() if _error_string is not None else ""
+        raise RuntimeError(f"kernel {name} failed to launch: CUDA error {err} {msg}")

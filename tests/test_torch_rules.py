@@ -1,0 +1,144 @@
+"""Rules of the PyTorch port: it imports neither ``jax`` nor the JAX
+package (an AST scan, and an import of every module in a subprocess with
+both blocked); its entry points refuse to run without a card unless the
+caller asks for the CPU; options it has not ported raise; its presets equal
+the YAML registry."""
+
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import multimodal_unlearning_tpu_torch as port
+from multimodal_unlearning_tpu.config import get_model_identifiers
+from multimodal_unlearning_tpu_torch import config as tconfig
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "multimodal_unlearning_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "multimodal_unlearning_tpu"}
+
+
+def _port_files():
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        # compare the top-level name exactly: the port's own name starts
+        # with the JAX package's
+        tops = {n.split(".")[0] for n in names}
+        assert not tops & FORBIDDEN, f"{path.name}:{node.lineno} imports {tops & FORBIDDEN}"
+
+
+def test_port_imports_with_jax_blocked():
+    mods = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+    code = (
+        "import sys\n"
+        f"for name in {sorted(FORBIDDEN)!r}: sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+    assert "multimodal_unlearning_tpu_torch.serve.engine" in mods
+
+
+def test_entry_points_need_a_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device works")
+    from multimodal_unlearning_tpu_torch.cli import serve
+    from multimodal_unlearning_tpu_torch.models import llama, llava
+    from multimodal_unlearning_tpu_torch.serve import ServingEngine
+
+    cfg = tconfig.build_model_config(tconfig.get_model_identifiers("tiny-llava-test"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        llava.Llava(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        llama.init_params(cfg.decoder)
+    model = llava.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(model, cfg, "llava")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.build_engine(serve.load_config(
+            ["model_family=tiny-llava-test", "quantize_base=false"]))
+    ServingEngine(model, cfg, "llava", device="cpu")
+
+
+@pytest.mark.parametrize("option", [
+    {"speculate_k": 2}, {"page_size": 16}, {"prefill_chunk": 64}, {"temperature": 0.7},
+    {"logprobs": True}, {"adapters": {"a": None}}, {"cache_dtype": torch.int8},
+], ids=lambda o: next(iter(o)))
+def test_unported_engine_options_raise(option):
+    from multimodal_unlearning_tpu_torch.models import llava
+    from multimodal_unlearning_tpu_torch.serve import ServingEngine
+
+    cfg = tconfig.build_model_config(tconfig.get_model_identifiers("tiny-llava-test"))
+    model = llava.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError):
+        ServingEngine(model, cfg, "llava", device="cpu", **option)
+
+
+@pytest.mark.parametrize("override", ["quantize_base=true", "kv_cache_dtype=int8",
+                                      "system_prompt=hello", "model_path=/nonexistent"])
+def test_unported_serve_options_raise(override):
+    from multimodal_unlearning_tpu_torch.cli import serve
+
+    cfg = serve.load_config(["model_family=tiny-llava-test", "device=cpu",
+                             "quantize_base=false", override])
+    with pytest.raises(NotImplementedError):
+        serve.build_engine(cfg)
+
+
+@pytest.mark.parametrize("name", sorted(tconfig.PRESETS))
+def test_presets_equal_the_registry(name):
+    entry = get_model_identifiers(name)
+    preset = tconfig.PRESETS[name]
+    assert preset["arch"] == entry.arch.to_dict()
+    for key, val in preset.items():
+        if key != "arch":
+            assert entry[key] == val, key
+
+
+def test_no_fallback_off_the_cpu():
+    """A tensor on neither the CPU nor the card gets no plain version: the
+    wrappers raise rather than fall back."""
+    from multimodal_unlearning_tpu_torch.ops.attention import flash_attention
+    from multimodal_unlearning_tpu_torch.ops.decode_attention import decode_attention
+
+    q = torch.empty((1, 2, 4, 8), device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        flash_attention(q, q, q)
+    cache = {"k": torch.empty((1, 1, 2, 4, 8), device="meta")}
+    cache["v"] = cache["k"]
+    with pytest.raises(RuntimeError, match="no kernel"):
+        decode_attention(q[:, :, :1], cache, 0, torch.ones((1, 4), device="meta"))
+
+
+def test_kernel_build_needs_nvcc(monkeypatch):
+    """Without the CUDA toolkit the kernels cannot be built, and saying so
+    is an error, not a reason to use the plain versions."""
+    from multimodal_unlearning_tpu_torch.ops import kernels
+
+    if Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("this machine has the CUDA toolkit")
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.launcher("flash_fwd")
