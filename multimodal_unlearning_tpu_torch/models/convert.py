@@ -6,6 +6,11 @@ with numpy arrays as leaves (``jax.tree.map(np.asarray, params)``):
 ``[in, out]`` weight layouts, layers stacked on a leading L dimension.
 The port's modules keep exactly that layout, so conversion copies leaf by
 leaf and checks that every parameter is covered and every shape agrees.
+
+A quantized tree (``utils/quantize.py``: ``{"q": int8, "s": f32}`` leaves)
+crosses with its int8 storage: the leaf becomes a ``QTensor`` at the same
+path.  A LoRA adapter tree crosses as a nested dict of trainable tensors
+(``adapters_from_jax``).
 """
 
 from __future__ import annotations
@@ -14,7 +19,9 @@ import numpy as np
 import torch
 
 from multimodal_unlearning_tpu_torch.config import LlamaConfig, LlavaConfig, VitConfig
+from multimodal_unlearning_tpu_torch.device import resolve_device
 from multimodal_unlearning_tpu_torch.models import llama, llava, vit
+from multimodal_unlearning_tpu_torch.utils.quantize import QTensor, in_contiguous, is_qtensor
 
 
 @torch.no_grad()
@@ -26,6 +33,10 @@ def load_tree(module: torch.nn.Module, tree: dict) -> None:
     def walk(node, sub, prefix):
         for key, val in sub.items():
             path = prefix + key
+            if is_qtensor(val):
+                _load_quantized(node, key, val, path)
+                seen.update((path + ".q", path + ".s"))
+                continue
             if isinstance(val, dict):
                 walk(getattr(node, key), val, path + ".")
                 continue
@@ -42,6 +53,36 @@ def load_tree(module: torch.nn.Module, tree: dict) -> None:
     missing = {n for n, _ in module.named_parameters()} - seen
     if missing:
         raise KeyError(f"parameters missing from the JAX tree: {sorted(missing)}")
+
+
+def _load_quantized(node, key, leaf, path):
+    """Replace the float parameter ``node.<key>`` by a ``QTensor`` holding
+    the leaf's int8 values and f32 scales."""
+    target = getattr(node, key, None)
+    if "q4" in leaf:
+        raise NotImplementedError(f"{path}: grouped int4 leaves are not ported yet")
+    if not isinstance(target, (torch.nn.Parameter, QTensor)):
+        raise KeyError(f"{path}: the port's model has no such parameter")
+    q = np.array(leaf["q"])
+    s = np.array(leaf["s"], dtype=np.float32)
+    if q.dtype != np.int8 or tuple(q.shape) != tuple(target.shape):
+        raise ValueError(f"{path}: quantized leaf {q.dtype}{q.shape} != int8"
+                         f"{tuple(target.shape)}")
+    device = (target.q if isinstance(target, QTensor) else target).device
+    delattr(node, key)
+    setattr(node, key, QTensor(in_contiguous(torch.from_numpy(q).to(device)),
+                               torch.from_numpy(s).to(device)))
+
+
+def adapters_from_jax(tree: dict, *, device=None, dtype=torch.float32) -> dict:
+    """A LoRA adapter tree of the JAX package (numpy leaves) as the port's
+    nested dict of trainable tensors at the same paths, on the card unless
+    the caller names another device (as ``from_jax`` places the model)."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: adapters_from_jax(v, device=device, dtype=dtype) for k, v in tree.items()}
+    arr = np.array(tree, dtype=np.float32)  # a writable copy
+    return torch.from_numpy(arr).to(device=device, dtype=dtype).requires_grad_()
 
 
 def from_jax(tree: dict, cfg, *, device=None, dtype=torch.float32):

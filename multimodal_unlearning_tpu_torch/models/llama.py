@@ -1,13 +1,16 @@
 """Llama-family decoder (RMSNorm + RoPE + SwiGLU + GQA) in PyTorch.
 
-Counterpart of ``multimodal_unlearning_tpu/models/llama.py`` for serving,
-dense weights only.  Parameters keep the JAX layout (``models/params.py``):
-``[in, out]`` weights stacked on a leading L dimension.  The forward loops
-over the layers where the JAX package scans them.
+Counterpart of ``multimodal_unlearning_tpu/models/llama.py`` for serving
+and for the forget step.  Parameters keep the JAX layout
+(``models/params.py``): ``[in, out]`` weights stacked on a leading L
+dimension, dense or int8-quantized (``utils/quantize.py``: a quantized leaf
+dequantizes per layer, W8A16, or runs W8A8 when ``enable_int8_compute`` is
+on).  The forward loops over the layers where the JAX package scans them.
 
 Modes of ``forward``:
-  no cache: ``kv_cache=None``; causal attention over the padded batch with
-    ``attention_mask`` as key validity.
+  no cache (training, teacher-forced evaluation): ``kv_cache=None``; causal
+    attention over the padded batch with ``attention_mask`` as key validity;
+    optional LoRA adapters, per-layer rematerialisation, ``capture_layer``.
   prefill: ``kv_cache`` a [L,B,Hkv,S,D] slab written at column offset 0;
     attention reads the just-computed local k/v, identical to reading the
     slab back.
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from multimodal_unlearning_tpu_torch.config import LlamaConfig
 from multimodal_unlearning_tpu_torch.device import resolve_device
@@ -30,9 +34,13 @@ from multimodal_unlearning_tpu_torch.models.params import ParamTree
 from multimodal_unlearning_tpu_torch.ops.attention import flash_attention
 from multimodal_unlearning_tpu_torch.ops.decode_attention import decode_attention
 from multimodal_unlearning_tpu_torch.ops.rope import apply_rope_bsd, rope_table
+from multimodal_unlearning_tpu_torch.utils.quantize import (
+    dequantize_leaf, embed_lookup, int8_matmul, int8_matmul_group, is_qtensor, qs_of)
 
 __all__ = ["LlamaConfig", "Llama", "init_params", "rms_norm", "dense", "init_kv_cache",
-           "positions_from_mask"]
+           "positions_from_mask", "enable_int8_compute", "apply_lora_delta"]
+
+REMAT_POLICIES = (None, "save_attn", "save_attn_ffn")
 
 
 def _promote(dtype):
@@ -47,8 +55,50 @@ def rms_norm(x, weight, eps):
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * weight
 
 
-def dense(x, w):
-    return x @ w.to(x.dtype)
+INT8_COMPUTE = False  # set via enable_int8_compute(); W8A8 on quantized leaves
+
+
+def enable_int8_compute(on: bool = True) -> bool:
+    """Opt-in W8A8: quantized-weight matmuls also quantize activations
+    dynamically (straight-through backward).  Noisier than the default W8A16
+    dequant path.  Returns the previous value so callers can restore it; the
+    flag is read at each call."""
+    global INT8_COMPUTE
+    prev = INT8_COMPUTE
+    INT8_COMPUTE = on
+    return prev
+
+
+def _is_int8(w) -> bool:
+    return is_qtensor(w) and not (isinstance(w, dict) and "q4" in w)
+
+
+def _maybe_dequant(w, dtype):
+    """A quantized leaf dequantizes here, one layer's weight at a time,
+    never the whole tree."""
+    if is_qtensor(w):
+        return dequantize_leaf(w, dtype)
+    return w.to(dtype)
+
+
+def apply_lora_delta(y, t, ll, scale):
+    """Add a LoRA delta to projection output ``y`` (input ``t`` [B, S, in]).
+    ``ll`` leaves are [in, r] / [r, out] for one adapter."""
+    if ll is None:
+        return y
+    a, b = ll["a"].to(t.dtype), ll["b"].to(t.dtype)
+    if a.ndim == 3:
+        raise NotImplementedError(
+            "a multi-adapter LoRA bank [A, in, r] is not ported yet (multi-LoRA serving)")
+    return y + ((t @ a) @ b) * scale
+
+
+def dense(x, w, lora_leaf=None, lora_scale: float = 0.0):
+    if _is_int8(w) and INT8_COMPUTE:
+        y = int8_matmul(x, *qs_of(w))
+    else:
+        y = x @ _maybe_dequant(w, x.dtype)
+    return apply_lora_delta(y, x, lora_leaf, lora_scale)
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -134,17 +184,52 @@ class Llama(ParamTree):
         self.lm_head.normal_(0.0, self.lm_head.shape[-2] ** -0.5, generator=generator)
         return self
 
-    def _block(self, x, layer, cos_p, sin_p, kv_cache, cache_offset, kv_mask, decoding,
-               attn_impl):
-        cfg, lp = self.cfg, self.layers
+    def _lora_leaf(self, lora, name, layer):
+        ll = None if lora is None else lora.get(name)
+        return None if ll is None else {"a": ll["a"][layer], "b": ll["b"][layer]}
+
+    def _project(self, t, names, layer, lora, lora_scale):
+        """Projections ``names`` of one input ``t``.  Under W8A8 they share
+        one activation quantization (q/k/v, gate/up)."""
+        lp = self.layers
+        ws = [getattr(lp, n)[layer] for n in names]
+        lls = [self._lora_leaf(lora, n, layer) for n in names]
+        if len(names) > 1 and INT8_COMPUTE and all(_is_int8(w) for w in ws):
+            ys = int8_matmul_group(t, tuple(w["q"] for w in ws), tuple(w["s"] for w in ws))
+            return [apply_lora_delta(y, t, ll, lora_scale) for y, ll in zip(ys, lls)]
+        return [dense(t, w, ll, lora_scale) for w, ll in zip(ws, lls)]
+
+    def _attn_inputs(self, x, layer, cos_p, sin_p, lora, lora_scale):
+        """Input norm, q/k/v projections and rope: x -> q, k, v [B, H, S, D]."""
+        cfg = self.cfg
         B, S, _ = x.shape
         hd, nh, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-        h = rms_norm(x, lp.input_layernorm[layer], cfg.rms_norm_eps)
-        q = dense(h, lp.q_proj[layer]).view(B, S, nh, hd).transpose(1, 2)
-        k = dense(h, lp.k_proj[layer]).view(B, S, nkv, hd).transpose(1, 2)
-        v = dense(h, lp.v_proj[layer]).view(B, S, nkv, hd).transpose(1, 2)
-        q = apply_rope_bsd(q, cos_p, sin_p)
-        k = apply_rope_bsd(k, cos_p, sin_p)
+        h = rms_norm(x, self.layers.input_layernorm[layer], cfg.rms_norm_eps)
+        q, k, v = self._project(h, ("q_proj", "k_proj", "v_proj"), layer, lora, lora_scale)
+        q = q.view(B, S, nh, hd).transpose(1, 2)
+        k = k.view(B, S, nkv, hd).transpose(1, 2)
+        v = v.view(B, S, nkv, hd).transpose(1, 2)
+        return apply_rope_bsd(q, cos_p, sin_p), apply_rope_bsd(k, cos_p, sin_p), v
+
+    def _attn_out_ffn_in(self, x, attn, layer, lora, lora_scale):
+        """Output projection, residual, post norm, gate/up: -> (x, ffn_pre_down)."""
+        cfg = self.cfg
+        x = x + dense(attn, self.layers.o_proj[layer], self._lora_leaf(lora, "o_proj", layer),
+                      lora_scale)
+        h = rms_norm(x, self.layers.post_attention_layernorm[layer], cfg.rms_norm_eps)
+        gate, up = self._project(h, ("gate_proj", "up_proj"), layer, lora, lora_scale)
+        return x, F.silu(gate.to(_promote(gate.dtype))).to(x.dtype) * up
+
+    def _ffn_down(self, x, ff, layer, lora, lora_scale):
+        return x + dense(ff, self.layers.down_proj[layer],
+                         self._lora_leaf(lora, "down_proj", layer), lora_scale)
+
+    def _after_attn(self, x, attn, layer, lora, lora_scale):
+        x, ff = self._attn_out_ffn_in(x, attn, layer, lora, lora_scale)
+        return self._ffn_down(x, ff, layer, lora, lora_scale)
+
+    def _attend(self, q, k, v, layer, kv_cache, cache_offset, kv_mask, decoding, attn_impl):
+        B, _, S, _ = q.shape
         if kv_cache is not None:
             # the cache is written BEFORE attention: decode reads it back
             _cache_write(kv_cache, k, v, layer, cache_offset)
@@ -155,24 +240,71 @@ class Llama(ParamTree):
                 q, k.to(q.dtype), v.to(q.dtype),
                 kv_mask if kv_mask.shape[1] == S else kv_mask[:, :S],
                 causal=True, impl=attn_impl)
-        attn = attn.transpose(1, 2).reshape(B, S, nh * hd)
-        x = x + dense(attn, lp.o_proj[layer])
-        h = rms_norm(x, lp.post_attention_layernorm[layer], cfg.rms_norm_eps)
-        gate = dense(h, lp.gate_proj[layer])
-        up = dense(h, lp.up_proj[layer])
-        ff = F.silu(gate.to(_promote(gate.dtype))).to(x.dtype) * up
-        return x + dense(ff, lp.down_proj[layer])
+        return attn.transpose(1, 2).reshape(B, S, -1)
+
+    def _block(self, x, layer, cos_p, sin_p, kv_cache, cache_offset, kv_mask, decoding,
+               attn_impl, lora=None, lora_scale=0.0):
+        q, k, v = self._attn_inputs(x, layer, cos_p, sin_p, lora, lora_scale)
+        attn = self._attend(q, k, v, layer, kv_cache, cache_offset, kv_mask, decoding,
+                            attn_impl)
+        return self._after_attn(x, attn, layer, lora, lora_scale)
+
+    def _block_remat(self, x, layer, cos_p, sin_p, kv_mask, attn_impl, lora, lora_scale,
+                     policy):
+        """One layer under rematerialisation (no cache).  ``policy``:
+          None: the whole layer is recomputed in the backward pass; only its
+            input x is kept (the attention forward runs again).
+          "save_attn": the part before attention and the part after it are
+            recomputed separately and the attention call stands between them,
+            outside both, so it keeps q, k, v, o and lse and its backward runs
+            without a second forward.
+          "save_attn_ffn": as "save_attn", and the down projection stands
+            outside too, which keeps its input ``ffn_pre_down``."""
+        def ckpt(fn, *args):
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+        if policy is None:
+            return ckpt(lambda t: self._block(t, layer, cos_p, sin_p, None, 0, kv_mask, False,
+                                              attn_impl, lora, lora_scale), x)
+        q, k, v = ckpt(lambda t: self._attn_inputs(t, layer, cos_p, sin_p, lora, lora_scale), x)
+        attn = self._attend(q, k, v, layer, None, 0, kv_mask, False, attn_impl)
+        if policy == "save_attn":
+            return ckpt(lambda t, a: self._after_attn(t, a, layer, lora, lora_scale), x, attn)
+        x, ff = ckpt(lambda t, a: self._attn_out_ffn_in(t, a, layer, lora, lora_scale), x, attn)
+        return self._ffn_down(x, ff, layer, lora, lora_scale)
 
     def forward(self, input_ids=None, *, inputs_embeds=None, attention_mask=None,
                 positions=None, kv_cache=None, cache_offset=0, kv_valid_mask=None,
-                attn_impl: str = "auto", compute_dtype=torch.bfloat16, logits_dtype=None,
+                lora: dict | None = None, lora_scale: float = 0.0,
+                capture_layer: int | None = None, remat: bool = False,
+                remat_policy: str | None = None, attn_impl: str = "auto",
+                compute_dtype=torch.bfloat16, logits_dtype=None, return_hidden: bool = False,
                 last_logit_only: bool = False) -> dict:
-        """Returns {"logits": [B, S or 1, V], "kv_cache": the cache or None}."""
+        """Decoder forward.
+
+        ``lora``: adapter tree ``{"layers": {proj: {"a", "b"}}, "lm_head": ...}``
+        applied with ``lora_scale``.  ``capture_layer``: also return the f32
+        hidden state after that layer.  ``remat``: recompute each layer in the
+        backward pass instead of keeping its activations (no-cache mode with
+        gradients on; it changes memory, never values); ``remat_policy`` says
+        what is kept, see ``_block_remat``.
+
+        Returns {"logits": [B, S or 1, V], "kv_cache": the cache or None,
+        "captured": [B, S, H] f32 or None, "hidden": final normed states or
+        None}."""
         cfg = self.cfg
+        if remat_policy in ("dots", "dots_no_batch"):
+            raise NotImplementedError(
+                f"remat_policy {remat_policy!r} names an XLA checkpoint policy with no eager "
+                "counterpart; use None, 'save_attn' or 'save_attn_ffn'")
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, got "
+                             f"{remat_policy!r}")
         if logits_dtype is None:
             logits_dtype = _promote(compute_dtype)
         if inputs_embeds is None:
-            inputs_embeds = self.embed_tokens[input_ids]
+            et = self.embed_tokens
+            inputs_embeds = embed_lookup(et, input_ids) if is_qtensor(et) else et[input_ids]
         x = inputs_embeds.to(compute_dtype)
         B, S, _ = x.shape
         if attention_mask is None:
@@ -194,17 +326,31 @@ class Llama(ParamTree):
                 "a multi-token pass into the cache must start at column 0 (chunked "
                 "prefill and speculative verify are not ported)")
         kv_mask = kv_valid_mask if kv_valid_mask is not None else attention_mask
+        layer_lora = None if lora is None else lora.get("layers")
+        use_remat = remat and kv_cache is None and torch.is_grad_enabled()
+        captured = None
         for layer in range(cfg.num_layers):
-            x = self._block(x, layer, cos_p, sin_p, kv_cache, cache_offset, kv_mask,
-                            decoding, attn_impl)
-        return self._epilogue(x, logits_dtype, last_logit_only, kv_cache)
+            if use_remat:
+                x = self._block_remat(x, layer, cos_p, sin_p, kv_mask, attn_impl, layer_lora,
+                                      lora_scale, remat_policy)
+            else:
+                x = self._block(x, layer, cos_p, sin_p, kv_cache, cache_offset, kv_mask,
+                                decoding, attn_impl, layer_lora, lora_scale)
+            if capture_layer is not None and layer == capture_layer:
+                captured = x.to(torch.float32)
+        return self._epilogue(x, lora, lora_scale, logits_dtype, last_logit_only,
+                              return_hidden, captured, kv_cache)
 
-    def _epilogue(self, x, logits_dtype, last_logit_only, kv_cache):
-        """Final norm + LM head; f32 logits after a head in the compute dtype."""
+    def _epilogue(self, x, lora, lora_scale, logits_dtype, last_logit_only, return_hidden,
+                  captured, kv_cache):
+        """Final norm + LM head (LoRA on ``lm_head`` included); logits cast
+        to ``logits_dtype`` after a head in the compute dtype."""
         x = rms_norm(x, self.norm, self.cfg.rms_norm_eps)
+        lm_lora = lora.get("lm_head") if lora is not None else None
         xh = x[:, -1:] if last_logit_only else x
-        logits = dense(xh, self.lm_head).to(logits_dtype)
-        return {"logits": logits, "kv_cache": kv_cache}
+        logits = dense(xh, self.lm_head, lm_lora, lora_scale).to(logits_dtype)
+        return {"logits": logits, "kv_cache": kv_cache, "captured": captured,
+                "hidden": x if return_hidden else None}
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator | None = None, *,

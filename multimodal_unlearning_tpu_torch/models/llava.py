@@ -17,17 +17,23 @@ from multimodal_unlearning_tpu_torch.config import LlavaConfig
 from multimodal_unlearning_tpu_torch.device import resolve_device
 from multimodal_unlearning_tpu_torch.models import llama, vit
 from multimodal_unlearning_tpu_torch.models.params import ParamTree
+from multimodal_unlearning_tpu_torch.utils.quantize import embed_lookup, is_qtensor
 
 __all__ = ["LlavaConfig", "Llava", "init_params", "project", "splice_image_embeds"]
 
 
-def project(params, feats):
+def project(params, feats, lora=None, lora_scale: float = 0.0):
     """Two-layer MLP projector with exact (erf) GELU, HF's
-    ``projector_hidden_act="gelu"``."""
-    h = feats @ params.fc1.to(feats.dtype) + params.fc1_bias
+    ``projector_hidden_act="gelu"``; ``lora``: ``{"fc1", "fc2"}`` adapters."""
+    def dense(x, name):
+        y = x @ getattr(params, name).to(x.dtype) + getattr(params, f"{name}_bias")
+        ab = lora.get(name) if lora is not None else None
+        return llama.apply_lora_delta(y, x, ab, lora_scale)
+
+    h = dense(feats, "fc1")
     h = F.gelu(h.to(torch.promote_types(h.dtype, torch.float32)),
                approximate="none").to(feats.dtype)
-    return h @ params.fc2.to(h.dtype) + params.fc2_bias
+    return dense(h, "fc2")
 
 
 def splice_image_embeds(token_embeds, image_embeds, image_token_mask):
@@ -68,25 +74,36 @@ class Llava(nn.Module):
         return self
 
     def forward(self, input_ids, *, pixel_values=None, attention_mask=None, positions=None,
-                kv_cache=None, cache_offset=0, kv_valid_mask=None, attn_impl: str = "auto",
-                compute_dtype=torch.bfloat16, logits_dtype=None,
+                kv_cache=None, cache_offset=0, kv_valid_mask=None, lora: dict | None = None,
+                lora_scale: float = 0.0, capture_layer: int | None = None,
+                remat: bool = False, remat_policy: str | None = None,
+                attn_impl: str = "auto", compute_dtype=torch.bfloat16, logits_dtype=None,
                 last_logit_only: bool = False) -> dict:
-        """VLM forward; ``input_ids`` already hold the expanded image tokens."""
+        """VLM forward; ``input_ids`` already hold the expanded image tokens.
+        ``lora``: ``{"language_model": ..., "projector": ...}`` adapters.  The
+        vision tower is frozen and runs without building a graph."""
         cfg = self.cfg
         lm = self.language_model
-        embeds = lm.embed_tokens[input_ids].to(compute_dtype)
+        et = lm.embed_tokens
+        embeds = (embed_lookup(et, input_ids) if is_qtensor(et) else et[input_ids]).to(
+            compute_dtype)
         if pixel_values is not None:
-            feats = self.vision_tower(
-                pixel_values, feature_layer=cfg.vision_feature_layer,
-                attn_impl=attn_impl, compute_dtype=compute_dtype)
+            with torch.no_grad():
+                feats = self.vision_tower(
+                    pixel_values, feature_layer=cfg.vision_feature_layer,
+                    attn_impl=attn_impl, compute_dtype=compute_dtype)
             if cfg.vision_feature_select == "patch":
                 feats = feats[:, 1:, :]
-            image_embeds = project(self.projector, feats)
+            image_embeds = project(self.projector, feats,
+                                   lora=None if lora is None else lora.get("projector"),
+                                   lora_scale=lora_scale)
             embeds = splice_image_embeds(embeds, image_embeds,
                                          input_ids == cfg.image_token_id)
         return lm(inputs_embeds=embeds, attention_mask=attention_mask, positions=positions,
                   kv_cache=kv_cache, cache_offset=cache_offset, kv_valid_mask=kv_valid_mask,
-                  attn_impl=attn_impl, compute_dtype=compute_dtype,
+                  lora=lora if lora is None else lora.get("language_model"),
+                  lora_scale=lora_scale, capture_layer=capture_layer, remat=remat,
+                  remat_policy=remat_policy, attn_impl=attn_impl, compute_dtype=compute_dtype,
                   logits_dtype=logits_dtype, last_logit_only=last_logit_only)
 
 

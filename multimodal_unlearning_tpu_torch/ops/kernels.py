@@ -24,7 +24,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_decode": "flash_decode.cu"}
+SOURCES = {
+    "flash_fwd": "flash_fwd.cu",
+    "flash_decode": "flash_decode.cu",
+    "flash_bwd_dq": "flash_bwd_dq.cu",
+    "flash_bwd_dkv": "flash_bwd_dkv.cu",
+}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -38,6 +43,10 @@ _SIGNATURES = {
     "flash_fwd": ("mmu_flash_fwd_bf16",
                   [_P] * 6 + [_I] * 6 + [_LL] * 12 + [_F, _I, _I, _P]),
     "flash_decode": ("mmu_flash_decode_bf16", [_P] * 5 + [_I] * 7 + [_F, _P]),
+    "flash_bwd_dq": ("mmu_flash_bwd_dq_bf16",
+                     [_P] * 8 + [_I] * 6 + [_LL] * 15 + [_F, _I, _I, _P]),
+    "flash_bwd_dkv": ("mmu_flash_bwd_dkv_bf16",
+                      [_P] * 9 + [_I] * 6 + [_LL] * 18 + [_F, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

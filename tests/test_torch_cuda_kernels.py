@@ -1,5 +1,5 @@
-"""Kernels B1 (flash forward) and B4 (flash decode) against their plain
-PyTorch versions on the card, in bf16.
+"""Kernels B1 (flash forward), B2/B3 (flash backward: dq, dk/dv) and B4
+(flash decode) against their plain PyTorch versions on the card, in bf16.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  On the card:
 
@@ -9,7 +9,11 @@ These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  On the card:
 machine does not need.)  Tolerances: the kernel rounds the probabilities to
 bf16 before the second product and the output to bf16, the plain version
 runs in f32 and rounds once, so outputs agree to a few bf16 ulps of |o| <= 1:
-2e-2 absolute; lse is f32 on both sides: 1e-3.
+2e-2 absolute; lse is f32 on both sides: 1e-3.  The backward kernels and
+their plain version start from the same saved o and lse and round p and ds to
+bf16 at the same place; what differs is the f32 summation order and the final
+bf16 rounding of sums over up to 768 queries or keys, so gradients agree to
+1% of the largest gradient entry plus one bf16 ulp of the entry.
 """
 
 import numpy as np
@@ -17,7 +21,8 @@ import pytest
 import torch
 
 from multimodal_unlearning_tpu_torch.ops import kernels
-from multimodal_unlearning_tpu_torch.ops.attention import flash_attention_lse
+from multimodal_unlearning_tpu_torch.ops.attention import (
+    flash_attention, flash_attention_bwd, flash_attention_lse)
 from multimodal_unlearning_tpu_torch.ops.decode_attention import decode_attention
 
 pytestmark = pytest.mark.cuda
@@ -85,3 +90,60 @@ def test_flash_decode_matches_plain(dev, G):
     ref = decode_attention(q, cache, 3, valid, impl="plain")
     torch.testing.assert_close(o.float(), ref.float(), atol=O_TOL, rtol=0)
     assert torch.all(o[3] == 0)
+
+
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,Sq,Sk,D,causal,q_offset,pad",
+    [
+        (2, 32, 32, 768, 768, 128, True, 0, 0),      # the forget step's shape
+        (1, 32, 32, 768, 768, 128, True, 0, 100),    # left padding
+        (2, 32, 8, 200, 200, 128, True, 0, 37),      # GQA
+        (2, 8, 8, 70, 300, 128, True, 230, 0),       # q_offset > 0, Sk > Sq
+        (1, 16, 16, 577, 577, 64, False, 0, 0),      # ViT shape, not causal
+        (3, 4, 2, 129, 129, 64, True, 0, 129),       # a fully padded batch row: dead rows
+    ],
+    ids=["step", "left_pad", "gqa", "q_offset", "vit", "dead_row"],
+)
+def test_flash_bwd_matches_plain(dev, B, Hq, Hkv, Sq, Sk, D, causal, q_offset, pad):
+    rng = np.random.default_rng(2)
+    q, k, v = (_randn(rng, (B, h, s, D), dev) for h, s in ((Hq, Sq), (Hkv, Sk), (Hkv, Sk)))
+    # do arrives from a transpose in the model: [B, S, H, D] storage
+    do = _randn(rng, (B, Sq, Hq, D), dev).transpose(1, 2)
+    mask = torch.ones((B, Sk), dtype=torch.int32, device=dev)
+    mask[0, :pad] = 0
+    o, lse = flash_attention_lse(q, k, v, mask, causal=causal, q_offset=q_offset)
+    before = dict(kernels.LAUNCHES)
+    got = flash_attention_bwd(q, k, v, mask, do, o, lse, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert kernels.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    want = flash_attention_bwd(q, k, v, mask, do, o, lse, causal=causal, q_offset=q_offset,
+                               impl="plain")
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        assert torch.isfinite(g.float()).all(), name
+        atol = 1e-2 * w.float().abs().max().item()
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=2 ** -7, msg=lambda m: f"{name}: {m}")
+    dead = (lse <= -1e29).expand_as(got[0])
+    assert torch.all(got[0].float()[dead] == 0)
+
+
+def test_flash_attention_autograd_runs_the_kernels(dev):
+    """``flash_attention`` on CUDA tensors: backward() launches B2 and B3 and
+    agrees with autograd through the plain forward."""
+    rng = np.random.default_rng(3)
+    B, H, S, D = 2, 8, 300, 128
+    q, k, v = (_randn(rng, (B, H, S, D), dev).requires_grad_() for _ in range(3))
+    g = _randn(rng, (B, H, S, D), dev)
+    mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+    mask[1, :50] = 0
+    before = dict(kernels.LAUNCHES)
+    got = torch.autograd.grad(flash_attention(q, k, v, mask, causal=True), (q, k, v), g)
+    torch.cuda.synchronize()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert kernels.LAUNCHES[name] == before[name] + 1
+    want = torch.autograd.grad(flash_attention(q, k, v, mask, causal=True, impl="plain"),
+                               (q, k, v), g)
+    for gg, w in zip(got, want):
+        atol = 2e-2 * w.float().abs().max().item()
+        torch.testing.assert_close(gg.float(), w.float(), atol=atol, rtol=2 ** -6)

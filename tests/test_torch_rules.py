@@ -23,7 +23,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "multimodal_unlearning_tpu"}
 
 
 def _port_files():
-    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "bench_int_mm.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
@@ -49,14 +49,16 @@ def test_port_imports_with_jax_blocked():
         f"for name in {sorted(FORBIDDEN)!r}: sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, bench_int_mm\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
-    assert "multimodal_unlearning_tpu_torch.serve.engine" in mods
+    for name in ("serve.engine", "train.trainer", "train.losses", "train.optim",
+                 "utils.quantize", "utils.pytree", "models.lora", "cli.mm_forget", "bench"):
+        assert f"multimodal_unlearning_tpu_torch.{name}" in mods
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked():
@@ -78,6 +80,14 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
         serve.build_engine(serve.load_config(
             ["model_family=tiny-llava-test", "quantize_base=false"]))
     ServingEngine(model, cfg, "llava", device="cpu")
+    from multimodal_unlearning_tpu_torch import bench
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.setup("tiny-llava-test")
+    from multimodal_unlearning_tpu_torch.models import convert
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.adapters_from_jax({"a": [[0.0]]})
 
 
 @pytest.mark.parametrize("option", [
