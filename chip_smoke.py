@@ -7,7 +7,10 @@
    ``multimodal_unlearning_tpu_torch/ops/csrc`` with nvcc (sm_90a) and
    prints the build time.
 2. Holds each kernel against its plain PyTorch version in bf16 at the
-   shapes the main paths give it -- B1 (flash forward): the ViT tower,
+   shapes the main paths give it -- B4q (int8 flash decode) on the int8
+   cache [32, 8, 32, 2048, 128]; B5 and B5q (verify chunk, bf16 and int8
+   cache) at the verify round (B 8, C 5), a chunked-prefill pass (B 1, C 512
+   over a 1,536-column slab view) and GQA; B1 (flash forward): the ViT tower,
    a left-padded causal prefill, GQA, q_offset > 0, and the forget step's
    two shapes (decoder (2, 32, 768, 128) causal, ViT (2, 16, 577, 64)); B4 (flash decode): a
    stacked [4, 8, 32, 2048, 128] cache at layer 3 with ragged validity and
@@ -25,7 +28,18 @@
    give the same first token and last-position prefill logits within the
    stated tolerance.  Then times a steady decode window (8 live slots) on
    both paths.
-4. Takes forget steps on the same model at full width and depth through
+   3b. The same model and requests with speculation (K 4, drafts on half
+   the requests), chunked prefill (512) and a registered system prompt
+   (text requests behind it on every other request, the others whole and
+   chunked): streams held against the full prompts through the plain engine
+   up to any first difference, which must sit at a near-tie of the
+   reference; B1 and B5 launches asserted.
+   3c. The serve config as it ships: ``quantize_base=true`` (int8 decoder,
+   W8A16, quantized in place) with ``kv_cache_dtype=int8``; B4q launches
+   asserted, prefill logits against the bf16 run printed; then speculation
+   on the same quantized model, held against the plain int8 run by the same
+   rule, B5q launches asserted.  Decode windows of each configuration.
+4. Takes forget steps on the same (now int8) model at full width and depth through
    ``cli.mm_forget.make_apply_fn`` + ``train.trainer.make_train_step`` at the
    operating point of the port's bench (int8 decoder, W8A8 forward and int8
    dx backward, bf16 LoRA r=8, remat with ``save_attn``, AdamW, batch 2,
@@ -59,7 +73,8 @@ from multimodal_unlearning_tpu_torch.data import preprocess_image
 from multimodal_unlearning_tpu_torch.ops import kernels
 from multimodal_unlearning_tpu_torch.ops.attention import (
     flash_attention_lse, flash_bwd_dkv, flash_bwd_dq)
-from multimodal_unlearning_tpu_torch.ops.decode_attention import decode_attention
+from multimodal_unlearning_tpu_torch.ops.decode_attention import (
+    chunk_decode_attention, decode_attention)
 from multimodal_unlearning_tpu_torch.serve import ServingEngine
 from multimodal_unlearning_tpu_torch.utils.pytree import tree_leaves_with_path
 
@@ -227,6 +242,124 @@ def check_b4(dev, gen):
           f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.2f} MB; "
           f"streaming all {B * Smax} columns would be {full_ms:.4f} ms)", flush=True)
     return err, dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def _int8_cache(shape, dev, gen):
+    """A random int8 cache with f32 scales [L, B, Hkv, 1, Smax] (positive,
+    of the size the quantize-at-write gives unit-variance K/V)."""
+    cache = {}
+    for n in ("k", "v"):
+        cache[n] = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+        cache[n + "_s"] = 0.02 + 0.01 * torch.rand(shape[:3] + (1, shape[3]), generator=gen,
+                                                    device=dev)
+    return cache
+
+
+def check_b4q(dev, gen):
+    """B4q at the int8 decode shape of LLaVA-1.5-7B's serving path."""
+    L, B, Hq, Hkv, Smax, D, layer = 32, 8, 32, 32, 2048, 128, 31
+    cache = _int8_cache((L, B, Hkv, Smax, D), dev, gen)
+    q = randn(gen, (B, Hq, 1, D), dev)
+    valid = torch.zeros((B, Smax), dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(1)
+    for b in range(B):
+        if b == 2:
+            continue  # an idle slot: all invalid
+        bucket = int(rng.integers(1, 12)) * 128
+        plen = int(rng.integers(1, bucket + 1))
+        valid[b, bucket - plen:bucket + int(rng.integers(0, 64))] = 1
+    o = decode_attention(q, cache, layer, valid)
+    torch.cuda.synchronize()
+    ref = decode_attention(q, cache, layer, valid, impl="plain")
+    err = (o.float() - ref.float()).abs().max().item()
+    if err > KERNEL_TOL or not torch.all(o[2] == 0):
+        raise AssertionError(f"B4q: max |err| {err} (tol {KERNEL_TOL}) or the all-invalid row "
+                             "not 0")
+    n_valid = int(valid.sum().item())
+    # valid int8 K and V columns of the layer with their two f32 scales, q, o, valid
+    nbytes = n_valid * Hkv * (2 * D + 8) + 2 * (q.numel() + o.numel()) + 4 * valid.numel()
+    b_ms, b_by = bound(nbytes, 4.0 * D * n_valid * Hq)
+    ms = cuda_ms(lambda: decode_attention(q, cache, layer, valid))
+    plain_ms = cuda_ms(lambda: decode_attention(q, cache, layer, valid, impl="plain"))
+    # the yardstick: no PyTorch call reads an int8 cache; SDPA over a bf16
+    # slab of the same shape
+    kl, vl = (randn(gen, (B, Hkv, Smax, D), dev) for _ in range(2))
+    bool_mask = valid.bool()[:, None, None, :]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kl, vl, attn_mask=bool_mask))
+    print(f"B4q int8 cache [{L},{B},{Hkv},{Smax},{D}] layer {layer}, {n_valid} valid columns of "
+          f"{B * Smax}: max|err| {err:.3e} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"sdpa on a bf16 cache of the same shape {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}; {nbytes / 1e6:.2f} MB)", flush=True)
+    return err, dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def check_b5(dev, gen):
+    """B5 and B5q: the verify round of speculation (B 8, C 5, per-row
+    offsets, stale columns past each chunk), a chunked-prefill pass (B 1,
+    C 512 over a 1,536-column slab view) and a GQA case, on a bf16 and an
+    int8 cache.  Returns per kernel (max error, {case: numbers})."""
+    cases = [
+        # name, B, Hq, Hkv, C, Smax (columns the cache holds), slab columns read
+        ("verify", 8, 32, 32, 5, 2048, 2048),
+        ("prefill_chunk", 1, 32, 32, 512, 2048, 1536),
+        ("gqa", 4, 32, 8, 5, 2048, 2048),
+    ]
+    L, D, layer = 4, 128, 3
+    rng = np.random.default_rng(2)
+    worst = {"chunk_decode": 0.0, "chunk_decode_q8": 0.0}
+    record = {"chunk_decode": {}, "chunk_decode_q8": {}}
+    for name, B, Hq, Hkv, C, Smax, S in cases:
+        valid = torch.zeros((B, S), dtype=torch.int32, device=dev)
+        offset = torch.zeros((B,), dtype=torch.int32, device=dev)
+        for b in range(B):
+            if name == "prefill_chunk":
+                off, start = S - C, 0  # 1,024 prefix columns, then the chunk
+            else:
+                off = int(rng.integers(200, S - 64))
+                start = int(rng.integers(0, 128))  # left padding below the prefix
+            valid[b, start:off] = 1
+            offset[b] = off
+        q = randn(gen, (B, Hq, C, D), dev)
+        vis = valid.bool()[:, None, :] | (
+            (torch.arange(S, device=dev)[None, None, :] >= offset[:, None, None].long())
+            & (torch.arange(S, device=dev)[None, None, :]
+               <= offset[:, None, None].long() + torch.arange(C, device=dev)[None, :, None]))
+        pairs = Hq * int(vis.sum().item())
+        cols = Hkv * int(vis.any(dim=1).sum().item())  # (row, kv-head, column) read
+        for kname, int8 in (("chunk_decode", False), ("chunk_decode_q8", True)):
+            shape = (L, B, Hkv, Smax, D)
+            full = _int8_cache(shape, dev, gen) if int8 else {
+                n: randn(gen, shape, dev) for n in ("k", "v")}
+            # the columns a pass reads are a view (a slot's or a slab's)
+            cache = {n: t[..., :S, :] if n in ("k", "v") else t[..., :S] for n, t in full.items()}
+            o = chunk_decode_attention(q, cache, layer, valid, offset)
+            torch.cuda.synchronize()
+            ref = chunk_decode_attention(q, cache, layer, valid, offset, impl="plain")
+            err = (o.float() - ref.float()).abs().max().item()
+            if err > KERNEL_TOL:
+                raise AssertionError(f"{kname} {name}: max |err| {err} (tol {KERNEL_TOL})")
+            worst[kname] = max(worst[kname], err)
+            per_col = 2 * D + 8 if int8 else 4 * D
+            nbytes = cols * per_col + 2 * (q.numel() + o.numel()) + 4 * (valid.numel() + B)
+            b_ms, b_by = bound(nbytes, 4.0 * D * pairs)
+            ms = cuda_ms(lambda: chunk_decode_attention(q, cache, layer, valid, offset))
+            plain_ms = cuda_ms(lambda: chunk_decode_attention(q, cache, layer, valid, offset,
+                                                              impl="plain"), iters=5)
+            # the yardstick: SDPA with an explicit boolean mask over the
+            # layer's bf16 columns (for B5q a bf16 cache of the same shape)
+            kl, vl = ((cache[n][layer] for n in ("k", "v")) if not int8
+                      else (randn(gen, (B, Hkv, S, D), dev) for _ in range(2)))
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, kl, vl, attn_mask=vis[:, None], enable_gqa=Hq != Hkv))
+            print(f"{'B5q' if int8 else 'B5'} {name} B{B} Hq{Hq} Hkv{Hkv} C{C} slab {S} of "
+                  f"Smax {Smax}{' int8' if int8 else ''}: max|err| {err:.3e} | kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa{' (bf16 cache)' if int8 else ''} "
+                  f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                  f"{4.0 * D * pairs / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+            record[kname][name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                       bound_ms=b_ms, bound_by=b_by)
+            del full, cache, o, ref, kl, vl
+    return worst, record
 
 
 def check_bwd(dev, gen):
@@ -444,7 +577,7 @@ def run_main_path(cfg):
           f"for {len(reqs) - len(near_ties)}/{len(reqs)} requests, near-ties {near_ties} "
           f"(tie margin {TIE_MARGIN}); plain-path top-2 margins "
           f"{[round(x, 4) for x in margins]}", flush=True)
-    return engine, launches, specs
+    return engine, launches, specs, kern
 
 
 def profiled(fn, ranges=()):
@@ -502,8 +635,9 @@ def prefill_profile(engine, spec):
 
 
 def decode_window(engine, label, profile=False):
-    """Steady decode with all slots live: ms per decode step over 3 chunks,
-    and (optionally) the device's busy share over one more chunk."""
+    """Steady decode with all slots live: ms per decode step (a verify round
+    under speculation) and delivered tokens/s over 3 chunks, and
+    (optionally) the device's busy share over one more chunk."""
     rng = np.random.default_rng(1)
     # 1 + 5 chunks of tokens: every slot stays live through the timed and
     # the profiled chunks
@@ -513,11 +647,14 @@ def decode_window(engine, label, profile=False):
             for _ in range(engine.B)]
     engine.step()  # prefills every slot and dispatches the first chunk
     torch.cuda.synchronize()
+    n0 = sum(len(r.tokens) for r in reqs)
     t0 = time.perf_counter()
     for _ in range(3):
         engine.step()
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / (3 * engine.chunk)
+    wall = time.perf_counter() - t0
+    step_ms = wall * 1e3 / (3 * engine.chunk)
+    tok_s = (sum(len(r.tokens) for r in reqs) - n0) / wall
     busy = ""
     if profile:
         wall, dev_ms, n, top = profiled(engine.step)
@@ -531,8 +668,171 @@ def decode_window(engine, label, profile=False):
             raise AssertionError(f"decode window: request {r.uid} ended with "
                                  f"{len(r.tokens)}/{budget} tokens ({r.finish_reason!r})")
     print(f"decode window ({label}, {engine.B} live slots): {step_ms:.3f} ms per decode step "
-          f"= {engine.B * 1e3 / step_ms:.1f} tok/s{busy}", flush=True)
+          f"(verify round under speculation), {tok_s:.1f} tok/s delivered{busy}", flush=True)
+    engine._state = None  # free its cache
     return step_ms
+
+
+# ------------------------------------------------------------- phase 3b/3c
+SYSTEM_PROMPT = ("You are a careful assistant for a vision-language benchmark. Answer the "
+                 "question in one short sentence.")
+
+
+def first_difference(model, label, got, want, prompts, dtype=torch.bfloat16):
+    """The two stream sets must agree token for token up to any first
+    difference; there the reference path (a teacher-forced forward of
+    ``model`` over the prompt and the reference tokens before it) must see
+    its top two logits closer than TIE_MARGIN.  Nothing after a first
+    difference is compared.  Returns the near-ties found."""
+    ties = []
+    for i, (g, w, (ids, pix)) in enumerate(zip(got, want, prompts)):
+        n = min(len(g), len(w))
+        t = next((j for j in range(n) if g[j] != w[j]), n if len(g) != len(w) else None)
+        if t is None:
+            continue
+        dev = next(model.parameters()).device
+        seq = torch.tensor([list(ids) + list(w[:t])], device=dev)
+        pv = None if pix is None else torch.from_numpy(np.asarray(pix)[None]).to(dev, dtype)
+        with torch.inference_mode():
+            logits = model(seq, pixel_values=pv, compute_dtype=dtype,
+                           last_logit_only=True)["logits"][0, -1].float()
+        top2 = torch.topk(logits, 2).values
+        gap = (top2[0] - top2[1]).item()
+        if gap >= TIE_MARGIN:
+            raise AssertionError(f"{label}: request {i} differs from the reference at token {t} "
+                                 f"({g[t] if t < len(g) else 'end'} vs "
+                                 f"{w[t] if t < len(w) else 'end'}) where the reference's top "
+                                 f"two logits are {gap:.4f} apart (tie margin {TIE_MARGIN})")
+        ties.append((i, t, round(gap, 4)))
+    return ties
+
+
+def _serve(engine, jobs, counted=True):
+    """Submit (ids, max_new, pixels, draft, prefix) jobs, run to the end;
+    returns (requests, wall s, launches, peak GiB) with the launch counts of
+    this run alone."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if counted:
+        kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(ids, n, pixel_values=pix, draft_ref=d, prefix=pid)
+            for ids, n, pix, d, pid in jobs]
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for r, (ids, n, *_rest) in zip(reqs, jobs):
+        if not r.done or not (len(r.tokens) == n or r.finish_reason == "eos"):
+            raise AssertionError(f"request {r.uid} ({len(ids)} prompt tokens) ended with "
+                                 f"{len(r.tokens)}/{n} tokens ({r.finish_reason!r})")
+    return reqs, wall, launches, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _report(label, engine, reqs, wall, launches, peak):
+    n_tok = sum(len(r.tokens) for r in reqs)
+    ttft = [r.first_t - r.submit_t for r in reqs]
+    st = engine.stats()
+    print(f"{label}: {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s = "
+          f"{n_tok / wall:.2f} tok/s; TTFT median {statistics.median(ttft):.3f} s max "
+          f"{max(ttft):.3f} s; tokens per verify round {st['tokens_per_round']:.3f}; "
+          f"prefill chunks {st['prefill_chunks']}; max_memory_allocated {peak:.2f} GiB; "
+          f"launches {launches}", flush=True)
+
+
+SERVE_ARGS = ["model_family=llava", "num_slots=8", "max_length=2048", "chunk=16",
+              "dtype=bfloat16", "seed=0"]
+
+
+def run_spec_path(model, specs, processor, base=SERVE_ARGS):
+    """bf16 serving with speculation (K 4), chunked prefill (512) and a
+    registered system prompt, through cli/serve's build_engine, against the
+    full prompts through the plain engine."""
+    cfg = serve.load_config(base + ["quantize_base=false", "speculative_k=4",
+                                    "prefill_chunk=512"])
+    engine, _, _, _ = serve.build_engine(cfg, model=model)
+    tok = processor.tokenizer
+    system = tok.encode(SYSTEM_PROMPT, add_special_tokens=True)
+    pid = engine.register_prefix(system)
+    jobs, full = [], []
+    for i, (ids, n, pix) in enumerate(specs):
+        draft = list(ids[-engine.R:]) if i % 2 == 0 else None  # draft text on half
+        if pix is not None:  # image prompts prefill whole, as the CLI does
+            jobs.append((ids, n, pix, draft, None))
+            full.append((ids, n, pix, None, None))
+        elif i % 2 == 0:     # behind the prefix: only the suffix is prefilled
+            jobs.append((ids, n, None, draft, pid))
+            full.append((system + ids, n, None, None, None))
+        else:                # whole, chunked when longer than 512 tokens
+            jobs.append((system + ids, n, None, draft, None))
+            full.append((system + ids, n, None, None, None))
+    _serve(engine, jobs[:2], counted=False)  # warm-up
+    reqs, wall, launches, peak = _serve(engine, jobs)
+    _report("speculative + chunked + prefix path (bf16, K=4, chunk 512)", engine, reqs, wall,
+            launches, peak)
+    for name in ("flash_fwd", "chunk_decode"):
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} never launched on the speculative path")
+    if engine.stats()["prefill_chunks"] == 0:
+        raise AssertionError("no prompt went through chunked prefill")
+    spec_engine = engine
+    engine._state = None
+    plain = ServingEngine(model, spec_engine.model_cfg, "llava", num_slots=spec_engine.B,
+                          max_len=spec_engine.smax, chunk=spec_engine.chunk,
+                          bucket_multiple=spec_engine.bucket_multiple,
+                          pad_token_id=spec_engine.pad_id, eos_token_id=spec_engine.eos,
+                          cache_dtype=spec_engine.compute_dtype,
+                          compute_dtype=spec_engine.compute_dtype, device=spec_engine.device)
+    want, *_ = _serve(plain, full, counted=False)
+    plain._state = None
+    ties = first_difference(model, "speculative path", [r.tokens for r in reqs],
+                            [r.tokens for r in want], [(ids, pix) for ids, _, pix, *_ in full],
+                            spec_engine.compute_dtype)
+    print(f"speculative path vs the plain engine on the full prompts: streams agree up to "
+          f"first differences at near-ties {ties} (request, token, reference top-2 gap; "
+          f"tie margin {TIE_MARGIN})", flush=True)
+    return spec_engine, launches
+
+
+def run_int8_path(model, specs, bf16_logits, base=SERVE_ARGS):
+    """The serve config as it ships (int8 decoder, W8A16) with the int8 KV
+    cache, through cli/serve's build_engine, which quantizes ``model`` in
+    place; then speculation (K 4) on the same quantized model, held against
+    the plain int8 run."""
+    logits = {}
+    cfg = serve.load_config(base + ["quantize_base=true", "kv_cache_dtype=int8"])
+    engine, _, _, _ = serve.build_engine(
+        cfg, model=model, on_prefill=lambda r, last: logits.__setitem__(r.uid, last.float().cpu()))
+    jobs = [(ids, n, pix, None, None) for ids, n, pix in specs]
+    _serve(engine, [(ids, 2, pix, None, None) for ids, _, pix in (specs[0], specs[-2])],
+           counted=False)  # warm-up
+    reqs, wall, launches, peak = _serve(engine, jobs)
+    _report("int8 path (quantize_base=true, kv_cache_dtype=int8)", engine, reqs, wall,
+            launches, peak)
+    if launches["flash_decode_q8"] == 0 or launches["flash_decode"] != 0:
+        raise AssertionError(f"the int8 path must decode through B4q alone: {launches}")
+    d = [(logits[r.uid] - b).abs().max().item() for r, b in zip(reqs, bf16_logits)]
+    if not all(torch.isfinite(logits[r.uid]).all() for r in reqs):
+        raise AssertionError("int8 path: prefill logits not finite")
+    print(f"int8 path prefill logits vs the bf16 run, max|diff| per request (a finding, not a "
+          f"gate): {[round(x, 4) for x in d]}", flush=True)
+    engine._state = None
+
+    spec_cfg = dict(cfg, speculative_k=4)
+    spec, _, _, _ = serve.build_engine(spec_cfg, model=model)
+    _serve(spec, [(ids, 2, pix, None, None) for ids, _, pix in (specs[0], specs[-2])],
+           counted=False)
+    sreqs, swall, slaunches, speak = _serve(spec, jobs)
+    _report("int8 path with speculation (K=4)", spec, sreqs, swall, slaunches, speak)
+    if slaunches["chunk_decode_q8"] == 0:
+        raise AssertionError(f"B5q never launched on the int8 speculative path: {slaunches}")
+    ties = first_difference(model, "int8 speculative path", [r.tokens for r in sreqs],
+                            [r.tokens for r in reqs], [(ids, pix) for ids, _, pix in specs],
+                            spec.compute_dtype)
+    print(f"int8 speculative path vs the plain int8 run: streams agree up to first "
+          f"differences at near-ties {ties} (tie margin {TIE_MARGIN})", flush=True)
+    spec._state = None
+    return engine, spec, launches, slaunches
 
 
 # ------------------------------------------------------------- phase 4
@@ -588,10 +888,10 @@ def _forget_path(model, timed_steps):
     # per step: two splits; B1 once per decoder layer and per ViT layer (the
     # remat policy save_attn keeps o and lse, so B1 does not run again in the
     # backward pass); B2 and B3 once per decoder layer (the ViT is frozen)
-    expect = {"flash_fwd": timed_steps * 2 * (dec.num_layers + vis.num_layers),
-              "flash_bwd_dq": timed_steps * 2 * dec.num_layers,
-              "flash_bwd_dkv": timed_steps * 2 * dec.num_layers,
-              "flash_decode": 0}
+    expect = dict.fromkeys(kernels.LAUNCHES, 0)
+    expect.update({"flash_fwd": timed_steps * 2 * (dec.num_layers + vis.num_layers),
+                   "flash_bwd_dq": timed_steps * 2 * dec.num_layers,
+                   "flash_bwd_dkv": timed_steps * 2 * dec.num_layers})
     if launches != expect:
         raise AssertionError(f"forget path launches {launches}, expected {expect}")
     step_ms = wall * 1e3 / timed_steps
@@ -665,12 +965,13 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     b1_err, b1 = check_b1(dev, gen)
     b4_err, b4 = check_b4(dev, gen)
+    b4q_err, b4q = check_b4q(dev, gen)
+    b5_err, b5 = check_b5(dev, gen)
     bwd_err, bwd = check_bwd(dev, gen)
     torch.cuda.empty_cache()
 
-    cfg = serve.load_config(["model_family=llava", "quantize_base=false", "num_slots=8",
-                             "max_length=2048", "chunk=16", "dtype=bfloat16", "seed=0"])
-    engine, launches, specs = run_main_path(cfg)
+    cfg = serve.load_config(SERVE_ARGS + ["quantize_base=false"])
+    engine, launches, specs, bf16_logits = run_main_path(cfg)
     prefill_profile(engine, specs[7])   # the longest text prompt
     prefill_profile(engine, specs[8])   # an image request
     kernel_step = decode_window(engine, "kernels", profile=True)
@@ -683,13 +984,26 @@ def main() -> int:
     plain_step = decode_window(plain, "plain attention")
     print(f"decode step, kernels vs plain attention: {kernel_step:.3f} vs {plain_step:.3f} ms",
           flush=True)
-
-    # the forget step on the served model, once the serving phases are done
-    # and their caches freed
     model = engine.params
-    plain._state = None
+    processor = serve.build_processor(serve.get_model_identifiers("llava"))
     del engine, plain
     torch.cuda.empty_cache()
+
+    # speculation + chunked prefill + prefix cache on the bf16 model
+    spec, spec_launches = run_spec_path(model, specs, processor)
+    decode_window(spec, "bf16, speculation K=4", profile=True)
+    del spec
+    torch.cuda.empty_cache()
+    # the serve config as it ships: quantizes the model in place
+    eng8, spec8, q8_launches, spec8_launches = run_int8_path(model, specs, bf16_logits)
+    decode_window(eng8, "int8 weights + int8 cache", profile=True)
+    decode_window(spec8, "int8 weights + int8 cache, speculation K=4", profile=True)
+    del eng8, spec8
+    torch.cuda.empty_cache()
+
+    # the forget step on the served model (int8 already: the bench's
+    # quantization passes it through), once the serving phases are done
+    # and their caches freed
     step_launches = run_forget_path(model)
 
     rows = [
@@ -714,6 +1028,24 @@ def main() -> int:
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/decode_attention.py:51",
              launches=launches["flash_decode"], max_abs_err=b4_err, **b4),
+        dict(name="flash_decode_q8 (B4q)", route="cuda",
+             source="multimodal_unlearning_tpu_torch/ops/csrc/flash_decode.cu",
+             replaces="multimodal_unlearning_tpu/ops/decode_attention.py:71",
+             launches=q8_launches["flash_decode_q8"], max_abs_err=b4q_err, **b4q),
+        dict(name="chunk_decode (B5)", route="cuda",
+             source="multimodal_unlearning_tpu_torch/ops/csrc/chunk_decode.cu",
+             replaces="multimodal_unlearning_tpu/ops/decode_attention.py:242",
+             launches=spec_launches["chunk_decode"], max_abs_err=b5_err["chunk_decode"],
+             **b5["chunk_decode"]["verify"],
+             # the chunked-prefill / prefix-suffix regime and the GQA case
+             prefill_chunk=b5["chunk_decode"]["prefill_chunk"], gqa=b5["chunk_decode"]["gqa"]),
+        dict(name="chunk_decode_q8 (B5q)", route="cuda",
+             source="multimodal_unlearning_tpu_torch/ops/csrc/chunk_decode.cu",
+             replaces="multimodal_unlearning_tpu/ops/decode_attention.py:267",
+             launches=spec8_launches["chunk_decode_q8"], max_abs_err=b5_err["chunk_decode_q8"],
+             **b5["chunk_decode_q8"]["verify"],
+             prefill_chunk=b5["chunk_decode_q8"]["prefill_chunk"],
+             gqa=b5["chunk_decode_q8"]["gqa"]),
     ]
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

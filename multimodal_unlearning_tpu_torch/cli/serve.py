@@ -4,10 +4,17 @@ Drains a JSONL request file through the continuous-batching engine
 (serve/engine.py) and writes one completion per line, like
 ``multimodal_unlearning_tpu/cli/serve.py``.  Request lines:
 {"question": str, "image": optional path or null, "max_new_tokens":
-optional int, "stop": optional string or list of strings}.
+optional int, "stop": optional string or list of strings, "draft":
+optional expected-answer text seeding the speculative lookup}.
 
   python -m multimodal_unlearning_tpu_torch.cli.serve \\
-      model_family=llava quantize_base=false requests=reqs.jsonl save_file=out.jsonl
+      model_family=llava requests=reqs.jsonl save_file=out.jsonl
+
+As ``configs/mm/serve.yaml`` ships it, the decoder is int8 (W8A16,
+``quantize_base=true``).  ``kv_cache_dtype=int8`` quantizes the KV cache,
+``speculative_k=4`` verifies prompt-lookup drafts, ``prefill_chunk=512``
+prefills long prompts in chunks and ``system_prompt=...`` prefills a shared
+prefix once (text requests prefill only their own suffix against it).
 
 Overrides are ``key=value`` (dotted keys reach nested ones, e.g.
 ``generation.max_new_tokens=64``) onto the defaults of
@@ -27,6 +34,7 @@ import time
 import numpy as np
 import torch
 
+from multimodal_unlearning_tpu_torch.cli.common import quantize_base_params
 from multimodal_unlearning_tpu_torch.config import (
     build_model_config, get_model_identifiers, model_kind)
 from multimodal_unlearning_tpu_torch.data import ByteTokenizer, MMProcessor, preprocess_image
@@ -118,30 +126,38 @@ def build_processor(model_cfg) -> MMProcessor:
                        num_image_tokens=0)
 
 
-def build_engine(cfg: dict, **engine_kw):
-    """Engine + processor + kind/mcfg from a serve config.  ``engine_kw``
-    passes extra ServingEngine arguments (``attn_impl``, ``on_prefill``)."""
+def build_engine(cfg: dict, *, model=None, **engine_kw):
+    """Engine + processor + kind/mcfg from a serve config.  ``model``: a
+    model built already for ``model_family`` on the config's device (e.g.
+    one shared by two engines) instead of one drawn from ``seed``; with
+    ``quantize_base`` it is quantized in place (a quantized one passes
+    through).  ``engine_kw`` passes extra ServingEngine arguments
+    (``attn_impl``, ``on_prefill``)."""
     unported = {
         "model_path": bool(cfg.get("model_path")),
         "processor_path": bool(cfg.get("processor_path")),
-        "quantize_base": bool(cfg.get("quantize_base")),
-        "kv_cache_dtype": bool(cfg.get("kv_cache_dtype")),
-        "system_prompt": bool(cfg.get("system_prompt")),
     }
     asked = [k for k, v in unported.items() if v]
     if asked:
         raise NotImplementedError(
-            f"serve options not ported yet: {asked} (random bf16/f32 weights, byte "
-            "tokenizer, no prefix cache; pass quantize_base=false)")
+            f"serve options not ported yet: {asked} (random weights from the seed, byte "
+            "tokenizer)")
     dtype = DTYPES[str(cfg.get("dtype", "bfloat16"))]
     device = resolve_device(cfg.get("device"))
     model_cfg = get_model_identifiers(cfg["model_family"])
     kind = model_kind(model_cfg)
     mcfg = build_model_config(model_cfg)
-    init = vlm_module(kind).init_params if kind in VLM_KINDS else decoder_module(mcfg).init_params
-    seed = int(cfg.get("seed") or 0)
-    model = init(mcfg, torch.Generator(device=device).manual_seed(seed), device=device,
-                 dtype=dtype)
+    if model is None:
+        init = (vlm_module(kind).init_params if kind in VLM_KINDS
+                else decoder_module(mcfg).init_params)
+        seed = int(cfg.get("seed") or 0)
+        model = init(mcfg, torch.Generator(device=device).manual_seed(seed), device=device,
+                     dtype=dtype)
+    elif model.cfg != mcfg:
+        raise ValueError(f"the model given is not a {cfg['model_family']} model")
+    if cfg.get("quantize_base"):
+        model = quantize_base_params(model, kind, cfg["quantize_base"])
+    cache_dtype = torch.int8 if str(cfg.get("kv_cache_dtype") or "") == "int8" else dtype
     processor = build_processor(model_cfg)
     tok = processor.tokenizer
     engine = ServingEngine(
@@ -151,7 +167,7 @@ def build_engine(cfg: dict, **engine_kw):
         chunk=int(cfg.get("chunk", 16)),
         pad_token_id=tok.pad_token_id,
         eos_token_id=tok.eos_token_id,
-        cache_dtype=dtype, compute_dtype=dtype,
+        cache_dtype=cache_dtype, compute_dtype=dtype,
         speculate_k=int(cfg.get("speculative_k") or 0),
         spec_ref_len=int(cfg.get("spec_ref_len") or 0),
         temperature=float(cfg.get("temperature") or 0.0),
@@ -181,6 +197,12 @@ def load_image(img, image_size: int) -> np.ndarray:
 def run(cfg: dict):
     engine, processor, kind, mcfg = build_engine(cfg)
     tok = processor.tokenizer
+    # shared system prompt -> prefix cache: prefilled once, every text-only
+    # request prefills just its own (template-formatted) suffix
+    prefix_id = None
+    if cfg.get("system_prompt"):
+        prefix_id = engine.register_prefix(
+            tok.encode(str(cfg["system_prompt"]), add_special_tokens=True))
     default_new = int(cfg["generation"]["max_new_tokens"])
     reqs, texts, stop_strs = [], [], []
     with open(cfg["requests"]) as f:
@@ -194,8 +216,12 @@ def run(cfg: dict):
             # "stop": string or list of strings, matched on the text
             stops = r.get("stop") or []
             stop_strs.append([stops] if isinstance(stops, str) else list(stops))
+            # optional "draft": expected-answer text seeding the speculative
+            # lookup corpus; output stays exactly greedy either way
+            dref = tok.encode(r["draft"]) if r.get("draft") else None
             reqs.append(engine.submit(ids, int(r.get("max_new_tokens", default_new)),
-                                      pixel_values=pix))
+                                      pixel_values=pix, draft_ref=dref,
+                                      prefix=None if has_image else prefix_id))
             texts.append(r["question"])
 
     t0 = time.perf_counter()
@@ -227,7 +253,8 @@ def run(cfg: dict):
     n_tok = sum(len(r.tokens) for r in reqs)
     st = engine.stats()
     print(f"served {len(reqs)} requests, {n_tok} tokens in {dt:.1f}s "
-          f"({n_tok / max(dt, 1e-9):.1f} tok/s; {st['dispatches']} dispatches) "
+          f"({n_tok / max(dt, 1e-9):.1f} tok/s; {st['dispatches']} dispatches, "
+          f"{st['tokens_per_round']:.2f} tok/round) "
           f"on {engine.device} -> {cfg['save_file']}")
     return results
 

@@ -17,6 +17,15 @@ Modes of ``forward``:
   decode: one token per row; ``cache_offset`` a [B] tensor of per-row cache
     columns; attention reads the stacked cache through ``kv_valid_mask``
     (ops/decode_attention.py).
+  chunk decode (``chunk_decode=True``): C > 1 tokens per row written at
+    columns ``cache_offset[b] ..`` (a [B] tensor, or an int for every row);
+    query c reads the cache through ``kv_valid_mask`` plus the chunk's
+    columns up to its own (the speculative verify round, chunked prefill
+    and prefix suffixes).
+
+The cache is bf16/f32 ``{"k", "v"}`` or int8 ``{"k", "v", "k_s", "v_s"}``
+(``init_kv_cache(dtype=torch.int8)``), quantized per position and kv-head
+as it is written.
 
 Unlike the JAX package, the cache is updated in place: the dict passed in
 is the dict returned.
@@ -32,7 +41,8 @@ from multimodal_unlearning_tpu_torch.config import LlamaConfig
 from multimodal_unlearning_tpu_torch.device import resolve_device
 from multimodal_unlearning_tpu_torch.models.params import ParamTree
 from multimodal_unlearning_tpu_torch.ops.attention import flash_attention
-from multimodal_unlearning_tpu_torch.ops.decode_attention import decode_attention
+from multimodal_unlearning_tpu_torch.ops.decode_attention import (
+    chunk_decode_attention, decode_attention)
 from multimodal_unlearning_tpu_torch.ops.rope import apply_rope_bsd, rope_table
 from multimodal_unlearning_tpu_torch.utils.quantize import (
     dequantize_leaf, embed_lookup, int8_matmul, int8_matmul_group, is_qtensor, qs_of)
@@ -103,22 +113,47 @@ def dense(x, w, lora_leaf=None, lora_scale: float = 0.0):
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                   device=None) -> dict:
-    """Dense KV cache {"k", "v"} of [L, B, Hkv, max_len, D] zeros."""
-    if dtype not in (torch.bfloat16, torch.float16, torch.float32):
-        raise NotImplementedError(f"KV cache dtype {dtype} is not ported (dense float only)")
+    """KV cache of [L, B, Hkv, max_len, D] zeros: {"k", "v"} in a float
+    ``dtype``, or with ``dtype=torch.int8`` K/V stored quantized per (layer,
+    row, head, position) plus f32 scales ``k_s``/``v_s`` shaped [L, B, Hkv,
+    1, max_len] (position on the last axis, as in the JAX package)."""
+    if dtype not in (torch.bfloat16, torch.float16, torch.float32, torch.int8):
+        raise NotImplementedError(f"KV cache dtype {dtype} is not ported (float or int8)")
     shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
     dev = resolve_device(device)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    if dtype == torch.int8:
+        sshape = shape[:3] + (1, max_len)
+        cache["k_s"] = torch.zeros(sshape, dtype=torch.float32, device=dev)
+        cache["v_s"] = torch.zeros(sshape, dtype=torch.float32, device=dev)
+    return cache
+
+
+def quantize_kv(x):
+    """[..., S, D] -> (int8 [..., S, D], f32 scales [..., 1, S]): per
+    position s = amax|x| / 127 over D, then round(x / max(s, 1e-12)),
+    half to even, as the JAX package's ``_cache_write``."""
+    x32 = x.to(torch.float32)
+    s = x32.abs().amax(dim=-1, keepdim=True) / 127.0
+    q = torch.round(x32 / torch.clamp_min(s, 1e-12)).to(torch.int8)
+    return q, s.transpose(-1, -2)
 
 
 def _cache_write(cache, k, v, layer, offset):
     """Write [B,H,S,D] k/v into layer ``layer`` of the stacked cache at
-    column ``offset`` (an int), or per row at ``offset[b]`` (a [B] tensor)."""
+    column ``offset`` (an int), or per row at ``offset[b]`` (a [B] tensor);
+    an int8 cache quantizes on the way in."""
     if isinstance(offset, torch.Tensor) and offset.ndim == 1:
         return _cache_write_per_row(cache, k, v, layer, offset)
     offset = int(offset)
     S = k.shape[2]
+    if "k_s" in cache:
+        for name, x in (("k", k), ("v", v)):
+            xq, xs = quantize_kv(x)
+            cache[name][layer, :, :, offset:offset + S] = xq
+            cache[name + "_s"][layer, :, :, :, offset:offset + S] = xs
+        return cache
     cache["k"][layer, :, :, offset:offset + S] = k.to(cache["k"].dtype)
     cache["v"][layer, :, :, offset:offset + S] = v.to(cache["v"].dtype)
     return cache
@@ -126,11 +161,23 @@ def _cache_write(cache, k, v, layer, offset):
 
 def _cache_write_per_row(cache, k, v, layer, offset):
     """Row b's C tokens land at columns offset[b] .. offset[b]+C-1 (C == 1
-    is the continuous-batching decode step)."""
-    rows = torch.arange(k.shape[0], device=k.device)
-    for c in range(k.shape[2]):
-        cache["k"][layer, rows, :, offset + c] = k[:, :, c].to(cache["k"].dtype)
-        cache["v"][layer, rows, :, offset + c] = v[:, :, c].to(cache["v"].dtype)
+    is the continuous-batching decode step, C > 1 a verify or prefill
+    chunk), in one scatter per tensor.  A start past Smax - C is clamped to
+    it, as the JAX package's ``dynamic_update_slice`` clamps."""
+    B, _, C, _ = k.shape
+    smax = cache["k"].shape[3]
+    rows = torch.arange(B, device=k.device)[:, None]
+    cols = offset.to(k.device).long().clamp(0, smax - C)[:, None] + torch.arange(
+        C, device=k.device)[None, :]
+    if "k_s" in cache:
+        for name, x in (("k", k), ("v", v)):
+            xq, xs = quantize_kv(x)
+            # advanced indices at dims 1 and 3: the value is laid out [B, C, ...]
+            cache[name][layer, rows, :, cols] = xq.transpose(1, 2)
+            cache[name + "_s"][layer, rows, :, 0, cols] = xs[:, :, 0].transpose(1, 2)
+        return cache
+    cache["k"][layer, rows, :, cols] = k.transpose(1, 2).to(cache["k"].dtype)
+    cache["v"][layer, rows, :, cols] = v.transpose(1, 2).to(cache["v"].dtype)
     return cache
 
 
@@ -228,12 +275,16 @@ class Llama(ParamTree):
         x, ff = self._attn_out_ffn_in(x, attn, layer, lora, lora_scale)
         return self._ffn_down(x, ff, layer, lora, lora_scale)
 
-    def _attend(self, q, k, v, layer, kv_cache, cache_offset, kv_mask, decoding, attn_impl):
+    def _attend(self, q, k, v, layer, kv_cache, cache_offset, kv_mask, decoding, attn_impl,
+                chunk_decode=False):
         B, _, S, _ = q.shape
         if kv_cache is not None:
             # the cache is written BEFORE attention: decode reads it back
             _cache_write(kv_cache, k, v, layer, cache_offset)
-        if decoding:
+        if chunk_decode:
+            attn = chunk_decode_attention(q, kv_cache, layer, kv_mask, cache_offset,
+                                          impl=attn_impl)
+        elif decoding:
             attn = decode_attention(q, kv_cache, layer, kv_mask, impl=attn_impl)
         else:
             attn = flash_attention(
@@ -243,10 +294,10 @@ class Llama(ParamTree):
         return attn.transpose(1, 2).reshape(B, S, -1)
 
     def _block(self, x, layer, cos_p, sin_p, kv_cache, cache_offset, kv_mask, decoding,
-               attn_impl, lora=None, lora_scale=0.0):
+               attn_impl, lora=None, lora_scale=0.0, chunk_decode=False):
         q, k, v = self._attn_inputs(x, layer, cos_p, sin_p, lora, lora_scale)
         attn = self._attend(q, k, v, layer, kv_cache, cache_offset, kv_mask, decoding,
-                            attn_impl)
+                            attn_impl, chunk_decode)
         return self._after_attn(x, attn, layer, lora, lora_scale)
 
     def _block_remat(self, x, layer, cos_p, sin_p, kv_mask, attn_impl, lora, lora_scale,
@@ -279,8 +330,8 @@ class Llama(ParamTree):
                 capture_layer: int | None = None, remat: bool = False,
                 remat_policy: str | None = None, attn_impl: str = "auto",
                 compute_dtype=torch.bfloat16, logits_dtype=None, return_hidden: bool = False,
-                last_logit_only: bool = False) -> dict:
-        """Decoder forward.
+                last_logit_only: bool = False, chunk_decode: bool = False) -> dict:
+        """Decoder forward (modes: see the module docstring).
 
         ``lora``: adapter tree ``{"layers": {proj: {"a", "b"}}, "lm_head": ...}``
         applied with ``lora_scale``.  ``capture_layer``: also return the f32
@@ -320,11 +371,16 @@ class Llama(ParamTree):
         cos_p, sin_p = self.rope_cos[positions], self.rope_sin[positions]  # [B, S, D]
 
         decoding = kv_cache is not None and S == 1
-        if kv_cache is not None and not decoding and not (
+        # verify/prefill chunk: C > 1 tokens read the WHOLE cache (accepted
+        # prefix + per-row in-chunk causal) at per-row columns
+        chunk_decode = chunk_decode and kv_cache is not None and not decoding
+        if chunk_decode:
+            cache_offset = torch.as_tensor(cache_offset, device=x.device).reshape(-1).expand(B)
+        elif kv_cache is not None and not decoding and not (
                 isinstance(cache_offset, int) and cache_offset == 0):
-            raise NotImplementedError(
-                "a multi-token pass into the cache must start at column 0 (chunked "
-                "prefill and speculative verify are not ported)")
+            raise ValueError(
+                "a multi-token pass into the cache starts at column 0 unless it is a "
+                "chunk_decode pass")
         kv_mask = kv_valid_mask if kv_valid_mask is not None else attention_mask
         layer_lora = None if lora is None else lora.get("layers")
         use_remat = remat and kv_cache is None and torch.is_grad_enabled()
@@ -335,7 +391,7 @@ class Llama(ParamTree):
                                       lora_scale, remat_policy)
             else:
                 x = self._block(x, layer, cos_p, sin_p, kv_cache, cache_offset, kv_mask,
-                                decoding, attn_impl, layer_lora, lora_scale)
+                                decoding, attn_impl, layer_lora, lora_scale, chunk_decode)
             if capture_layer is not None and layer == capture_layer:
                 captured = x.to(torch.float32)
         return self._epilogue(x, lora, lora_scale, logits_dtype, last_logit_only,

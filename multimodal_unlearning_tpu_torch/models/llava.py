@@ -78,10 +78,13 @@ class Llava(nn.Module):
                 lora_scale: float = 0.0, capture_layer: int | None = None,
                 remat: bool = False, remat_policy: str | None = None,
                 attn_impl: str = "auto", compute_dtype=torch.bfloat16, logits_dtype=None,
-                last_logit_only: bool = False) -> dict:
+                last_logit_only: bool = False, chunk_decode: bool = False) -> dict:
         """VLM forward; ``input_ids`` already hold the expanded image tokens.
         ``lora``: ``{"language_model": ..., "projector": ...}`` adapters.  The
-        vision tower is frozen and runs without building a graph."""
+        vision tower is frozen and runs without building a graph.
+        ``chunk_decode`` and ``positions`` pass through to the decoder (text
+        passes into the cache: speculative verify, chunked prefill, prefix
+        suffixes; see ``llama.Llama.forward``)."""
         cfg = self.cfg
         lm = self.language_model
         et = lm.embed_tokens
@@ -104,7 +107,8 @@ class Llava(nn.Module):
                   lora=lora if lora is None else lora.get("language_model"),
                   lora_scale=lora_scale, capture_layer=capture_layer, remat=remat,
                   remat_policy=remat_policy, attn_impl=attn_impl, compute_dtype=compute_dtype,
-                  logits_dtype=logits_dtype, last_logit_only=last_logit_only)
+                  logits_dtype=logits_dtype, last_logit_only=last_logit_only,
+                  chunk_decode=chunk_decode)
 
 
 def init_params(cfg: LlavaConfig, generator: torch.Generator | None = None, *,

@@ -41,6 +41,13 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& w, float* out) {
   }
 }
 
+// 8 int8 values held in one 8-byte word -> f32 (exact)
+__device__ __forceinline__ void i8x8_to_float(const uint2& w, float* out) {
+  const int8_t* v = reinterpret_cast<const int8_t*>(&w);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(v[i]);
+}
+
 // Raise a kernel's dynamic shared memory limit past the 48 KB default.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {

@@ -1,13 +1,18 @@
-// Flash-decode (kernel B4) for Hopper: one query token per (batch row,
-// q-head) against layer `layer` of the stacked [L,B,Hkv,Smax,D] bf16 KV
-// cache, read in place (the layer slab is never copied out).
+// Flash-decode (kernels B4 and B4q) for Hopper: one query token per (batch
+// row, q-head) against layer `layer` of the stacked [L,B,Hkv,Smax,D] KV
+// cache, read in place (the layer slab is never copied out).  The cache is
+// bf16 (B4) or int8 with f32 scales [L,B,Hkv,1,Smax], one per position and
+// kv-head (B4q).
 //
-// Replaces multimodal_unlearning_tpu/ops/decode_attention.py:_kernel
-// (launcher _pallas_decode).  It computes
+// Replaces multimodal_unlearning_tpu/ops/decode_attention.py:_kernel (B4)
+// and :_kernel_q8 (B4q) (launcher _pallas_decode).  It computes
 //   o[b,h] = softmax_j(sm_scale q[b,h].k[l,b,h//G,j]) v[l,b,h//G,j]
-// over the columns j with valid[b,j] != 0.  A row with no valid column
+// over the columns j with valid[b,j] != 0.  On an int8 cache the scales
+// stay outside both dot products, as in the TPU kernel:
+//   s_j = (q.K_int[j]) k_s[j],   o = sum_j (p_j v_s[j]) V_int[j] / sum_j p_j,
+// so no dequantized K or V is ever formed.  A row with no valid column
 // gives o = 0 -- the documented rule for fully-masked rows, which the XLA
-// path of decode_attention follows; the Pallas kernel returns the mean of
+// path of decode_attention follows; the Pallas kernels return the mean of
 // V there instead.
 //
 // What bounds it on the card: it streams the valid K and V columns once
@@ -20,8 +25,10 @@
 // loads in flight, with an online softmax per lane group in the log2
 // domain.  The per-group partial states are merged in shared memory at the
 // end.  The GQA group (G q-heads per kv-head) shares every loaded byte.
-// Splitting a long row across blocks (flash-decoding's split-K) is later
-// work.
+// On an int8 cache a lane loads its 8 dims as 8 bytes, so a valid column
+// costs D bytes of K, D of V and 8 of scales instead of 4D: the bound is
+// about half of B4's.  Splitting a long row across blocks (flash-decoding's
+// split-K) is later work.
 
 #include "common.cuh"
 
@@ -30,6 +37,28 @@ namespace {
 constexpr int NTHREADS = 256;
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int UNROLL = 4;  // key groups a warp keeps in flight per iteration
+
+// 8 cache elements of one lane: 16 bytes of bf16 or 8 bytes of int8
+template <typename T>
+struct Lane8;
+template <>
+struct Lane8<__nv_bfloat16> {
+  using Word = uint4;
+  static constexpr bool kQ8 = false;
+  static __device__ __forceinline__ Word zero() { return make_uint4(0u, 0u, 0u, 0u); }
+  static __device__ __forceinline__ void to_float(const Word& w, float* out) {
+    mmu::bf16x8_to_float(w, out);
+  }
+};
+template <>
+struct Lane8<int8_t> {
+  using Word = uint2;
+  static constexpr bool kQ8 = true;
+  static __device__ __forceinline__ Word zero() { return make_uint2(0u, 0u); }
+  static __device__ __forceinline__ void to_float(const Word& w, float* out) {
+    mmu::i8x8_to_float(w, out);
+  }
+};
 
 template <int D, int G>
 struct DecLayout {
@@ -41,13 +70,15 @@ struct DecLayout {
   }
 };
 
-template <int D, int G>
+template <typename T, int D, int G>
 __global__ void __launch_bounds__(NTHREADS)
-flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
-                    const __nv_bfloat16* __restrict__ vc, const int* __restrict__ valid,
+flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kc,
+                    const T* __restrict__ vc, const float* __restrict__ ks,
+                    const float* __restrict__ vs, const int* __restrict__ valid,
                     __nv_bfloat16* __restrict__ o, int B, int Hkv, int Smax, int layer,
                     float scale_log2) {
   using L = DecLayout<D, G>;
+  using E = Lane8<T>;
   constexpr int LPK = L::LPK;
   constexpr int KPW = L::KPW;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -106,29 +137,39 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 #pragma unroll
     for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
   }
-  const long long slab = ((static_cast<long long>(layer) * B + b) * Hkv + hk) * Smax * D;
-  const __nv_bfloat16* kb = kc + slab + part * 8;
-  const __nv_bfloat16* vb = vc + slab + part * 8;
+  const long long row_id = (static_cast<long long>(layer) * B + b) * Hkv + hk;
+  const T* kb = kc + row_id * Smax * D + part * 8;
+  const T* vb = vc + row_id * Smax * D + part * 8;
+  // int8 cache: this (layer, row, kv-head)'s scale rows, one per position
+  const float* ksr = E::kQ8 ? ks + row_id * Smax : nullptr;
+  const float* vsr = E::kQ8 ? vs + row_id * Smax : nullptr;
   for (int base = warp * KPW * UNROLL; base < nvalid; base += NWARPS * KPW * UNROLL) {
-    uint4 kw[UNROLL], vw[UNROLL];
+    typename E::Word kw[UNROLL], vw[UNROLL];
+    float kscale[UNROLL], vscale[UNROLL];
     bool ok[UNROLL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int i = base + u * KPW + sub;
       ok[u] = i < nvalid;
-      kw[u] = make_uint4(0u, 0u, 0u, 0u);
+      kw[u] = E::zero();
       vw[u] = kw[u];
+      kscale[u] = 1.f;
+      vscale[u] = 1.f;
       if (ok[u]) {
         const long long col = sIdx[i];
-        kw[u] = *reinterpret_cast<const uint4*>(kb + col * D);
-        vw[u] = *reinterpret_cast<const uint4*>(vb + col * D);
+        kw[u] = *reinterpret_cast<const typename E::Word*>(kb + col * D);
+        vw[u] = *reinterpret_cast<const typename E::Word*>(vb + col * D);
+        if (E::kQ8) {
+          kscale[u] = ksr[col];
+          vscale[u] = vsr[col];
+        }
       }
     }
     float s[UNROLL][G];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       float kf[8];
-      mmu::bf16x8_to_float(kw[u], kf);
+      E::to_float(kw[u], kf);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float part_dot = 0.f;
@@ -137,12 +178,13 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 #pragma unroll
         for (int off = LPK / 2; off > 0; off >>= 1)
           part_dot += __shfl_xor_sync(0xffffffffu, part_dot, off);
-        s[u][g] = ok[u] ? part_dot : mmu::kNegInf;
+        // the key's scale multiplies the finished dot product
+        s[u][g] = ok[u] ? part_dot * kscale[u] : mmu::kNegInf;
       }
     }
     float vf[UNROLL][8];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) mmu::bf16x8_to_float(vw[u], vf[u]);
+    for (int u = 0; u < UNROLL; ++u) E::to_float(vw[u], vf[u]);
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float m_new = m[g];
@@ -156,11 +198,15 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
         psum += p[u];
       }
       l[g] = l[g] * alpha + psum;
+      // the value's scale multiplies p, outside the second product
+      float pv[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) pv[u] = p[u] * vscale[u];
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         float a = acc[g][e] * alpha;
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u) a = fmaf(p[u], vf[u][e], a);
+        for (int u = 0; u < UNROLL; ++u) a = fmaf(pv[u], vf[u][e], a);
         acc[g][e] = a;
       }
       m[g] = m_new;
@@ -193,31 +239,49 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   }
 }
 
-template <int D, int G>
-int launch(const void* q, const void* kc, const void* vc, const int* valid, void* o, int B,
-           int Hkv, int Smax, int layer, float sm_scale, cudaStream_t stream) {
-  const size_t bytes = DecLayout<D, G>::bytes(Smax);
+struct Args {
+  const void *q, *kc, *vc;
+  const float *ks, *vs;
+  const int* valid;
+  void* o;
+  int B, Hkv, Smax, layer;
+  float sm_scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D, int G>
+int launch(const Args& a) {
+  const size_t bytes = DecLayout<D, G>::bytes(a.Smax);
   if (bytes > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = mmu::allow_smem(flash_decode_kernel<D, G>, bytes);
+  cudaError_t err = mmu::allow_smem(flash_decode_kernel<T, D, G>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(Hkv, B);
-  flash_decode_kernel<D, G><<<grid, NTHREADS, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kc),
-      static_cast<const __nv_bfloat16*>(vc), valid, static_cast<__nv_bfloat16*>(o), B, Hkv,
-      Smax, layer, sm_scale * mmu::kLog2e);
+  const dim3 grid(a.Hkv, a.B);
+  flash_decode_kernel<T, D, G><<<grid, NTHREADS, bytes, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const T*>(a.kc),
+      static_cast<const T*>(a.vc), a.ks, a.vs, a.valid, static_cast<__nv_bfloat16*>(a.o), a.B,
+      a.Hkv, a.Smax, a.layer, a.sm_scale * mmu::kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_g(int G, const void* q, const void* kc, const void* vc, const int* valid, void* o,
-             int B, int Hkv, int Smax, int layer, float sm_scale, cudaStream_t stream) {
+template <typename T, int D>
+int launch_g(int G, const Args& a) {
   switch (G) {
-    case 1: return launch<D, 1>(q, kc, vc, valid, o, B, Hkv, Smax, layer, sm_scale, stream);
-    case 2: return launch<D, 2>(q, kc, vc, valid, o, B, Hkv, Smax, layer, sm_scale, stream);
-    case 4: return launch<D, 4>(q, kc, vc, valid, o, B, Hkv, Smax, layer, sm_scale, stream);
-    case 8: return launch<D, 8>(q, kc, vc, valid, o, B, Hkv, Smax, layer, sm_scale, stream);
+    case 1: return launch<T, D, 1>(a);
+    case 2: return launch<T, D, 2>(a);
+    case 4: return launch<T, D, 4>(a);
+    case 8: return launch<T, D, 8>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <typename T>
+int dispatch(const Args& a, int L, int Hq, int D) {
+  if (a.Hkv <= 0 || Hq % a.Hkv != 0 || a.layer < 0 || a.layer >= L || a.B <= 0 || a.Smax <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int G = Hq / a.Hkv;
+  if (D == 128) return launch_g<T, 128>(G, a);
+  if (D == 64) return launch_g<T, 64>(G, a);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -227,13 +291,19 @@ int launch_g(int G, const void* q, const void* kc, const void* vc, const int* va
 extern "C" int mmu_flash_decode_bf16(const void* q, const void* k_cache, const void* v_cache,
                                      const int* valid, void* o, int L, int B, int Hq, int Hkv,
                                      int Smax, int D, int layer, float sm_scale, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || layer < 0 || layer >= L || B <= 0 || Smax <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int G = Hq / Hkv;
-  if (D == 128)
-    return launch_g<128>(G, q, k_cache, v_cache, valid, o, B, Hkv, Smax, layer, sm_scale, st);
-  if (D == 64)
-    return launch_g<64>(G, q, k_cache, v_cache, valid, o, B, Hkv, Smax, layer, sm_scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k_cache, v_cache, nullptr, nullptr, valid, o, B, Hkv, Smax, layer, sm_scale,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch<__nv_bfloat16>(a, L, Hq, D);
+}
+
+// As mmu_flash_decode_bf16 on an int8 cache [L,B,Hkv,Smax,D] with f32 scales
+// k_s, v_s [L,B,Hkv,1,Smax], all contiguous.
+extern "C" int mmu_flash_decode_q8(const void* q, const void* k_cache, const void* v_cache,
+                                   const float* k_s, const float* v_s, const int* valid, void* o,
+                                   int L, int B, int Hq, int Hkv, int Smax, int D, int layer,
+                                   float sm_scale, void* stream) {
+  if (k_s == nullptr || v_s == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k_cache, v_cache, k_s, v_s, valid, o, B, Hkv, Smax, layer, sm_scale,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch<int8_t>(a, L, Hq, D);
 }

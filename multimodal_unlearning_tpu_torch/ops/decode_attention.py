@@ -1,14 +1,28 @@
-"""Flash-decode: kernel B4 and its plain PyTorch version.
+"""Flash-decode and verify-chunk attention: kernels B4, B4q, B5, B5q and
+their plain PyTorch versions.
 
-Counterpart of ``multimodal_unlearning_tpu/ops/decode_attention.py``,
-dense bf16 cache only.  One query token per row attends layer ``layer`` of
-the stacked [L, B, Hkv, Smax, D] cache.  On a CUDA tensor the kernel
-``csrc/flash_decode.cu`` indexes the layer inside the stacked cache (no
-slab is copied out); on a CPU tensor the plain version -- the JAX
-package's XLA branch: the layer's slab through ``mha_reference`` -- runs.
+Counterpart of ``multimodal_unlearning_tpu/ops/decode_attention.py``, dense
+caches: bf16 (or f32 on the CPU) ``{"k", "v"}`` [L, B, Hkv, Smax, D], or
+int8 ``{"k", "v", "k_s", "v_s"}`` with f32 scales [L, B, Hkv, 1, Smax], one
+per position and kv-head (position on the LAST axis).
 
-A row whose ``kv_valid`` is all 0 gives 0 on both routes (the documented
-rule for fully-masked rows).  The JAX Pallas kernel returns the mean of V
+- ``decode_attention``: one query token per row.  On a CUDA tensor the
+  kernel ``csrc/flash_decode.cu`` indexes the layer inside the stacked
+  cache (no slab is copied out): B4 on a bf16 cache, B4q on an int8 one.
+- ``chunk_decode_attention``: C query tokens per row at per-row cache
+  columns ``offset[b]..offset[b]+C-1`` (the speculative verify round, and
+  chunked-prefill / prefix-suffix passes).  On a CUDA tensor the kernel
+  ``csrc/chunk_decode.cu`` reads the layer through strides (a slot's or a
+  slab's columns may be a view): B5 on a bf16 cache, B5q on an int8 one.
+
+On a CPU tensor (or with ``impl="plain"``) the plain version runs: the JAX
+package's XLA branches, the layer's slab dequantized (int8: ``_dequant``)
+and cast to q's dtype, then plain attention.  Where the scales stay outside
+the products in the kernels, the plain version forms the dequantized slab;
+the two agree to the rounding of that slab.
+
+A row that sees no column gives 0 on every route (the documented rule for
+fully-masked rows).  The JAX Pallas decode kernels return the mean of V
 there instead; the serving engine decodes idle slots with such rows and
 throws their output away, so no token depends on it.
 """
@@ -18,38 +32,97 @@ from __future__ import annotations
 import torch
 
 from multimodal_unlearning_tpu_torch.ops import kernels
-from multimodal_unlearning_tpu_torch.ops.attention import IMPLS, mha_reference
+from multimodal_unlearning_tpu_torch.ops.attention import IMPLS, NEG_INF, mha_reference
+
+__all__ = ["decode_attention", "chunk_decode_attention", "chunk_attention_reference",
+           "dequant_layer"]
 
 
-def _decode_cuda(q, k_cache, v_cache, layer, kv_valid, sm_scale):
+def _check_cache(cache):
+    keys = set(cache)
+    if keys == {"k", "v"}:
+        if cache["k"].dtype == torch.int8:
+            raise ValueError("an int8 cache needs its scales k_s and v_s")
+        return False
+    if keys == {"k", "v", "k_s", "v_s"} and cache["k"].dtype == torch.int8:
+        return True
+    raise NotImplementedError(
+        f"cache with keys {sorted(keys)}: dense {{'k','v'}} or int8 {{'k','v','k_s','v_s'}} "
+        "only; the paged cache is not ported yet")
+
+
+def dequant_layer(cache, layer, dtype):
+    """Layer ``layer``'s [B, Hkv, Smax, D] K and V slabs in ``dtype``; an
+    int8 cache is dequantized per position, x_int * s (the JAX
+    ``_dequant``), in f32 first."""
+    k, v = cache["k"][layer], cache["v"][layer]
+    if k.dtype == torch.int8:
+        k = k.to(torch.float32) * cache["k_s"][layer].transpose(-1, -2)
+        v = v.to(torch.float32) * cache["v_s"][layer].transpose(-1, -2)
+    return k.to(dtype), v.to(dtype)
+
+
+def _launch_args(q, cache, layer):
+    """Shared checks of the CUDA routes; returns (k, v, k_s, v_s) with the
+    scales None for a bf16 cache."""
+    quantized = _check_cache(cache)
+    k, v = cache["k"], cache["v"]
+    if q.dtype != torch.bfloat16 or k.dtype not in (torch.bfloat16, torch.int8) \
+            or v.dtype != k.dtype:
+        raise TypeError(f"the decode kernels take a bf16 query and a bf16 or int8 cache, got "
+                        f"{q.dtype} and {k.dtype}/{v.dtype}")
+    if any(t.device != q.device for t in cache.values()):
+        raise ValueError("q and the cache must be on one device")
+    if v.shape != k.shape or (quantized and (
+            cache["k_s"].shape != k.shape[:3] + (1, k.shape[3])
+            or cache["v_s"].shape != cache["k_s"].shape
+            or cache["k_s"].dtype != torch.float32 or cache["v_s"].dtype != torch.float32)):
+        raise ValueError("k, v (and the f32 scales [L,B,Hkv,1,Smax]) must agree in shape")
+    if not 0 <= int(layer) < k.shape[0]:
+        raise IndexError(f"layer {layer} out of range for a {k.shape[0]}-layer cache")
+    if quantized:
+        return k, v, cache["k_s"], cache["v_s"]
+    return k, v, None, None
+
+
+def _decode_cuda(q, cache, layer, kv_valid, sm_scale):
+    k_cache, v_cache, k_s, v_s = _launch_args(q, cache, layer)
     B, Hq, _, D = q.shape
     L, Bc, Hkv, Smax, Dc = k_cache.shape
-    if any(t.dtype != torch.bfloat16 for t in (q, k_cache, v_cache)):
-        raise TypeError("flash_decode kernel takes a bf16 query and a bf16 cache")
-    if any(t.device != q.device for t in (k_cache, v_cache, kv_valid)):
-        raise ValueError("q, the cache and kv_valid must be on one device")
-    if (Bc, Dc) != (B, D) or v_cache.shape != k_cache.shape or Hq % Hkv \
-            or Hq // Hkv not in (1, 2, 4, 8) or D not in (64, 128):
+    if (Bc, Dc) != (B, D) or Hq % Hkv or Hq // Hkv not in (1, 2, 4, 8) or D not in (64, 128):
         raise ValueError(f"flash_decode: unsupported shapes q {tuple(q.shape)} "
                          f"cache {tuple(k_cache.shape)} (head dim 64 or 128, GQA group 1/2/4/8)")
-    if tuple(kv_valid.shape) != (B, Smax):
-        raise ValueError(f"kv_valid must be [B, Smax] = {(B, Smax)}")
-    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+    if tuple(kv_valid.shape) != (B, Smax) or kv_valid.device != q.device:
+        raise ValueError(f"kv_valid must be [B, Smax] = {(B, Smax)} on {q.device}")
+    tensors = (k_cache, v_cache) if k_s is None else (k_cache, v_cache, k_s, v_s)
+    if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_decode reads the stacked cache in place: it must be contiguous")
-    layer = int(layer)
-    if not 0 <= layer < L:
-        raise IndexError(f"layer {layer} out of range for a {L}-layer cache")
     q = q.contiguous()
     valid = kv_valid.to(torch.int32).contiguous()
     o = torch.empty_like(q)
-    fn = kernels.launcher("flash_decode")
+    name = "flash_decode" if k_s is None else "flash_decode_q8"
+    fn = kernels.launcher(name)
+    scales = () if k_s is None else (k_s.data_ptr(), v_s.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid.data_ptr(),
-                 o.data_ptr(), L, B, Hq, Hkv, Smax, D, layer, float(sm_scale), stream)
-    kernels.check("flash_decode", err)
-    kernels.LAUNCHES["flash_decode"] += 1
+        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *scales,
+                 valid.data_ptr(), o.data_ptr(), L, B, Hq, Hkv, Smax, D, int(layer),
+                 float(sm_scale), stream)
+    kernels.check(name, err)
+    kernels.LAUNCHES[name] += 1
     return o
+
+
+def _route(q, impl, what):
+    """True for the plain version (a CPU tensor or ``impl="plain"``), False
+    for the kernel (a CUDA tensor); raises for any other device."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "plain" or q.device.type == "cpu":
+        return True
+    if q.device.type != "cuda":
+        raise RuntimeError(f"{what} has no kernel for device {q.device}")
+    return False
 
 
 def decode_attention(q, cache, layer, kv_valid, *, sm_scale: float | None = None,
@@ -58,28 +131,123 @@ def decode_attention(q, cache, layer, kv_valid, *, sm_scale: float | None = None
 
     Args:
       q: [B, Hq, 1, D] query (RoPE already applied).
-      cache: {"k", "v"} -- [L, B, Hkv, Smax, D] stacked cache, the current
-        token already written.
+      cache: {"k", "v"[, "k_s", "v_s"]} -- [L, B, Hkv, Smax, D] stacked
+        cache, the current token already written; an int8 cache carries f32
+        scales [L, B, Hkv, 1, Smax].
       layer: int -- which layer's slab to attend against.
       kv_valid: [B, Smax] validity mask (1 = attend).
       impl: "auto" (the kernel on CUDA, the plain version on the CPU) or
         "plain".
     Returns [B, Hq, 1, D] in q's dtype.
     """
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    if set(cache) != {"k", "v"}:
-        raise NotImplementedError(
-            "decode_attention takes the dense cache {'k','v'}; int8 and paged caches "
-            "are not ported yet")
-    k_cache, v_cache = cache["k"], cache["v"]
     if q.shape[2] != 1:
         raise ValueError("decode_attention is single-token")
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    if impl == "plain" or q.device.type == "cpu":
-        return mha_reference(q, k_cache[layer].to(q.dtype), v_cache[layer].to(q.dtype),
-                             kv_valid, causal=False, sm_scale=sm_scale)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"decode_attention has no kernel for device {q.device}")
-    return _decode_cuda(q, k_cache, v_cache, layer, kv_valid, sm_scale)
+    if _route(q, impl, "decode_attention"):
+        _check_cache(cache)
+        k, v = dequant_layer(cache, layer, q.dtype)
+        return mha_reference(q, k, v, kv_valid, causal=False, sm_scale=sm_scale)
+    return _decode_cuda(q, cache, layer, kv_valid, sm_scale)
+
+
+def chunk_visibility(kv_valid, offset, C: int):
+    """[B, C, Smax] bool: query c of row b sees column j iff
+    ``kv_valid[b, j] || offset[b] <= j <= offset[b] + c``."""
+    col = torch.arange(kv_valid.shape[1], device=kv_valid.device)
+    off = offset.to(col.device).long()[:, None, None]
+    c = torch.arange(C, device=col.device)[None, :, None]
+    in_chunk = (col[None, None, :] >= off) & (col[None, None, :] <= off + c)
+    return (kv_valid[:, None, :] > 0) | in_chunk
+
+
+def chunk_attention_reference(q, k, v, visible, sm_scale):
+    """Plain attention of q [B, Hq, C, D] over k, v [B, Hkv, Sk, D] with a
+    [B, C, Sk] visibility mask, in f32 (f64 stays f64); a row that sees
+    nothing gives 0.  Returns q's dtype."""
+    group = q.shape[1] // k.shape[1]
+    acc_t = torch.promote_types(q.dtype, torch.float32)
+    k = k.to(acc_t).repeat_interleave(group, dim=1) if group > 1 else k.to(acc_t)
+    v = v.to(acc_t).repeat_interleave(group, dim=1) if group > 1 else v.to(acc_t)
+    s = torch.einsum("bhcd,bhsd->bhcs", q.to(acc_t) * sm_scale, k)
+    vis = visible[:, None]
+    s = torch.where(vis, s, torch.full((), NEG_INF, dtype=acc_t, device=s.device))
+    p = torch.where(vis.any(dim=-1, keepdim=True), torch.softmax(s, dim=-1), 0.0)
+    return torch.einsum("bhcs,bhsd->bhcd", p, v).to(q.dtype)
+
+
+def _cache_strides(t, D):
+    """(sL, sB, sH, sS) of a cache view whose head dim is contiguous, with
+    16-byte aligned rows (what the kernel's vector loads need)."""
+    per16 = 16 // t.element_size()
+    if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % per16 for s in t.stride()[:4]) \
+            or D % 16:
+        raise ValueError("chunk_decode reads the cache through strides: the head dim must be "
+                         "contiguous and each row 16-byte aligned")
+    return t.stride()[:4]
+
+
+def _chunk_cuda(q, cache, layer, kv_valid, offset, sm_scale):
+    k, v, k_s, v_s = _launch_args(q, cache, layer)
+    B, Hq, C, D = q.shape
+    L, Bc, Hkv, Smax, Dc = k.shape
+    if (Bc, Dc) != (B, D) or Hq % Hkv or D not in (64, 128):
+        raise ValueError(f"chunk_decode: unsupported shapes q {tuple(q.shape)} cache "
+                         f"{tuple(k.shape)} (head dim 64 or 128, Hq % Hkv == 0)")
+    if k.stride() != v.stride():
+        raise ValueError("k and v must share one layout")
+    strides = _cache_strides(k, D)
+    _cache_strides(v, D)
+    tstrides = (0, 0, 0)
+    if k_s is not None:
+        if k_s.stride() != v_s.stride() or k_s.stride(-1) != 1:
+            raise ValueError("the scales must share one layout with positions contiguous")
+        tstrides = k_s.stride()[:3]
+    if tuple(kv_valid.shape) != (B, Smax) or tuple(offset.shape) != (B,) \
+            or kv_valid.device != q.device or offset.device != q.device:
+        raise ValueError(f"kv_valid must be [B, Smax] = {(B, Smax)} and offset [B] on {q.device}")
+    q = q.contiguous()
+    valid = kv_valid.to(torch.int32).contiguous()
+    off = offset.to(torch.int32).contiguous()
+    o = torch.empty_like(q)
+    name = "chunk_decode" if k_s is None else "chunk_decode_q8"
+    fn = kernels.launcher(name)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 None if k_s is None else k_s.data_ptr(),
+                 None if v_s is None else v_s.data_ptr(), valid.data_ptr(), off.data_ptr(),
+                 o.data_ptr(), B, Hq, Hkv, C, Smax, D, int(layer), *strides, *tstrides,
+                 float(sm_scale), stream)
+    kernels.check(name, err)
+    kernels.LAUNCHES[name] += 1
+    return o
+
+
+def chunk_decode_attention(q, cache, layer, kv_valid, offset, *,
+                           sm_scale: float | None = None, impl: str = "auto"):
+    """C-token verify-chunk attention against layer ``layer`` of the cache.
+
+    Row b's queries sit at cache columns ``offset[b] .. offset[b]+C-1``
+    (already written by this layer); query c sees the valid prefix plus the
+    chunk columns up to its own -- per-row causal alignment that the
+    single-token kernel does not express.
+
+    Args:
+      q: [B, Hq, C, D] (RoPE applied).
+      cache / layer: as ``decode_attention``; the cache may be a view with
+        the head dim contiguous (a slot's or a slab's columns).
+      kv_valid: [B, Smax] -- the ACCEPTED prefix only (chunk columns
+        excluded; the causal term admits them).
+      offset: [B] int -- each row's first chunk column.
+    Returns [B, Hq, C, D] in q's dtype.
+    """
+    B, Hq, C, D = q.shape
+    if sm_scale is None:
+        sm_scale = D ** -0.5
+    if _route(q, impl, "chunk_decode_attention"):
+        _check_cache(cache)
+        k, v = dequant_layer(cache, layer, q.dtype)
+        return chunk_attention_reference(q, k, v, chunk_visibility(kv_valid, offset, C),
+                                         sm_scale)
+    return _chunk_cuda(q, cache, layer, kv_valid, offset, sm_scale)

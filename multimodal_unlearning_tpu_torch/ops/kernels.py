@@ -7,8 +7,11 @@ The libraries land in ``ops/_build/`` (listed in ``.gitignore``) under a
 name that hashes the sources and flags, so a changed source is rebuilt and
 an unchanged one is reused.  Nothing is built when this module is imported.
 
-``LAUNCHES`` counts the launches of each kernel; its wrapper adds one
-where it launches, and nowhere else.
+A library may export more than one kernel (``flash_decode.cu`` holds B4
+and its int8 variant B4q, ``chunk_decode.cu`` B5 and B5q): ``SOURCES`` names
+the libraries, ``_SIGNATURES`` each kernel's library, symbol and argtypes.
+``LAUNCHES`` counts the launches of each kernel; its wrapper adds one where
+it launches, and nowhere else.
 """
 
 from __future__ import annotations
@@ -29,25 +32,30 @@ SOURCES = {
     "flash_decode": "flash_decode.cu",
     "flash_bwd_dq": "flash_bwd_dq.cu",
     "flash_bwd_dkv": "flash_bwd_dkv.cu",
+    "chunk_decode": "chunk_decode.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-LAUNCHES = {name: 0 for name in SOURCES}
-
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# argtypes of each library's launcher (csrc/*.cu, extern "C")
+_CHUNK_ARGS = [_P] * 8 + [_I] * 7 + [_LL] * 7 + [_F, _P]
+# kernel -> (library, launcher symbol, its argtypes) (csrc/*.cu, extern "C")
 _SIGNATURES = {
-    "flash_fwd": ("mmu_flash_fwd_bf16",
+    "flash_fwd": ("flash_fwd", "mmu_flash_fwd_bf16",
                   [_P] * 6 + [_I] * 6 + [_LL] * 12 + [_F, _I, _I, _P]),
-    "flash_decode": ("mmu_flash_decode_bf16", [_P] * 5 + [_I] * 7 + [_F, _P]),
-    "flash_bwd_dq": ("mmu_flash_bwd_dq_bf16",
+    "flash_decode": ("flash_decode", "mmu_flash_decode_bf16", [_P] * 5 + [_I] * 7 + [_F, _P]),
+    "flash_decode_q8": ("flash_decode", "mmu_flash_decode_q8", [_P] * 7 + [_I] * 7 + [_F, _P]),
+    "flash_bwd_dq": ("flash_bwd_dq", "mmu_flash_bwd_dq_bf16",
                      [_P] * 8 + [_I] * 6 + [_LL] * 15 + [_F, _I, _I, _P]),
-    "flash_bwd_dkv": ("mmu_flash_bwd_dkv_bf16",
+    "flash_bwd_dkv": ("flash_bwd_dkv", "mmu_flash_bwd_dkv_bf16",
                       [_P] * 9 + [_I] * 6 + [_LL] * 18 + [_F, _I, _I, _P]),
+    "chunk_decode": ("chunk_decode", "mmu_chunk_decode_bf16", _CHUNK_ARGS),
+    "chunk_decode_q8": ("chunk_decode", "mmu_chunk_decode_q8", _CHUNK_ARGS),
 }
+
+LAUNCHES = {name: 0 for name in _SIGNATURES}
 
 _lock = threading.Lock()
 _launchers: dict[str, ctypes._CFuncPtr] = {}
@@ -80,7 +88,7 @@ def _library_path(name: str) -> Path:
 
 
 def build(names=None) -> dict[str, float]:
-    """Compile every named kernel library that is not built yet, one
+    """Compile every named library (``SOURCES``) that is not built yet, one
     ``nvcc`` per source, all in parallel.  Returns the wall seconds each
     build took (0.0 for a library that was already there).  The compiler's
     register and shared-memory report (``-Xptxas -v``) is kept beside each
@@ -125,11 +133,11 @@ def launcher(name: str):
         return fn
     with _lock:
         if name not in _launchers:
-            path = _library_path(name)
+            lib_name, sym, argtypes = _SIGNATURES[name]
+            path = _library_path(lib_name)
             if not path.exists():
-                build([name])
+                build([lib_name])
             lib = ctypes.CDLL(str(path))
-            sym, argtypes = _SIGNATURES[name]
             fn = getattr(lib, sym)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

@@ -1,5 +1,7 @@
-"""Kernels B1 (flash forward), B2/B3 (flash backward: dq, dk/dv) and B4
-(flash decode) against their plain PyTorch versions on the card, in bf16.
+"""Kernels B1 (flash forward), B2/B3 (flash backward: dq, dk/dv), B4/B4q
+(flash decode, bf16 and int8 cache) and B5/B5q (verify-chunk attention,
+bf16 and int8 cache) against their plain PyTorch versions on the card, in
+bf16.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  On the card:
 
@@ -13,7 +15,9 @@ runs in f32 and rounds once, so outputs agree to a few bf16 ulps of |o| <= 1:
 their plain version start from the same saved o and lse and round p and ds to
 bf16 at the same place; what differs is the f32 summation order and the final
 bf16 rounding of sums over up to 768 queries or keys, so gradients agree to
-1% of the largest gradient entry plus one bf16 ulp of the entry.
+1% of the largest gradient entry plus one bf16 ulp of the entry.  On an
+int8 cache the kernels keep the scales outside the products while the plain
+version dequantizes the slab to bf16 first: the same 2e-2.
 """
 
 import numpy as np
@@ -23,7 +27,9 @@ import torch
 from multimodal_unlearning_tpu_torch.ops import kernels
 from multimodal_unlearning_tpu_torch.ops.attention import (
     flash_attention, flash_attention_bwd, flash_attention_lse)
-from multimodal_unlearning_tpu_torch.ops.decode_attention import decode_attention
+from multimodal_unlearning_tpu_torch.ops.decode_attention import (
+    chunk_decode_attention, decode_attention)
+from multimodal_unlearning_tpu_torch.models.llama import quantize_kv
 
 pytestmark = pytest.mark.cuda
 
@@ -90,6 +96,70 @@ def test_flash_decode_matches_plain(dev, G):
     ref = decode_attention(q, cache, 3, valid, impl="plain")
     torch.testing.assert_close(o.float(), ref.float(), atol=O_TOL, rtol=0)
     assert torch.all(o[3] == 0)
+
+
+def _cache(rng, shape, dev, int8):
+    k, v = _randn(rng, shape, dev), _randn(rng, shape, dev)
+    if not int8:
+        return {"k": k, "v": v}
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    return {"k": kq, "v": vq, "k_s": ks, "v_s": vs}
+
+
+@pytest.mark.parametrize("Smax", [2048, 1000])
+@pytest.mark.parametrize("G", [1, 4])
+def test_flash_decode_q8_matches_plain(dev, G, Smax):
+    rng = np.random.default_rng(4)
+    L, B, Hkv, D = 4, 8, 32 // G, 128
+    cache = _cache(rng, (L, B, Hkv, Smax, D), dev, True)
+    q = _randn(rng, (B, Hkv * G, 1, D), dev)
+    valid = torch.zeros((B, Smax), dtype=torch.int32, device=dev)
+    for b, n in enumerate(rng.integers(1, Smax, B)):
+        valid[b, Smax - n:] = 1
+    valid[5] = 0
+    before = kernels.LAUNCHES["flash_decode_q8"]
+    o = decode_attention(q, cache, 2, valid)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_decode_q8"] == before + 1
+    ref = decode_attention(q, cache, 2, valid, impl="plain")
+    torch.testing.assert_close(o.float(), ref.float(), atol=O_TOL, rtol=0)
+    assert torch.all(o[5] == 0)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,C,Smax,slab",
+    [
+        (8, 32, 32, 5, 2048, 0),     # the verify round, K = 4
+        (1, 32, 32, 512, 2048, 1536),  # a chunked-prefill pass over a slab view
+        (4, 32, 8, 5, 2048, 0),      # GQA
+        (3, 8, 8, 70, 1000, 0),      # C not a multiple of the tile, Smax of neither 64 nor 128
+    ],
+    ids=["verify", "prefill_chunk", "gqa", "ragged"],
+)
+def test_chunk_decode_matches_plain(dev, int8, B, Hq, Hkv, C, Smax, slab):
+    rng = np.random.default_rng(5)
+    L, D, layer = 3, 128, 1
+    cache = _cache(rng, (L, B, Hkv, Smax, D), dev, int8)
+    if slab:  # the first `slab` columns, as a strided view
+        cache = {n: t[..., :slab, :] if n in ("k", "v") else t[..., :slab]
+                 for n, t in cache.items()}
+        Smax = slab
+    q = _randn(rng, (B, Hq, C, D), dev)
+    valid = torch.zeros((B, Smax), dtype=torch.int32, device=dev)
+    offset = torch.zeros((B,), dtype=torch.int32, device=dev)
+    for b in range(B):
+        off = int(rng.integers(C, Smax - C)) if b else Smax - C  # row 0: offset near Smax
+        valid[b, int(rng.integers(0, off)):off] = 1   # left padding, then the prefix
+        offset[b] = off
+    # stale columns past each chunk hold values but stay invalid
+    before = dict(kernels.LAUNCHES)
+    o = chunk_decode_attention(q, cache, layer, valid, offset)
+    torch.cuda.synchronize()
+    name = "chunk_decode_q8" if int8 else "chunk_decode"
+    assert kernels.LAUNCHES[name] == before[name] + 1
+    ref = chunk_decode_attention(q, cache, layer, valid, offset, impl="plain")
+    torch.testing.assert_close(o.float(), ref.float(), atol=O_TOL, rtol=0)
 
 
 @pytest.mark.parametrize(

@@ -91,8 +91,8 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
 
 
 @pytest.mark.parametrize("option", [
-    {"speculate_k": 2}, {"page_size": 16}, {"prefill_chunk": 64}, {"temperature": 0.7},
-    {"logprobs": True}, {"adapters": {"a": None}}, {"cache_dtype": torch.int8},
+    {"page_size": 16}, {"temperature": 0.7}, {"logprobs": True}, {"adapters": {"a": None}},
+    {"mesh": object()}, {"cache_dtype": torch.float64},
 ], ids=lambda o: next(iter(o)))
 def test_unported_engine_options_raise(option):
     from multimodal_unlearning_tpu_torch.models import llava
@@ -104,8 +104,20 @@ def test_unported_engine_options_raise(option):
         ServingEngine(model, cfg, "llava", device="cpu", **option)
 
 
-@pytest.mark.parametrize("override", ["quantize_base=true", "kv_cache_dtype=int8",
-                                      "system_prompt=hello", "model_path=/nonexistent"])
+@pytest.mark.parametrize("option", [
+    {"speculate_k": 2}, {"prefill_chunk": 64}, {"cache_dtype": torch.int8},
+], ids=lambda o: next(iter(o)))
+def test_ported_engine_options_construct(option):
+    from multimodal_unlearning_tpu_torch.models import llava
+    from multimodal_unlearning_tpu_torch.serve import ServingEngine
+
+    cfg = tconfig.build_model_config(tconfig.get_model_identifiers("tiny-llava-test"))
+    model = llava.init_params(cfg, device="cpu")
+    ServingEngine(model, cfg, "llava", device="cpu", **option)
+
+
+@pytest.mark.parametrize("override", ["quantize_base=int4", "model_path=/nonexistent",
+                                      "processor_path=/nonexistent"])
 def test_unported_serve_options_raise(override):
     from multimodal_unlearning_tpu_torch.cli import serve
 
