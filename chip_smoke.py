@@ -17,9 +17,17 @@
    an all-invalid row; B2 and B3 (flash backward, dq and dk/dv): the forget
    step's shape (2, 32, 768, 128) causal, the same with left padding, GQA,
    q_offset > 0 with Sk > Sq, a non-causal D=64 S=577 case and a case with
-   dead rows, from the same saved o and lse -- and times kernel, plain
-   version and one PyTorch library call (``scaled_dot_product_attention``
-   and its backward, the yardstick only).
+   dead rows, from the same saved o and lse; B6 and B6q (paged decode)
+   through the block table of a 4-layer pool at layer 3, 8 rows, pages of 128
+   and of 16 columns assigned by a random permutation, ragged rows, a gap
+   page and an idle row; B7 and B7q (paged verify chunk) at the verify round,
+   a chunked-prefill pass (C 512 behind 1,024 columns), GQA, chunks that
+   straddle a page boundary and the verify round on pages of 16, each pool
+   holding a dense cache's columns, on which the paged kernels must give the
+   dense kernels' output bit for bit -- and times kernel, plain version,
+   (paged) the dense kernel on the same columns, and one PyTorch library call
+   (``scaled_dot_product_attention`` and its backward, on the gathered bf16
+   view for the paged kernels, the yardstick only).
 3. Serves LLaVA-1.5-7B at full width (random weights from a seed, bf16)
    through ``cli.serve.build_engine`` + ``ServingEngine``: ten requests of
    mixed prompt lengths, two with synthetic 336x336 pixels, 32..64 new
@@ -39,6 +47,17 @@
    asserted, prefill logits against the bf16 run printed; then speculation
    on the same quantized model, held against the plain int8 run by the same
    rule, B5q launches asserted.  Decode windows of each configuration.
+   3d. The bf16 model on a paged cache (pages of 128 columns): (i) plain
+   decode on a 25-page pool with budgets 96 tokens longer, so that admission
+   queues and a slot is preempted (asserted), its streams' first tokens held
+   against the dense bf16 run's by the first-difference rule; (ii) paged60
+   (the pool at 60% of the dense layout) with speculation, chunked prefill
+   and the system prompt, held against the dense speculative run.  B6 (i)
+   and B7 (ii) launch, B4 and B5 never; pool peak, preemptions and peak
+   memory printed; a decode window of each under the profiler.
+   3e. The quantized model with the int8 cache on a paged60 pool, plain and
+   speculative, held against the dense int8 runs; B6q and B7q launch, B4q
+   and B5q never.
 4. Takes forget steps on the same (now int8) model at full width and depth through
    ``cli.mm_forget.make_apply_fn`` + ``train.trainer.make_train_step`` at the
    operating point of the port's bench (int8 decoder, W8A8 forward and int8
@@ -48,7 +67,7 @@
    loss moving, B1/B2/B3 launched exactly as often as the step's structure
    gives, and the loss and LoRA gradients must agree with the same step on
    the plain attention versions.  Then one step under the profiler.
-5. Prints one ``{"kernels": [...]}`` line, the card's name and power limit,
+5. Prints one ``{"kernels": [...]}`` line (eleven kernels), the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -75,6 +94,8 @@ from multimodal_unlearning_tpu_torch.ops.attention import (
     flash_attention_lse, flash_bwd_dkv, flash_bwd_dq)
 from multimodal_unlearning_tpu_torch.ops.decode_attention import (
     chunk_decode_attention, decode_attention)
+from multimodal_unlearning_tpu_torch.ops.paged_attention import (
+    gather_layer_kv, paged_chunk_decode_attention, paged_decode_attention)
 from multimodal_unlearning_tpu_torch.serve import ServingEngine
 from multimodal_unlearning_tpu_torch.utils.pytree import tree_leaves_with_path
 
@@ -362,6 +383,164 @@ def check_b5(dev, gen):
     return worst, record
 
 
+def _dense_and_paged(dev, gen, rng, L, B, Hkv, S, P, D, int8):
+    """A random dense cache [L, B, Hkv, S, D] (bf16, or int8 with f32
+    scales) and the same columns as a paged pool [L, Hkv, NP, P, D] with a
+    block table, pages assigned to the rows by a random permutation of
+    1..NP-1 (page 0 unused, as the engine keeps it)."""
+    shape = (L, B, Hkv, S, D)
+    dense = _int8_cache(shape, dev, gen) if int8 else {n: randn(gen, shape, dev)
+                                                       for n in ("k", "v")}
+    MP = S // P
+    table = torch.from_numpy((1 + rng.permutation(B * MP)).reshape(B, MP).astype(np.int32)).to(dev)
+    pool = {"table": table}
+    for n, t in dense.items():
+        if n in ("k", "v"):
+            pool[n] = torch.zeros((L, Hkv, B * MP + 1, P, D), dtype=t.dtype, device=dev)
+            pool[n][:, :, table.long()] = t.reshape(L, B, Hkv, MP, P, D).transpose(1, 2)
+        else:  # scales [L, B, Hkv, 1, S] -> [L, Hkv, NP, 1, P]
+            pool[n] = torch.zeros((L, Hkv, B * MP + 1, 1, P), dtype=t.dtype, device=dev)
+            pool[n][:, :, table.long()] = t.reshape(L, B, Hkv, 1, MP, P).permute(0, 2, 1, 4, 3, 5)
+    return dense, pool
+
+
+def check_b6(dev, gen):
+    """B6 and B6q: one-token attention through the block table of a 4-layer
+    pool at layer 3, 8 rows, 32 heads, D 128, pages of 128 and of 16
+    columns; ragged rows as the engine leaves them, an all-invalid gap page
+    after a 100-column prefix in row 1, an idle row 5.  The pool holds a
+    dense cache's columns: B6/B6q must give B4/B4q's output bit for bit on
+    it, and B4/B4q's time on it stands beside theirs.  Returns per kernel
+    (max error, {page size: numbers})."""
+    L, B, Hq, Hkv, S, D, layer = 4, 8, 32, 32, 2048, 128, 3
+    rng = np.random.default_rng(3)
+    valid = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    for b in range(B):
+        if b == 5:
+            continue
+        if b == 1:
+            valid[b, :100] = 1
+            valid[b, 256:256 + int(rng.integers(1, 700))] = 1
+            continue
+        bucket = int(rng.integers(1, 12)) * 128
+        plen = int(rng.integers(1, bucket + 1))
+        valid[b, bucket - plen:bucket + int(rng.integers(0, 64))] = 1
+    q = randn(gen, (B, Hq, 1, D), dev)
+    n_valid = int(valid.sum().item())
+    worst = {"paged_decode": 0.0, "paged_decode_q8": 0.0}
+    record = {"paged_decode": {}, "paged_decode_q8": {}}
+    for P in (128, 16):
+        for kname, int8 in (("paged_decode", False), ("paged_decode_q8", True)):
+            dense, pool = _dense_and_paged(dev, gen, rng, L, B, Hkv, S, P, D, int8)
+            o = paged_decode_attention(q, pool, layer, valid)
+            torch.cuda.synchronize()
+            ref = paged_decode_attention(q, pool, layer, valid, impl="plain")
+            err = (o.float() - ref.float()).abs().max().item()
+            if err > KERNEL_TOL or not torch.all(o[5] == 0):
+                raise AssertionError(f"{kname} P{P}: max |err| {err} (tol {KERNEL_TOL}) or the "
+                                     "idle row not 0")
+            if not torch.equal(o, decode_attention(q, dense, layer, valid)):
+                raise AssertionError(f"{kname} P{P}: not B4's output bit for bit")
+            worst[kname] = max(worst[kname], err)
+            per_col = 2 * D + 8 if int8 else 4 * D
+            nbytes = (n_valid * Hkv * per_col + 2 * (q.numel() + o.numel())
+                      + 4 * (valid.numel() + pool["table"].numel()))
+            b_ms, b_by = bound(nbytes, 4.0 * D * n_valid * Hq)
+            ms = cuda_ms(lambda: paged_decode_attention(q, pool, layer, valid))
+            dense_ms = cuda_ms(lambda: decode_attention(q, dense, layer, valid))
+            plain_ms = cuda_ms(lambda: paged_decode_attention(q, pool, layer, valid,
+                                                              impl="plain"), iters=5)
+            # the yardstick: SDPA over the gathered bf16 view (gather excluded)
+            kl, vl = gather_layer_kv(pool, layer, torch.bfloat16)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, kl, vl, attn_mask=valid.bool()[:, None, None, :]))
+            label = "B6q" if int8 else "B6"
+            print(f"{label} pool [{L},{Hkv},{pool['k'].shape[2]},{P},{D}]{' int8' if int8 else ''} "
+                  f"layer {layer}, {B} rows of {S} logical columns, {n_valid} valid: max|err| "
+                  f"{err:.3e}, equal to the dense kernel's | kernel {ms:.4f} ms (the dense "
+                  f"kernel on the same columns {dense_ms:.4f} ms), plain (gather + attention) "
+                  f"{plain_ms:.4f} ms, "
+                  f"sdpa on the gathered bf16 view {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                  f"{nbytes / 1e6:.2f} MB)", flush=True)
+            record[kname][P] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                                    bound_by=b_by, dense_kernel_ms=dense_ms)
+            del dense, pool, o, ref, kl, vl
+    return worst, record
+
+
+def check_b7(dev, gen):
+    """B7 and B7q: the verify round (B 8, C 5), a chunked-prefill pass (B 1,
+    C 512 behind 1,024 prefix columns), GQA, and chunks that straddle a page
+    boundary, through the block table of pages of 128 columns (and the
+    verify round on pages of 16).  The pool holds a dense cache's columns:
+    B7/B7q must give B5/B5q's output bit for bit on it, and B5/B5q's time on
+    it stands beside theirs.  Returns per kernel (max error, {case:
+    numbers})."""
+    cases = [
+        # name, B, Hq, Hkv, C, page
+        ("verify", 8, 32, 32, 5, 128),
+        ("prefill_chunk", 1, 32, 32, 512, 128),
+        ("gqa", 4, 32, 8, 5, 128),
+        ("straddle", 8, 32, 32, 5, 128),
+        ("verify_p16", 8, 32, 32, 5, 16),
+    ]
+    L, S, D, layer = 4, 2048, 128, 3
+    rng = np.random.default_rng(4)
+    worst = {"paged_chunk": 0.0, "paged_chunk_q8": 0.0}
+    record = {"paged_chunk": {}, "paged_chunk_q8": {}}
+    for name, B, Hq, Hkv, C, P in cases:
+        valid = torch.zeros((B, S), dtype=torch.int32, device=dev)
+        offset = torch.zeros((B,), dtype=torch.int32, device=dev)
+        for b in range(B):
+            if name == "prefill_chunk":
+                off, start = 1024, 0
+            elif name == "straddle":  # the chunk starts 2 columns before a page boundary
+                off, start = int(rng.integers(2, 15)) * P - 2, int(rng.integers(0, 128))
+            else:
+                off, start = int(rng.integers(200, S - 64)), int(rng.integers(0, 128))
+            valid[b, start:off] = 1
+            offset[b] = off
+        q = randn(gen, (B, Hq, C, D), dev)
+        vis = valid.bool()[:, None, :] | (
+            (torch.arange(S, device=dev)[None, None, :] >= offset[:, None, None].long())
+            & (torch.arange(S, device=dev)[None, None, :]
+               <= offset[:, None, None].long() + torch.arange(C, device=dev)[None, :, None]))
+        pairs = Hq * int(vis.sum().item())
+        cols = Hkv * int(vis.any(dim=1).sum().item())  # (row, kv-head, column) read
+        for kname, int8 in (("paged_chunk", False), ("paged_chunk_q8", True)):
+            dense, pool = _dense_and_paged(dev, gen, rng, L, B, Hkv, S, P, D, int8)
+            o = paged_chunk_decode_attention(q, pool, layer, valid, offset)
+            torch.cuda.synchronize()
+            ref = paged_chunk_decode_attention(q, pool, layer, valid, offset, impl="plain")
+            err = (o.float() - ref.float()).abs().max().item()
+            if err > KERNEL_TOL:
+                raise AssertionError(f"{kname} {name}: max |err| {err} (tol {KERNEL_TOL})")
+            if not torch.equal(o, chunk_decode_attention(q, dense, layer, valid, offset)):
+                raise AssertionError(f"{kname} {name}: not B5's output bit for bit")
+            worst[kname] = max(worst[kname], err)
+            per_col = 2 * D + 8 if int8 else 4 * D
+            nbytes = (cols * per_col + 2 * (q.numel() + o.numel())
+                      + 4 * (valid.numel() + B + pool["table"].numel()))
+            b_ms, b_by = bound(nbytes, 4.0 * D * pairs)
+            ms = cuda_ms(lambda: paged_chunk_decode_attention(q, pool, layer, valid, offset))
+            dense_ms = cuda_ms(lambda: chunk_decode_attention(q, dense, layer, valid, offset))
+            plain_ms = cuda_ms(lambda: paged_chunk_decode_attention(
+                q, pool, layer, valid, offset, impl="plain"), iters=5)
+            kl, vl = gather_layer_kv(pool, layer, torch.bfloat16)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, kl, vl, attn_mask=vis[:, None], enable_gqa=Hq != Hkv))
+            print(f"{'B7q' if int8 else 'B7'} {name} B{B} Hq{Hq} Hkv{Hkv} C{C} page {P}, {S} "
+                  f"logical columns{' int8' if int8 else ''}: max|err| {err:.3e}, equal to the "
+                  f"dense kernel's | kernel {ms:.4f} ms (the dense kernel on the same columns "
+                  f"{dense_ms:.4f} ms), plain (gather + attention) {plain_ms:.4f} ms, sdpa on the "
+                  f"gathered bf16 view {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                  f"{4.0 * D * pairs / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+            record[kname][name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                       bound_ms=b_ms, bound_by=b_by, dense_kernel_ms=dense_ms)
+            del dense, pool, o, ref, kl, vl
+    return worst, record
+
+
 def check_bwd(dev, gen):
     """B2 and B3 cases; returns per kernel (max error over cases, numbers of
     the forget step's case)."""
@@ -577,7 +756,7 @@ def run_main_path(cfg):
           f"for {len(reqs) - len(near_ties)}/{len(reqs)} requests, near-ties {near_ties} "
           f"(tie margin {TIE_MARGIN}); plain-path top-2 margins "
           f"{[round(x, 4) for x in margins]}", flush=True)
-    return engine, launches, specs, kern
+    return engine, launches, specs, kern, [r.tokens for r in reqs]
 
 
 def profiled(fn, ranges=()):
@@ -744,13 +923,11 @@ SERVE_ARGS = ["model_family=llava", "num_slots=8", "max_length=2048", "chunk=16"
               "dtype=bfloat16", "seed=0"]
 
 
-def run_spec_path(model, specs, processor, base=SERVE_ARGS):
-    """bf16 serving with speculation (K 4), chunked prefill (512) and a
-    registered system prompt, through cli/serve's build_engine, against the
-    full prompts through the plain engine."""
-    cfg = serve.load_config(base + ["quantize_base=false", "speculative_k=4",
-                                    "prefill_chunk=512"])
-    engine, _, _, _ = serve.build_engine(cfg, model=model)
+def spec_jobs(engine, specs, processor):
+    """The system prompt registered as a prefix of ``engine``; returns the
+    jobs of the speculative workload (drafts on half the requests, text
+    requests behind the prefix on every other request, the others whole)
+    and the same requests as full prompts without drafts."""
     tok = processor.tokenizer
     system = tok.encode(SYSTEM_PROMPT, add_special_tokens=True)
     pid = engine.register_prefix(system)
@@ -766,6 +943,17 @@ def run_spec_path(model, specs, processor, base=SERVE_ARGS):
         else:                # whole, chunked when longer than 512 tokens
             jobs.append((system + ids, n, None, draft, None))
             full.append((system + ids, n, None, None, None))
+    return jobs, full
+
+
+def run_spec_path(model, specs, processor, base=SERVE_ARGS):
+    """bf16 serving with speculation (K 4), chunked prefill (512) and a
+    registered system prompt, through cli/serve's build_engine, against the
+    full prompts through the plain engine."""
+    cfg = serve.load_config(base + ["quantize_base=false", "speculative_k=4",
+                                    "prefill_chunk=512"])
+    engine, _, _, _ = serve.build_engine(cfg, model=model)
+    jobs, full = spec_jobs(engine, specs, processor)
     _serve(engine, jobs[:2], counted=False)  # warm-up
     reqs, wall, launches, peak = _serve(engine, jobs)
     _report("speculative + chunked + prefix path (bf16, K=4, chunk 512)", engine, reqs, wall,
@@ -791,7 +979,7 @@ def run_spec_path(model, specs, processor, base=SERVE_ARGS):
     print(f"speculative path vs the plain engine on the full prompts: streams agree up to "
           f"first differences at near-ties {ties} (request, token, reference top-2 gap; "
           f"tie margin {TIE_MARGIN})", flush=True)
-    return spec_engine, launches
+    return spec_engine, launches, [r.tokens for r in reqs]
 
 
 def run_int8_path(model, specs, bf16_logits, base=SERVE_ARGS):
@@ -832,7 +1020,118 @@ def run_int8_path(model, specs, bf16_logits, base=SERVE_ARGS):
     print(f"int8 speculative path vs the plain int8 run: streams agree up to first "
           f"differences at near-ties {ties} (tie margin {TIE_MARGIN})", flush=True)
     spec._state = None
-    return engine, spec, launches, slaunches
+    return engine, spec, launches, slaunches, ([r.tokens for r in reqs],
+                                               [r.tokens for r in sreqs])
+
+
+# ------------------------------------------------------------- phase 3d/3e
+# paged runs: pages of 128 columns; (i) a pool of 25 pages (24 usable; the
+# largest request of (i) needs 12) with budgets PAGED_EXTRA tokens longer
+# than the dense run's, so that slots outgrow the pages reserved at
+# admission and the pool must preempt; paged60: the pool at 60% of the
+# dense layout's 8 x 16 pages, as the JAX package's serving benchmark runs it
+PAGE = 128
+TIGHT_POOL = 25
+PAGED_EXTRA = 96
+PAGED60_POOL = int(0.6 * 8 * (2048 // PAGE)) + 1
+
+
+def _paged_report(label, engine, reqs, wall, launches, peak, preempt0=0):
+    _report(label, engine, reqs, wall, launches, peak)
+    st = engine.stats()
+    pool_gib = sum(t.numel() * t.element_size() for t in engine._state["cache"].values()) / 2**30
+    print(f"{label}: pool {st['pool_pages']} usable pages of {PAGE} columns ({pool_gib:.2f} GiB "
+          f"with the trash page and int8 scales), peak pages in use {st['pool_pages_peak']}, "
+          f"preemptions {st['preemptions'] - preempt0}, block-table uploads "
+          f"{st['table_uploads']}", flush=True)
+
+
+def _check_paged_launches(label, launches, want, zero):
+    if any(launches[n] == 0 for n in want) or any(launches[n] != 0 for n in zero):
+        raise AssertionError(f"{label}: {want} must launch and {zero} must not: {launches}")
+
+
+def run_paged_path(model, specs, processor, dense, spec_dense, base=SERVE_ARGS):
+    """bf16 serving on a paged cache: (i) plain decode on a tight pool
+    (admission queues, a slot is preempted), against the dense bf16 run's
+    streams; (ii) paged60 with speculation, chunked prefill and the system
+    prompt, against the dense speculative run's.  Each with a decode
+    window under the profiler."""
+    cfg = serve.load_config(base + ["quantize_base=false", f"page_size={PAGE}",
+                                    f"kv_pool_pages={TIGHT_POOL}"])
+    engine, _, _, _ = serve.build_engine(cfg, model=model)
+    jobs = [(ids, n + PAGED_EXTRA, pix, None, None) for ids, n, pix in specs]
+    _serve(engine, [(ids, 2, pix, None, None) for ids, _, pix in (specs[0], specs[-2])],
+           counted=False)  # warm-up
+    p0 = engine.stats()["preemptions"]
+    reqs, wall, launches, peak = _serve(engine, jobs)
+    label = f"paged bf16 (i), {TIGHT_POOL}-page pool, budgets +{PAGED_EXTRA}"
+    _paged_report(label, engine, reqs, wall, launches, peak, p0)
+    _check_paged_launches(label, launches, ("paged_decode", "flash_fwd"),
+                          ("flash_decode", "chunk_decode"))
+    counts = {"paged_decode": launches["paged_decode"]}
+    if engine.stats()["preemptions"] - p0 < 1:
+        raise AssertionError(f"{label}: the pool preempted no slot")
+    prompts = [(ids, pix) for ids, _, pix in specs]
+    ties = first_difference(model, label, [r.tokens[:n] for r, (_, n, _) in zip(reqs, specs)],
+                            dense, prompts)
+    print(f"{label} vs the dense bf16 run (its first tokens of each stream): streams agree up "
+          f"to first differences at near-ties {ties} (tie margin {TIE_MARGIN})", flush=True)
+    decode_window(engine, f"paged bf16, page {PAGE}, {TIGHT_POOL}-page pool", profile=True)
+    del engine
+    torch.cuda.empty_cache()
+
+    cfg = serve.load_config(base + ["quantize_base=false", "speculative_k=4",
+                                    "prefill_chunk=512", f"page_size={PAGE}",
+                                    f"kv_pool_pages={PAGED60_POOL}"])
+    engine, _, _, _ = serve.build_engine(cfg, model=model)
+    jobs, full = spec_jobs(engine, specs, processor)
+    _serve(engine, jobs[:2], counted=False)  # warm-up
+    p0 = engine.stats()["preemptions"]
+    reqs, wall, launches, peak = _serve(engine, jobs)
+    label = "paged60 bf16 (ii), speculation K=4 + chunked prefill 512 + system prompt"
+    _paged_report(label, engine, reqs, wall, launches, peak, p0)
+    _check_paged_launches(label, launches, ("paged_chunk", "flash_fwd"),
+                          ("flash_decode", "chunk_decode"))
+    if engine.stats()["prefill_chunks"] == 0:
+        raise AssertionError(f"{label}: no prompt went through chunked prefill")
+    ties = first_difference(model, label, [r.tokens for r in reqs], spec_dense,
+                            [(ids, pix) for ids, _, pix, *_ in full])
+    print(f"{label} vs the dense speculative run: streams agree up to first differences at "
+          f"near-ties {ties} (tie margin {TIE_MARGIN})", flush=True)
+    counts["paged_chunk"] = launches["paged_chunk"]
+    decode_window(engine, "paged60 bf16, speculation K=4", profile=True)
+    return counts
+
+
+def run_paged_int8_path(model, specs, dense8, spec8, base=SERVE_ARGS):
+    """The quantized model with the int8 cache on a paged60 pool, plain and
+    with speculation (K 4), against the dense int8 runs' streams."""
+    cfg = serve.load_config(base + ["quantize_base=true", "kv_cache_dtype=int8",
+                                    f"page_size={PAGE}", f"kv_pool_pages={PAGED60_POOL}"])
+    jobs = [(ids, n, pix, None, None) for ids, n, pix in specs]
+    prompts = [(ids, pix) for ids, _, pix in specs]
+    out = {}
+    for label, extra, want, zero, ref in (
+            ("paged60 int8 (quantize_base=true, kv_cache_dtype=int8)", {},
+             ("paged_decode_q8",), ("flash_decode_q8", "flash_decode", "chunk_decode_q8"),
+             dense8),
+            ("paged60 int8 with speculation (K=4)", {"speculative_k": 4},
+             ("paged_chunk_q8",), ("flash_decode_q8", "chunk_decode_q8"), spec8)):
+        engine, _, _, _ = serve.build_engine(dict(cfg, **extra), model=model)
+        _serve(engine, [(ids, 2, pix, None, None) for ids, _, pix in (specs[0], specs[-2])],
+               counted=False)  # warm-up
+        reqs, wall, launches, peak = _serve(engine, jobs)
+        _paged_report(label, engine, reqs, wall, launches, peak)
+        _check_paged_launches(label, launches, want, zero)
+        ties = first_difference(model, label, [r.tokens for r in reqs], ref, prompts)
+        print(f"{label} vs the dense int8 run: streams agree up to first differences at "
+              f"near-ties {ties} (tie margin {TIE_MARGIN})", flush=True)
+        engine._state = None
+        out[want[0]] = launches[want[0]]
+        del engine
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------- phase 4
@@ -967,11 +1266,13 @@ def main() -> int:
     b4_err, b4 = check_b4(dev, gen)
     b4q_err, b4q = check_b4q(dev, gen)
     b5_err, b5 = check_b5(dev, gen)
+    b6_err, b6 = check_b6(dev, gen)
+    b7_err, b7 = check_b7(dev, gen)
     bwd_err, bwd = check_bwd(dev, gen)
     torch.cuda.empty_cache()
 
     cfg = serve.load_config(SERVE_ARGS + ["quantize_base=false"])
-    engine, launches, specs, bf16_logits = run_main_path(cfg)
+    engine, launches, specs, bf16_logits, dense_streams = run_main_path(cfg)
     prefill_profile(engine, specs[7])   # the longest text prompt
     prefill_profile(engine, specs[8])   # an image request
     kernel_step = decode_window(engine, "kernels", profile=True)
@@ -990,16 +1291,23 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # speculation + chunked prefill + prefix cache on the bf16 model
-    spec, spec_launches = run_spec_path(model, specs, processor)
+    spec, spec_launches, spec_streams = run_spec_path(model, specs, processor)
     decode_window(spec, "bf16, speculation K=4", profile=True)
     del spec
     torch.cuda.empty_cache()
+    # the paged cache on the bf16 model: plain decode on a tight pool, then
+    # paged60 with speculation, chunked prefill and the system prompt
+    paged_launches = run_paged_path(model, specs, processor, dense_streams, spec_streams)
+    torch.cuda.empty_cache()
     # the serve config as it ships: quantizes the model in place
-    eng8, spec8, q8_launches, spec8_launches = run_int8_path(model, specs, bf16_logits)
+    eng8, spec8, q8_launches, spec8_launches, (streams8, spec_streams8) = run_int8_path(
+        model, specs, bf16_logits)
     decode_window(eng8, "int8 weights + int8 cache", profile=True)
     decode_window(spec8, "int8 weights + int8 cache, speculation K=4", profile=True)
     del eng8, spec8
     torch.cuda.empty_cache()
+    # the same on a paged60 pool
+    paged8_launches = run_paged_int8_path(model, specs, streams8, spec_streams8)
 
     # the forget step on the served model (int8 already: the bench's
     # quantization passes it through), once the serving phases are done
@@ -1046,6 +1354,30 @@ def main() -> int:
              **b5["chunk_decode_q8"]["verify"],
              prefill_chunk=b5["chunk_decode_q8"]["prefill_chunk"],
              gqa=b5["chunk_decode_q8"]["gqa"]),
+        dict(name="paged_decode (B6)", route="cuda",
+             source="multimodal_unlearning_tpu_torch/ops/csrc/flash_decode.cu",
+             replaces="multimodal_unlearning_tpu/ops/paged_attention.py:105",
+             launches=paged_launches["paged_decode"], max_abs_err=b6_err["paged_decode"],
+             **b6["paged_decode"][128], page16=b6["paged_decode"][16]),
+        dict(name="paged_decode_q8 (B6q)", route="cuda",
+             source="multimodal_unlearning_tpu_torch/ops/csrc/flash_decode.cu",
+             replaces="multimodal_unlearning_tpu/ops/paged_attention.py:148",
+             launches=paged8_launches["paged_decode_q8"], max_abs_err=b6_err["paged_decode_q8"],
+             **b6["paged_decode_q8"][128], page16=b6["paged_decode_q8"][16]),
+        dict(name="paged_chunk (B7)", route="cuda",
+             source="multimodal_unlearning_tpu_torch/ops/csrc/chunk_decode.cu",
+             replaces="multimodal_unlearning_tpu/ops/paged_attention.py:341",
+             launches=paged_launches["paged_chunk"], max_abs_err=b7_err["paged_chunk"],
+             **b7["paged_chunk"]["verify"],
+             **{k: b7["paged_chunk"][k] for k in ("prefill_chunk", "gqa", "straddle",
+                                                   "verify_p16")}),
+        dict(name="paged_chunk_q8 (B7q)", route="cuda",
+             source="multimodal_unlearning_tpu_torch/ops/csrc/chunk_decode.cu",
+             replaces="multimodal_unlearning_tpu/ops/paged_attention.py:384",
+             launches=paged8_launches["paged_chunk_q8"], max_abs_err=b7_err["paged_chunk_q8"],
+             **b7["paged_chunk_q8"]["verify"],
+             **{k: b7["paged_chunk_q8"][k] for k in ("prefill_chunk", "gqa", "straddle",
+                                                      "verify_p16")}),
     ]
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

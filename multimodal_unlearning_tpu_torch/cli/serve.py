@@ -15,6 +15,9 @@ As ``configs/mm/serve.yaml`` ships it, the decoder is int8 (W8A16,
 ``speculative_k=4`` verifies prompt-lookup drafts, ``prefill_chunk=512``
 prefills long prompts in chunks and ``system_prompt=...`` prefills a shared
 prefix once (text requests prefill only their own suffix against it).
+``page_size=128`` pages the KV cache (``kv_pool_pages=N`` caps the pool;
+0 keeps the dense layout's capacity): the summary line then reports the
+pool's peak pages and preemptions.
 
 Overrides are ``key=value`` (dotted keys reach nested ones, e.g.
 ``generation.max_new_tokens=64``) onto the defaults of
@@ -68,6 +71,8 @@ DEFAULTS = {
     "quantize_base": True,
     "kv_cache_dtype": None,
     "seed": 42,
+    "host": "127.0.0.1",  # cli/serve_http.py bind address
+    "port": 8000,         # cli/serve_http.py port (0 = any free one)
     "device": None,
 }
 
@@ -252,9 +257,12 @@ def run(cfg: dict):
             f.write(json.dumps(row) + "\n")
     n_tok = sum(len(r.tokens) for r in reqs)
     st = engine.stats()
+    pool = (f"; paged pool {st['pool_pages']} pages of {engine.page}, peak "
+            f"{st['pool_pages_peak']}, {st['preemptions']} preemptions"
+            if engine.page else "")
     print(f"served {len(reqs)} requests, {n_tok} tokens in {dt:.1f}s "
           f"({n_tok / max(dt, 1e-9):.1f} tok/s; {st['dispatches']} dispatches, "
-          f"{st['tokens_per_round']:.2f} tok/round) "
+          f"{st['tokens_per_round']:.2f} tok/round{pool}) "
           f"on {engine.device} -> {cfg['save_file']}")
     return results
 

@@ -25,7 +25,10 @@ Modes of ``forward``:
 
 The cache is bf16/f32 ``{"k", "v"}`` or int8 ``{"k", "v", "k_s", "v_s"}``
 (``init_kv_cache(dtype=torch.int8)``), quantized per position and kv-head
-as it is written.
+as it is written.  A paged cache (``init_paged_kv_cache`` plus a ``"table"``
+key, ops/paged_attention.py) is written per row through its block table and
+read by the paged decode and chunk kernels; a prefill into it goes through a
+contiguous slab whose pages the caller scatters.
 
 Unlike the JAX package, the cache is updated in place: the dict passed in
 is the dict returned.
@@ -48,7 +51,8 @@ from multimodal_unlearning_tpu_torch.utils.quantize import (
     dequantize_leaf, embed_lookup, int8_matmul, int8_matmul_group, is_qtensor, qs_of)
 
 __all__ = ["LlamaConfig", "Llama", "init_params", "rms_norm", "dense", "init_kv_cache",
-           "positions_from_mask", "enable_int8_compute", "apply_lora_delta"]
+           "init_paged_kv_cache", "positions_from_mask", "enable_int8_compute",
+           "apply_lora_delta"]
 
 REMAT_POLICIES = (None, "save_attn", "save_attn_ffn")
 
@@ -130,6 +134,28 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat
     return cache
 
 
+def init_paged_kv_cache(cfg: LlamaConfig, n_pages: int, page: int, dtype=torch.bfloat16,
+                        device=None) -> dict:
+    """Paged KV pool of ``n_pages`` pages of ``page`` columns each:
+    {"k", "v"} [L, Hkv, n_pages, page, D] zeros in a float ``dtype``, or
+    int8 with f32 scales ``k_s``/``v_s`` [L, Hkv, n_pages, 1, page] (the
+    position last, as in the dense cache).  The caller pairs it with a
+    [B, MP] int32 block table under the key "table": logical column c of row
+    b lives at pool page ``table[b, c // page]``, offset ``c % page``.  The
+    serving engine keeps page 0 as a trash page for retired rows."""
+    if dtype not in (torch.bfloat16, torch.float16, torch.float32, torch.int8):
+        raise NotImplementedError(f"KV cache dtype {dtype} is not ported (float or int8)")
+    shape = (cfg.num_layers, cfg.num_kv_heads, n_pages, page, cfg.head_dim)
+    dev = resolve_device(device)
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    if dtype == torch.int8:
+        sshape = shape[:3] + (1, page)
+        cache["k_s"] = torch.zeros(sshape, dtype=torch.float32, device=dev)
+        cache["v_s"] = torch.zeros(sshape, dtype=torch.float32, device=dev)
+    return cache
+
+
 def quantize_kv(x):
     """[..., S, D] -> (int8 [..., S, D], f32 scales [..., 1, S]): per
     position s = amax|x| / 127 over D, then round(x / max(s, 1e-12)),
@@ -146,6 +172,9 @@ def _cache_write(cache, k, v, layer, offset):
     an int8 cache quantizes on the way in."""
     if isinstance(offset, torch.Tensor) and offset.ndim == 1:
         return _cache_write_per_row(cache, k, v, layer, offset)
+    if "table" in cache:
+        raise ValueError("a paged cache is written per row (offset a [B] tensor); prefill into "
+                         "a contiguous slab and scatter its pages instead")
     offset = int(offset)
     S = k.shape[2]
     if "k_s" in cache:
@@ -163,7 +192,10 @@ def _cache_write_per_row(cache, k, v, layer, offset):
     """Row b's C tokens land at columns offset[b] .. offset[b]+C-1 (C == 1
     is the continuous-batching decode step, C > 1 a verify or prefill
     chunk), in one scatter per tensor.  A start past Smax - C is clamped to
-    it, as the JAX package's ``dynamic_update_slice`` clamps."""
+    it, as the JAX package's ``dynamic_update_slice`` clamps.  A paged cache
+    is written through its block table (``_cache_write_paged``)."""
+    if "table" in cache:
+        return _cache_write_paged(cache, k, v, layer, offset)
     B, _, C, _ = k.shape
     smax = cache["k"].shape[3]
     rows = torch.arange(B, device=k.device)[:, None]
@@ -178,6 +210,34 @@ def _cache_write_per_row(cache, k, v, layer, offset):
         return cache
     cache["k"][layer, rows, :, cols] = k.transpose(1, 2).to(cache["k"].dtype)
     cache["v"][layer, rows, :, cols] = v.transpose(1, 2).to(cache["v"].dtype)
+    return cache
+
+
+def _cache_write_paged(cache, k, v, layer, offset):
+    """Row b's C tokens land at logical columns offset[b] .. offset[b]+C-1,
+    i.e. at pool page ``table[b, col // P]``, offset ``col % P``; a row's
+    columns may straddle a page boundary.  One advanced-index assignment per
+    tensor over the [B, C] (page, offset) pairs; an int8 pool quantizes as
+    the dense write does.  A start past MP*P - C is clamped to it.  Rows
+    whose tables point at the same page (only the engine's trash page 0,
+    for retired rows) overwrite each other there, and nothing reads it."""
+    B, _, C, _ = k.shape
+    table = cache["table"].to(k.device).long()
+    P = cache["k"].shape[3]
+    cols = offset.to(k.device).long().clamp(0, table.shape[1] * P - C)[:, None] + torch.arange(
+        C, device=k.device)[None, :]
+    pg = torch.gather(table, 1, cols // P)  # [B, C]
+    off = cols % P
+    # pool[layer] is [Hkv, NP, P, D]: the adjacent advanced indices (pg, off)
+    # at dims 1 and 2 put [B, C] there, so the value is laid out [Hkv, B, C, D]
+    if "k_s" in cache:
+        for name, x in (("k", k), ("v", v)):
+            xq, xs = quantize_kv(x)
+            cache[name][layer][:, pg, off] = xq.transpose(0, 1)
+            cache[name + "_s"][layer, :, :, 0][:, pg, off] = xs[:, :, 0].transpose(0, 1)
+        return cache
+    cache["k"][layer][:, pg, off] = k.transpose(0, 1).to(cache["k"].dtype)
+    cache["v"][layer][:, pg, off] = v.transpose(0, 1).to(cache["v"].dtype)
     return cache
 
 

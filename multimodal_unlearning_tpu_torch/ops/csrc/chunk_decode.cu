@@ -1,12 +1,20 @@
-// Verify-chunk attention (kernels B5 and B5q) for Hopper: C query tokens
-// per batch row against layer `layer` of the stacked KV cache, read in place
-// through element strides (a slot's or a prefill slab's columns are views).
-// The cache is bf16 (B5) or int8 with f32 scales, one per position and
-// kv-head, the position axis contiguous (B5q).
+// Verify-chunk attention (kernels B5, B5q, B7 and B7q) for Hopper: C query
+// tokens per batch row against layer `layer` of a KV cache read in place.
+// Two cache layouts share one kernel body:
+//   dense (B5, B5q): the stacked cache read through element strides (a
+//     slot's or a prefill slab's columns are views);
+//   paged (B7, B7q): a pool of pages [L,Hkv,NP,P,D] shared by all rows with
+//     a block table [B,MP]: row b's logical column j lives at pool page
+//     table[b, j/P], offset j%P (Smax = MP*P logical columns).
+// The cache is bf16 (B5, B7) or int8 with f32 scales, one per position and
+// kv-head, the position axis contiguous (B5q, B7q).
 //
 // Replaces multimodal_unlearning_tpu/ops/decode_attention.py:_chunk_kernel
-// (B5) and :_chunk_kernel_q8 (B5q) (launcher _pallas_chunk_decode).  Row b's
-// queries sit at cache columns offset[b] .. offset[b]+C-1, already written;
+// (B5) and :_chunk_kernel_q8 (B5q) (launcher _pallas_chunk_decode), and
+// multimodal_unlearning_tpu/ops/paged_attention.py:_paged_chunk_kernel (B7)
+// and :_paged_chunk_kernel_q8 (B7q) (launcher paged_chunk_decode_attention).
+// Row b's queries sit at logical columns offset[b] .. offset[b]+C-1, already
+// written;
 // query c sees column j iff
 //   valid[b,j] != 0  ||  offset[b] <= j <= offset[b] + c,
 // so the accepted prefix is admitted by `valid` alone, the chunk is causal
@@ -30,7 +38,14 @@
 // online softmax in the log2 domain with the scores and the output
 // accumulator in shared memory.  A tile whose columns no row can see is
 // skipped before its keys are loaded, and within a tile an invisible column
-// is not loaded at all (zeros are stored in its place).
+// is not loaded at all (zeros are stored in its place).  On a paged cache the
+// block keeps its row of the block table in shared memory and resolves each
+// tile column through it to its row of the pool while it decides the
+// column's visibility, so a 64-column tile may span pages of any size (P =
+// 16 or 32: 4 or 2 pages; P >= 64: one page); the visibility rule uses
+// logical columns, and tiles past both the valid prefix and the chunk (and
+// all-invalid gap pages) are skipped like any invisible tile.  Everything
+// after the address is the dense kernel's arithmetic, in the same order.
 //
 // What bounds it on the card: two regimes share it.  The speculative verify
 // round (C = K+1 = 5, 8 rows) reads each row's visible K/V once and does 4D
@@ -71,7 +86,9 @@ struct Layout {
   static constexpr size_t ks_off = flag_off + sizeof(int) * BK;
   static constexpr size_t vs_off = ks_off + sizeof(float) * BK;
   static constexpr size_t crow_off = vs_off + sizeof(float) * BK;
-  static constexpr size_t bytes = crow_off + sizeof(int) * BQ;
+  static constexpr size_t row_off = crow_off + sizeof(int) * BQ;
+  static constexpr size_t table_off = row_off + sizeof(int) * BK;
+  static constexpr size_t bytes = table_off;  // + MP ints of block table (paged)
 };
 
 // One 16-byte word of a cache row -> bf16 in shared memory.
@@ -118,16 +135,22 @@ struct Args {
   long long tL, tB, tH;      // scale element strides (positions contiguous)
   float sm_scale;
   cudaStream_t stream;
+  const int* table;  // paged only: [B,MP] block table of pages of P columns
+  int MP, P;
 };
 
-template <typename T, int D>
+// PAGED: the strides describe the pool [L,Hkv,NP,P,D] seen as [L,1,Hkv,NP*P,D]
+// (cB = tB = 0), and a logical column j is read at pool row
+// table[b, j/P]*P + j%P; dense: at row j of the strided view.
+template <typename T, int D, bool PAGED>
 __global__ void __launch_bounds__(NTHREADS)
 chunk_decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kc,
                     const T* __restrict__ vc, const float* __restrict__ ks,
                     const float* __restrict__ vs, const int* __restrict__ valid,
-                    const int* __restrict__ offset, __nv_bfloat16* __restrict__ o, int Hq,
-                    int G, int C, int Smax, int layer, long long cL, long long cB, long long cH,
-                    long long cS, long long tL, long long tB, long long tH, float scale_log2) {
+                    const int* __restrict__ offset, const int* __restrict__ table,
+                    __nv_bfloat16* __restrict__ o, int Hq, int G, int C, int Smax, int layer,
+                    long long cL, long long cB, long long cH, long long cS, long long tL,
+                    long long tB, long long tH, int MP, int P, float scale_log2) {
   using L = Layout<D>;
   using E = Row16<T>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -141,6 +164,8 @@ chunk_decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
   float* sKs = reinterpret_cast<float*>(smem + L::ks_off);
   float* sVs = reinterpret_cast<float*>(smem + L::vs_off);
   int* sCrow = reinterpret_cast<int*>(smem + L::crow_off);  // chunk index c of a row, -1 pad
+  int* sRow = reinterpret_cast<int*>(smem + L::row_off);  // cache row of a tile column
+  int* sTable = reinterpret_cast<int*>(smem + L::table_off);  // [MP] (paged)
 
   const int m0 = blockIdx.x * BQ;
   const int hk = blockIdx.y;
@@ -175,6 +200,8 @@ chunk_decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
   }
   for (int r = tid; r < BQ; r += NTHREADS) sCrow[r] = m0 + r < M ? (m0 + r) % C : -1;
   for (int i = tid; i < BQ * L::LDO; i += NTHREADS) sO[i] = 0.f;
+  if (PAGED)  // this row's block table (no scalar prefetch on this card)
+    for (int i = tid; i < MP; i += NTHREADS) sTable[i] = table[static_cast<long long>(b) * MP + i];
 
   float m_r[16], l_r[16];
 #pragma unroll
@@ -197,6 +224,7 @@ chunk_decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
       int f = 0;
       if (j < Smax) f = vrow[j] != 0 ? 1 : (j >= off && j <= chunk_hi ? 2 : 0);
       sFlag[i] = f;
+      sRow[i] = PAGED ? (f != 0 ? sTable[j / P] * P + j % P : 0) : j;
       any |= f;
     }
     if (!__syncthreads_or(any)) continue;  // no row sees any column of this tile
@@ -206,7 +234,7 @@ chunk_decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
       const int r = i / WPR, w = i % WPR;
       uint4 kw = zero, vw = zero;
       if (sFlag[r] != 0) {
-        const long long at = (k0 + r) * cS + w * E::kPerWord;
+        const long long at = sRow[r] * cS + w * E::kPerWord;
         kw = *reinterpret_cast<const uint4*>(kb + at);
         vw = *reinterpret_cast<const uint4*>(vb + at);
       }
@@ -216,8 +244,8 @@ chunk_decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
     if (E::kQ8) {
       for (int i = tid; i < BK; i += NTHREADS) {
         const bool vis = sFlag[i] != 0;
-        sKs[i] = vis ? ksr[k0 + i] : 0.f;
-        sVs[i] = vis ? vsr[k0 + i] : 0.f;
+        sKs[i] = vis ? ksr[sRow[i]] : 0.f;
+        sVs[i] = vis ? vsr[sRow[i]] : 0.f;
       }
     }
     __syncthreads();
@@ -316,27 +344,30 @@ chunk_decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PAGED>
 int launch(const Args& a) {
-  const size_t bytes = Layout<D>::bytes;
-  cudaError_t err = mmu::allow_smem(chunk_decode_kernel<T, D>, bytes);
+  const size_t bytes = Layout<D>::bytes + (PAGED ? sizeof(int) * a.MP : 0);
+  if (bytes > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = mmu::allow_smem(chunk_decode_kernel<T, D, PAGED>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int G = a.Hq / a.Hkv;
   const dim3 grid((G * a.C + BQ - 1) / BQ, a.Hkv, a.B);
-  chunk_decode_kernel<T, D><<<grid, NTHREADS, bytes, a.stream>>>(
+  chunk_decode_kernel<T, D, PAGED><<<grid, NTHREADS, bytes, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const T*>(a.kc),
-      static_cast<const T*>(a.vc), a.ks, a.vs, a.valid, a.offset,
+      static_cast<const T*>(a.vc), a.ks, a.vs, a.valid, a.offset, a.table,
       static_cast<__nv_bfloat16*>(a.o), a.Hq, G, a.C, a.Smax, a.layer, a.sL, a.sB, a.sH, a.sS,
-      a.tL, a.tB, a.tH, a.sm_scale * mmu::kLog2e);
+      a.tL, a.tB, a.tH, a.MP, a.P, a.sm_scale * mmu::kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool PAGED>
 int dispatch(const Args& a, int D) {
   if (a.Hkv <= 0 || a.Hq % a.Hkv != 0 || a.B <= 0 || a.C <= 0 || a.Smax <= 0 || a.layer < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D == 128) return launch<T, 128>(a);
-  if (D == 64) return launch<T, 64>(a);
+  if (PAGED && (a.table == nullptr || a.P <= 0 || a.MP <= 0 || a.MP * a.P != a.Smax))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (D == 128) return launch<T, 128, PAGED>(a);
+  if (D == 64) return launch<T, 64, PAGED>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -346,7 +377,22 @@ Args make_args(const void* q, const void* kc, const void* vc, const float* ks, c
                long long tL, long long tB, long long tH, float sm_scale, void* stream) {
   return Args{q,  kc, vc, ks, vs, valid, offset, o,  B,  Hq,       Hkv,
               C,  Smax, layer, sL, sB, sH, sS, tL, tB, tH, sm_scale,
-              static_cast<cudaStream_t>(stream)};
+              static_cast<cudaStream_t>(stream), nullptr, 0, 0};
+}
+
+// The paged pool [L,Hkv,NP,P,D] (contiguous) as strides of the kernel's
+// [L,1,Hkv,NP*P,D] view, and its scales [L,Hkv,NP,1,P] likewise.
+Args paged_args(const void* q, const void* kp, const void* vp, const float* ks, const float* vs,
+                const int* valid, const int* offset, const int* table, void* o, int B, int Hq,
+                int Hkv, int C, int NP, int P, int MP, int D, int layer, float sm_scale,
+                void* stream) {
+  const long long rows = static_cast<long long>(NP) * P;
+  Args a = make_args(q, kp, vp, ks, vs, valid, offset, o, B, Hq, Hkv, C, MP * P, layer,
+                     Hkv * rows * D, 0, rows * D, D, Hkv * rows, 0, rows, sm_scale, stream);
+  a.table = table;
+  a.MP = MP;
+  a.P = P;
+  return a;
 }
 
 }  // namespace
@@ -361,7 +407,7 @@ extern "C" int mmu_chunk_decode_bf16(const void* q, const void* k_cache, const v
                                      int Smax, int D, int layer, long long sL, long long sB,
                                      long long sH, long long sS, long long tL, long long tB,
                                      long long tH, float sm_scale, void* stream) {
-  return dispatch<__nv_bfloat16>(
+  return dispatch<__nv_bfloat16, false>(
       make_args(q, k_cache, v_cache, nullptr, nullptr, valid, offset, o, B, Hq, Hkv, C, Smax,
                 layer, sL, sB, sH, sS, 0, 0, 0, sm_scale, stream),
       D);
@@ -377,8 +423,36 @@ extern "C" int mmu_chunk_decode_q8(const void* q, const void* k_cache, const voi
                                    long long sH, long long sS, long long tL, long long tB,
                                    long long tH, float sm_scale, void* stream) {
   if (k_s == nullptr || v_s == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<int8_t>(make_args(q, k_cache, v_cache, k_s, v_s, valid, offset, o, B, Hq,
-                                    Hkv, C, Smax, layer, sL, sB, sH, sS, tL, tB, tH, sm_scale,
-                                    stream),
-                          D);
+  return dispatch<int8_t, false>(make_args(q, k_cache, v_cache, k_s, v_s, valid, offset, o, B,
+                                           Hq, Hkv, C, Smax, layer, sL, sB, sH, sS, tL, tB, tH,
+                                           sm_scale, stream),
+                                 D);
+}
+
+// Paged (B7): q/o [B,Hq,C,D] bf16 contiguous; k/v pools [L,Hkv,NP,P,D] bf16
+// contiguous; valid [B,MP*P] int32 contiguous over logical columns; offset
+// [B] int32 logical columns; table [B,MP] int32 contiguous, every entry in
+// [0, NP).  The scale arguments are unused (pass null).
+extern "C" int mmu_paged_chunk_bf16(const void* q, const void* k_pool, const void* v_pool,
+                                    const float* k_s, const float* v_s, const int* valid,
+                                    const int* offset, const int* table, void* o, int B, int Hq,
+                                    int Hkv, int C, int NP, int P, int MP, int D, int layer,
+                                    float sm_scale, void* stream) {
+  return dispatch<__nv_bfloat16, true>(
+      paged_args(q, k_pool, v_pool, nullptr, nullptr, valid, offset, table, o, B, Hq, Hkv, C, NP,
+                 P, MP, D, layer, sm_scale, stream),
+      D);
+}
+
+// As mmu_paged_chunk_bf16 on int8 pools with f32 scales k_s, v_s
+// [L,Hkv,NP,1,P], contiguous (B7q).
+extern "C" int mmu_paged_chunk_q8(const void* q, const void* k_pool, const void* v_pool,
+                                  const float* k_s, const float* v_s, const int* valid,
+                                  const int* offset, const int* table, void* o, int B, int Hq,
+                                  int Hkv, int C, int NP, int P, int MP, int D, int layer,
+                                  float sm_scale, void* stream) {
+  if (k_s == nullptr || v_s == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<int8_t, true>(paged_args(q, k_pool, v_pool, k_s, v_s, valid, offset, table, o,
+                                           B, Hq, Hkv, C, NP, P, MP, D, layer, sm_scale, stream),
+                                D);
 }

@@ -1,13 +1,20 @@
-// Flash-decode (kernels B4 and B4q) for Hopper: one query token per (batch
-// row, q-head) against layer `layer` of the stacked [L,B,Hkv,Smax,D] KV
-// cache, read in place (the layer slab is never copied out).  The cache is
-// bf16 (B4) or int8 with f32 scales [L,B,Hkv,1,Smax], one per position and
-// kv-head (B4q).
+// Flash-decode (kernels B4, B4q, B6 and B6q) for Hopper: one query token per
+// (batch row, q-head) against layer `layer` of a KV cache read in place (no
+// layer slab is copied out).  Two cache layouts share one kernel body:
+//   dense (B4, B4q): the stacked [L,B,Hkv,Smax,D] cache;
+//   paged (B6, B6q): one pool of pages [L,Hkv,NP,P,D] shared by all rows,
+//     with a block table [B,MP]: row b's logical column j lives at pool page
+//     table[b, j/P], offset j%P (Smax = MP*P logical columns).
+// The cache is bf16 (B4, B6) or int8 with f32 scales, one per position and
+// kv-head, the position on the last axis: [L,B,Hkv,1,Smax] dense,
+// [L,Hkv,NP,1,P] paged (B4q, B6q).
 //
 // Replaces multimodal_unlearning_tpu/ops/decode_attention.py:_kernel (B4)
-// and :_kernel_q8 (B4q) (launcher _pallas_decode).  It computes
+// and :_kernel_q8 (B4q) (launcher _pallas_decode), and
+// multimodal_unlearning_tpu/ops/paged_attention.py:_paged_kernel (B6) and
+// :_paged_kernel_q8 (B6q) (launcher _pallas_paged).  It computes
 //   o[b,h] = softmax_j(sm_scale q[b,h].k[l,b,h//G,j]) v[l,b,h//G,j]
-// over the columns j with valid[b,j] != 0.  On an int8 cache the scales
+// over the logical columns j with valid[b,j] != 0.  On an int8 cache the scales
 // stay outside both dot products, as in the TPU kernel:
 //   s_j = (q.K_int[j]) k_s[j],   o = sum_j (p_j v_s[j]) V_int[j] / sum_j p_j,
 // so no dequantized K or V is ever formed.  A row with no valid column
@@ -19,7 +26,12 @@
 // (bytes), with 2 flops per loaded element -- far below the card's
 // operations-per-byte ridge.  The design therefore serves bandwidth only:
 // one block per (kv-head, batch row) first compacts the row's valid columns
-// into shared memory, so that invalid columns cost no load at all; then
+// into shared memory, so that invalid columns cost no load at all (on a
+// paged cache the compaction also resolves each column through the block
+// table, which the block keeps in shared memory, into its row of the pool:
+// pages past the row's extent and all-invalid gap pages are never touched,
+// and the rest of the kernel is the dense one, in the same arithmetic order,
+// so a paged row gives the dense row's result bit for bit); then
 // every group of D/8 lanes scores one key with 16-byte loads (a whole key
 // row per group, coalesced) while each warp keeps 4 key groups of K and V
 // loads in flight, with an online softmax per lane group in the log2
@@ -70,22 +82,28 @@ struct DecLayout {
   }
 };
 
-template <typename T, int D, int G>
+// PAGED: `table` is the [B,MP] block table of a pool of NP pages of P
+// columns (Smax = MP*P); otherwise table is null and MP, P, NP unused.
+template <typename T, int D, int G, bool PAGED>
 __global__ void __launch_bounds__(NTHREADS)
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kc,
                     const T* __restrict__ vc, const float* __restrict__ ks,
                     const float* __restrict__ vs, const int* __restrict__ valid,
-                    __nv_bfloat16* __restrict__ o, int B, int Hkv, int Smax, int layer,
-                    float scale_log2) {
+                    const int* __restrict__ table, __nv_bfloat16* __restrict__ o, int B,
+                    int Hkv, int Smax, int layer, int MP, int P, int NP, float scale_log2) {
   using L = DecLayout<D, G>;
   using E = Lane8<T>;
   constexpr int LPK = L::LPK;
   constexpr int KPW = L::KPW;
   extern __shared__ __align__(16) unsigned char smem[];
-  int* sIdx = reinterpret_cast<int*>(smem);  // [Smax] compacted valid columns
+  // [Smax] compacted valid columns, each as its row in the layer's K/V
+  // rows of this (row, kv-head): the logical column (dense) or
+  // page*P + offset in the pool (paged)
+  int* sIdx = reinterpret_cast<int*>(smem);
   float* sM = reinterpret_cast<float*>(sIdx + Smax);  // [NSLOT][G]
   float* sL = sM + L::NSLOT * G;                      // [NSLOT][G]
   float* sAcc = sL + L::NSLOT * G;                    // [NSLOT][G][D]
+  int* sTable = reinterpret_cast<int*>(sAcc + L::NSLOT * G * D);  // [MP] (paged)
   __shared__ int sCount[NWARPS];
 
   const int hk = blockIdx.x;
@@ -97,6 +115,12 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
   const int sub = lane / LPK;   // which of the warp's KPW keys
   const int part = lane % LPK;  // which 8 dims of the key
   const int slot = warp * KPW + sub;
+
+  // 0. paged: this row's block table (no scalar prefetch on this card)
+  if (PAGED) {
+    for (int i = tid; i < MP; i += NTHREADS) sTable[i] = table[static_cast<long long>(b) * MP + i];
+    __syncthreads();
+  }
 
   // 1. compact the row's valid columns (ascending) into sIdx
   const int* vrow = valid + static_cast<long long>(b) * Smax;
@@ -112,7 +136,8 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
       if (w < warp) off += sCount[w];
       total += sCount[w];
     }
-    if (flag) sIdx[off + __popc(ballot & ((1u << lane) - 1u))] = c;
+    if (flag)
+      sIdx[off + __popc(ballot & ((1u << lane) - 1u))] = PAGED ? sTable[c / P] * P + c % P : c;
     nvalid += total;
     __syncthreads();  // sCount is rewritten next round
   }
@@ -137,12 +162,15 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
 #pragma unroll
     for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
   }
-  const long long row_id = (static_cast<long long>(layer) * B + b) * Hkv + hk;
-  const T* kb = kc + row_id * Smax * D + part * 8;
-  const T* vb = vc + row_id * Smax * D + part * 8;
-  // int8 cache: this (layer, row, kv-head)'s scale rows, one per position
-  const float* ksr = E::kQ8 ? ks + row_id * Smax : nullptr;
-  const float* vsr = E::kQ8 ? vs + row_id * Smax : nullptr;
+  // the first of this (layer, row, kv-head)'s K/V rows that sIdx counts
+  // from: its [Smax, D] slab (dense) or its head's [NP*P, D] pool (paged)
+  const long long row0 = PAGED ? (static_cast<long long>(layer) * Hkv + hk) * NP * P
+                               : ((static_cast<long long>(layer) * B + b) * Hkv + hk) * Smax;
+  const T* kb = kc + row0 * D + part * 8;
+  const T* vb = vc + row0 * D + part * 8;
+  // int8 cache: the scales of those rows, one per position
+  const float* ksr = E::kQ8 ? ks + row0 : nullptr;
+  const float* vsr = E::kQ8 ? vs + row0 : nullptr;
   for (int base = warp * KPW * UNROLL; base < nvalid; base += NWARPS * KPW * UNROLL) {
     typename E::Word kw[UNROLL], vw[UNROLL];
     float kscale[UNROLL], vscale[UNROLL];
@@ -243,44 +271,49 @@ struct Args {
   const void *q, *kc, *vc;
   const float *ks, *vs;
   const int* valid;
+  const int* table;  // paged only
   void* o;
   int B, Hkv, Smax, layer;
+  int MP, P, NP;  // paged only
   float sm_scale;
   cudaStream_t stream;
 };
 
-template <typename T, int D, int G>
+template <typename T, int D, int G, bool PAGED>
 int launch(const Args& a) {
-  const size_t bytes = DecLayout<D, G>::bytes(a.Smax);
+  const size_t bytes = DecLayout<D, G>::bytes(a.Smax) + (PAGED ? sizeof(int) * a.MP : 0);
   if (bytes > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = mmu::allow_smem(flash_decode_kernel<T, D, G>, bytes);
+  cudaError_t err = mmu::allow_smem(flash_decode_kernel<T, D, G, PAGED>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(a.Hkv, a.B);
-  flash_decode_kernel<T, D, G><<<grid, NTHREADS, bytes, a.stream>>>(
+  flash_decode_kernel<T, D, G, PAGED><<<grid, NTHREADS, bytes, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const T*>(a.kc),
-      static_cast<const T*>(a.vc), a.ks, a.vs, a.valid, static_cast<__nv_bfloat16*>(a.o), a.B,
-      a.Hkv, a.Smax, a.layer, a.sm_scale * mmu::kLog2e);
+      static_cast<const T*>(a.vc), a.ks, a.vs, a.valid, a.table,
+      static_cast<__nv_bfloat16*>(a.o), a.B, a.Hkv, a.Smax, a.layer, a.MP, a.P, a.NP,
+      a.sm_scale * mmu::kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PAGED>
 int launch_g(int G, const Args& a) {
   switch (G) {
-    case 1: return launch<T, D, 1>(a);
-    case 2: return launch<T, D, 2>(a);
-    case 4: return launch<T, D, 4>(a);
-    case 8: return launch<T, D, 8>(a);
+    case 1: return launch<T, D, 1, PAGED>(a);
+    case 2: return launch<T, D, 2, PAGED>(a);
+    case 4: return launch<T, D, 4, PAGED>(a);
+    case 8: return launch<T, D, 8, PAGED>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <typename T>
+template <typename T, bool PAGED>
 int dispatch(const Args& a, int L, int Hq, int D) {
   if (a.Hkv <= 0 || Hq % a.Hkv != 0 || a.layer < 0 || a.layer >= L || a.B <= 0 || a.Smax <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (PAGED && (a.table == nullptr || a.P <= 0 || a.MP <= 0 || a.NP <= 0 || a.MP * a.P != a.Smax))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int G = Hq / a.Hkv;
-  if (D == 128) return launch_g<T, 128>(G, a);
-  if (D == 64) return launch_g<T, 64>(G, a);
+  if (D == 128) return launch_g<T, 128, PAGED>(G, a);
+  if (D == 64) return launch_g<T, 64, PAGED>(G, a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -291,9 +324,9 @@ int dispatch(const Args& a, int L, int Hq, int D) {
 extern "C" int mmu_flash_decode_bf16(const void* q, const void* k_cache, const void* v_cache,
                                      const int* valid, void* o, int L, int B, int Hq, int Hkv,
                                      int Smax, int D, int layer, float sm_scale, void* stream) {
-  const Args a{q, k_cache, v_cache, nullptr, nullptr, valid, o, B, Hkv, Smax, layer, sm_scale,
-               static_cast<cudaStream_t>(stream)};
-  return dispatch<__nv_bfloat16>(a, L, Hq, D);
+  const Args a{q,     k_cache, v_cache, nullptr, nullptr, valid, nullptr, o, B, Hkv, Smax,
+               layer, 0,       0,       0,       sm_scale, static_cast<cudaStream_t>(stream)};
+  return dispatch<__nv_bfloat16, false>(a, L, Hq, D);
 }
 
 // As mmu_flash_decode_bf16 on an int8 cache [L,B,Hkv,Smax,D] with f32 scales
@@ -303,7 +336,32 @@ extern "C" int mmu_flash_decode_q8(const void* q, const void* k_cache, const voi
                                    int L, int B, int Hq, int Hkv, int Smax, int D, int layer,
                                    float sm_scale, void* stream) {
   if (k_s == nullptr || v_s == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k_cache, v_cache, k_s, v_s, valid, o, B, Hkv, Smax, layer, sm_scale,
-               static_cast<cudaStream_t>(stream)};
-  return dispatch<int8_t>(a, L, Hq, D);
+  const Args a{q,     k_cache, v_cache, k_s, v_s,      valid, nullptr, o, B, Hkv, Smax,
+               layer, 0,       0,       0,   sm_scale, static_cast<cudaStream_t>(stream)};
+  return dispatch<int8_t, false>(a, L, Hq, D);
+}
+
+// Paged (B6): q/o [B,Hq,1,D] bf16 contiguous; k/v pools [L,Hkv,NP,P,D] bf16
+// contiguous; table [B,MP] int32 contiguous, every entry in [0, NP);
+// valid [B,MP*P] int32 contiguous over logical columns; 0 <= layer < L.
+extern "C" int mmu_paged_decode_bf16(const void* q, const void* k_pool, const void* v_pool,
+                                     const int* valid, const int* table, void* o, int L, int B,
+                                     int Hq, int Hkv, int NP, int P, int MP, int D, int layer,
+                                     float sm_scale, void* stream) {
+  const Args a{q,     k_pool, v_pool, nullptr, nullptr,  valid, table, o, B, Hkv, MP * P,
+               layer, MP,     P,      NP,      sm_scale, static_cast<cudaStream_t>(stream)};
+  return dispatch<__nv_bfloat16, true>(a, L, Hq, D);
+}
+
+// As mmu_paged_decode_bf16 on int8 pools with f32 scales k_s, v_s
+// [L,Hkv,NP,1,P], all contiguous (B6q).
+extern "C" int mmu_paged_decode_q8(const void* q, const void* k_pool, const void* v_pool,
+                                   const float* k_s, const float* v_s, const int* valid,
+                                   const int* table, void* o, int L, int B, int Hq, int Hkv,
+                                   int NP, int P, int MP, int D, int layer, float sm_scale,
+                                   void* stream) {
+  if (k_s == nullptr || v_s == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q,     k_pool, v_pool, k_s, v_s,      valid, table, o, B, Hkv, MP * P,
+               layer, MP,     P,      NP,  sm_scale, static_cast<cudaStream_t>(stream)};
+  return dispatch<int8_t, true>(a, L, Hq, D);
 }

@@ -15,6 +15,10 @@ per position and kv-head (position on the LAST axis).
   ``csrc/chunk_decode.cu`` reads the layer through strides (a slot's or a
   slab's columns may be a view): B5 on a bf16 cache, B5q on an int8 one.
 
+A paged cache (a ``"table"`` key: pools [L, Hkv, NP, P, D] and a block
+table, ``ops/paged_attention.py``) routes both functions to their paged
+counterparts, kernels B6/B6q and B7/B7q, as the JAX package does.
+
 On a CPU tensor (or with ``impl="plain"``) the plain version runs: the JAX
 package's XLA branches, the layer's slab dequantized (int8: ``_dequant``)
 and cast to q's dtype, then plain attention.  Where the scales stay outside
@@ -39,16 +43,18 @@ __all__ = ["decode_attention", "chunk_decode_attention", "chunk_attention_refere
 
 
 def _check_cache(cache):
-    keys = set(cache)
+    """True for an int8 cache, False for a float one; raises for any other
+    set of keys.  A paged cache carries its block table as one more key."""
+    keys = set(cache) - {"table"}
     if keys == {"k", "v"}:
         if cache["k"].dtype == torch.int8:
             raise ValueError("an int8 cache needs its scales k_s and v_s")
         return False
     if keys == {"k", "v", "k_s", "v_s"} and cache["k"].dtype == torch.int8:
         return True
-    raise NotImplementedError(
-        f"cache with keys {sorted(keys)}: dense {{'k','v'}} or int8 {{'k','v','k_s','v_s'}} "
-        "only; the paged cache is not ported yet")
+    raise ValueError(
+        f"cache with keys {sorted(cache)}: {{'k','v'}} (float) or {{'k','v','k_s','v_s'}} "
+        "(int8), each with a 'table' key when paged")
 
 
 def dequant_layer(cache, layer, dtype):
@@ -140,6 +146,10 @@ def decode_attention(q, cache, layer, kv_valid, *, sm_scale: float | None = None
         "plain".
     Returns [B, Hq, 1, D] in q's dtype.
     """
+    if "table" in cache:  # paged pool + block table
+        from multimodal_unlearning_tpu_torch.ops.paged_attention import paged_decode_attention
+
+        return paged_decode_attention(q, cache, layer, kv_valid, sm_scale=sm_scale, impl=impl)
     if q.shape[2] != 1:
         raise ValueError("decode_attention is single-token")
     if sm_scale is None:
@@ -242,6 +252,12 @@ def chunk_decode_attention(q, cache, layer, kv_valid, offset, *,
       offset: [B] int -- each row's first chunk column.
     Returns [B, Hq, C, D] in q's dtype.
     """
+    if "table" in cache:  # paged pool + block table
+        from multimodal_unlearning_tpu_torch.ops.paged_attention import (
+            paged_chunk_decode_attention)
+
+        return paged_chunk_decode_attention(q, cache, layer, kv_valid, offset,
+                                            sm_scale=sm_scale, impl=impl)
     B, Hq, C, D = q.shape
     if sm_scale is None:
         sm_scale = D ** -0.5

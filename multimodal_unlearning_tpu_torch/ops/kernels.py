@@ -7,9 +7,10 @@ The libraries land in ``ops/_build/`` (listed in ``.gitignore``) under a
 name that hashes the sources and flags, so a changed source is rebuilt and
 an unchanged one is reused.  Nothing is built when this module is imported.
 
-A library may export more than one kernel (``flash_decode.cu`` holds B4
-and its int8 variant B4q, ``chunk_decode.cu`` B5 and B5q): ``SOURCES`` names
-the libraries, ``_SIGNATURES`` each kernel's library, symbol and argtypes.
+A library may export more than one kernel (``flash_decode.cu`` holds B4,
+its int8 variant B4q and their paged-cache instances B6 and B6q;
+``chunk_decode.cu`` B5, B5q, B7 and B7q): ``SOURCES`` names the libraries,
+``_SIGNATURES`` each kernel's library, symbol and argtypes.
 ``LAUNCHES`` counts the launches of each kernel; its wrapper adds one where
 it launches, and nowhere else.
 """
@@ -41,6 +42,7 @@ NVCC_FLAGS = [
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _CHUNK_ARGS = [_P] * 8 + [_I] * 7 + [_LL] * 7 + [_F, _P]
+_PAGED_CHUNK_ARGS = [_P] * 9 + [_I] * 9 + [_F, _P]
 # kernel -> (library, launcher symbol, its argtypes) (csrc/*.cu, extern "C")
 _SIGNATURES = {
     "flash_fwd": ("flash_fwd", "mmu_flash_fwd_bf16",
@@ -53,6 +55,10 @@ _SIGNATURES = {
                       [_P] * 9 + [_I] * 6 + [_LL] * 18 + [_F, _I, _I, _P]),
     "chunk_decode": ("chunk_decode", "mmu_chunk_decode_bf16", _CHUNK_ARGS),
     "chunk_decode_q8": ("chunk_decode", "mmu_chunk_decode_q8", _CHUNK_ARGS),
+    "paged_decode": ("flash_decode", "mmu_paged_decode_bf16", [_P] * 6 + [_I] * 9 + [_F, _P]),
+    "paged_decode_q8": ("flash_decode", "mmu_paged_decode_q8", [_P] * 8 + [_I] * 9 + [_F, _P]),
+    "paged_chunk": ("chunk_decode", "mmu_paged_chunk_bf16", _PAGED_CHUNK_ARGS),
+    "paged_chunk_q8": ("chunk_decode", "mmu_paged_chunk_q8", _PAGED_CHUNK_ARGS),
 }
 
 LAUNCHES = {name: 0 for name in _SIGNATURES}

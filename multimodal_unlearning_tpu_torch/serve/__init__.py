@@ -1,3 +1,4 @@
 from multimodal_unlearning_tpu_torch.serve.engine import Request, ServingEngine
+from multimodal_unlearning_tpu_torch.serve.http import EngineServer
 
-__all__ = ["Request", "ServingEngine"]
+__all__ = ["EngineServer", "Request", "ServingEngine"]

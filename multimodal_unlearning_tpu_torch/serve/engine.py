@@ -1,4 +1,4 @@
-"""Continuous-batching serving engine, dense KV cache, in PyTorch.
+"""Continuous-batching serving engine, dense or paged KV cache, in PyTorch.
 
 Counterpart of ``multimodal_unlearning_tpu/serve/engine.py`` with the same
 host semantics: a fixed pool of decode slots, each at its own sequence
@@ -34,6 +34,21 @@ position, refilled from the queue between decode chunks.
 - prefix cache (``register_prefix``): a shared prefix is prefilled once
   into a slab; a request with ``prefix=<id>`` copies the slab into its
   slot's columns and prefills only its suffix (one ``chunk_decode`` pass).
+- paged cache (``page_size``, ``kv_pool_pages``): one pool of fixed-size
+  pages [L, Hkv, NP, P, D] shared by all slots plus a host-managed block
+  table [B, MP] per slot, as the JAX engine keeps it.  Page 0 is a trash
+  page that retired slots' rows point at.  Admission waits (FIFO) on the
+  page free list for a request's prompt pages plus a growth margin; before
+  every dispatch each live slot's table is grown to cover what the next two
+  chunks can write, and under pool pressure the youngest slot is preempted
+  and later recomputed from its prompt and the tokens it already has.  A
+  prefill runs into a contiguous slab whose pages are then scattered into
+  the slot's pages; a registered prefix is written once into shared pages
+  that every slot's table points at (no copy), so prefix requests and
+  chunked-prefill passes run their ``chunk_decode`` forward against the
+  pool itself.  The table lives on the device and is uploaded (into a new
+  buffer, so a chunk already queued keeps the one it was given) only when
+  it changed.  Streams equal the dense engine's on float caches.
 
 The JAX engine runs each chunk as one compiled ``lax.scan``; here every
 op of every step is launched from Python, so decode is bound by the host
@@ -44,6 +59,7 @@ JAX engine's per-shape program caches have no counterpart.
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field
 
@@ -107,12 +123,18 @@ class ServingEngine:
       prefill_chunk: >0 prefills prompts longer than this one chunk per
         engine step (token-identical to a monolithic prefill on a float
         cache).
+      page_size: >0 switches the KV cache to a paged pool of pages of this
+        many columns (a divisor or a multiple of 128).
+      kv_pool_pages: the pool's size in pages, page 0 (the trash page)
+        included; default ``num_slots * max_len / page_size + 1``, the dense
+        layout's capacity.  Set lower to cap KV memory: admission then
+        queues, and slots are preempted and recomputed under pressure.
       device: where the engine runs; the card unless "cpu" is passed.
       on_prefill: optional ``fn(request, last_logits)`` called with each
         prefill's last-position logits [V] (f32, on the device).
 
-    The JAX engine's sampling, multi-LoRA, paged cache, logprobs and mesh
-    are not ported: asking for any of them raises ``NotImplementedError``.
+    The JAX engine's sampling, multi-LoRA, logprobs and mesh are not ported:
+    asking for any of them raises ``NotImplementedError``.
     """
 
     def __init__(
@@ -145,21 +167,20 @@ class ServingEngine:
         device=None,
         on_prefill=None,
     ):
-        # top_k/top_p and kv_pool_pages only shape the options below; the
-        # JAX engine ignores them too while those are off
-        del top_k, top_p, kv_pool_pages
+        # top_k/top_p only shape sampling; the JAX engine ignores them too
+        # while it is off
+        del top_k, top_p
         unported = {
             "temperature": float(temperature) > 0.0,
             "adapters": bool(adapters),
-            "page_size": int(page_size) != 0,
             "logprobs": bool(logprobs),
             "mesh": mesh is not None,
         }
         asked = [k for k, v in unported.items() if v]
         if asked:
             raise NotImplementedError(
-                f"ServingEngine options not ported yet: {asked} (greedy serving on a dense "
-                "cache only)")
+                f"ServingEngine options not ported yet: {asked} (greedy serving on one device "
+                "only)")
         if cache_dtype not in (torch.bfloat16, torch.float16, torch.float32, torch.int8):
             raise NotImplementedError(f"cache_dtype {cache_dtype}: float or int8 only")
         self.device = resolve_device(device)
@@ -177,6 +198,27 @@ class ServingEngine:
         self.smax = _bucket(max_len, 128)
         self.chunk = chunk
         self.bucket_multiple = bucket_multiple
+        # paged KV cache: pool + host-managed block table; the bucket and
+        # smax round to page multiples so every slab boundary is page-aligned
+        self.page = int(page_size)
+        if self.page:
+            if self.page < 0 or not (128 % self.page == 0 or self.page % 128 == 0):
+                raise ValueError(f"page_size {self.page} must divide or be a multiple of 128")
+            self.bucket_multiple = math.lcm(bucket_multiple, self.page)
+            self.smax = _bucket(max_len, math.lcm(128, self.page))
+            self.MP = self.smax // self.page
+            self.NP = int(kv_pool_pages or self.B * self.MP + 1)
+            self._free_pages = list(range(1, self.NP))  # page 0: the trash page
+            self._table = np.zeros((self.B, self.MP), np.int32)
+            self._table_dev = None  # the device copy; None once the host table changed
+            self._slot_pages: list[list[int]] = [[] for _ in range(self.B)]
+            self._peak_pages = 0
+            # per live slot {base, admit_toks, n_prefix, seq} (None = idle):
+            # what _ensure_page_coverage grows the slot's pages from
+            self._pmeta: list[dict | None] = [None] * self.B
+            self._admit_seq = 0
+            self._n_preempt = 0
+            self._n_table_uploads = 0
         self.pad_id = pad_token_id
         self.eos = -1 if eos_token_id is None else eos_token_id
         self.cache_dtype = cache_dtype
@@ -203,6 +245,191 @@ class ServingEngine:
         # pipelined mode: the not-yet-consumed previous chunk
         self._pending = None
 
+    # ----------------------------------------------------------- paging
+    def _eff_prompt(self, req) -> list:
+        """The prompt to (re)prefill: the original prompt plus any tokens
+        already generated (a queued request with tokens was preempted and
+        resumes by recomputing its KV from its whole history)."""
+        return req.prompt_ids + req.tokens if req.tokens else req.prompt_ids
+
+    def _pages_for(self, cols: int) -> int:
+        return -(-cols // self.page)
+
+    def _own_bucket(self, req) -> int:
+        """Bucketed columns of the request's OWN prefill region (for a prefix
+        request its suffix: the prefix's pages are shared)."""
+        return _bucket(max(len(self._eff_prompt(req)), 1), self.bucket_multiple)
+
+    def _own_pages_needed(self, req) -> int:
+        """The most pages the request's own region can ever span: prompt
+        bucket + what is left of its budget + the speculative slack.  The
+        submit-time ceiling check and the chunked-prefill reservation use
+        it; admission reserves only ``_initial_own_pages``."""
+        slack = self.K + 1 if self.K else 0
+        return self._pages_for(self._own_bucket(req) + req.max_new_tokens - len(req.tokens)
+                               + slack)
+
+    def _initial_own_pages(self, req) -> int:
+        """Pages reserved at admission: the prompt bucket plus one growth
+        margin, not the whole budget (decode pages come on demand)."""
+        return min(self._pages_for(self._own_bucket(req) + self._growth_margin()),
+                   self._own_pages_needed(req))
+
+    def _growth_margin(self) -> int:
+        """Columns a live slot can advance before the host next grows its
+        table: two dispatches' worth (pipelining delivers tokens one chunk
+        late) of up to K+1 columns a round, plus the verify chunk's K+1
+        overhang past its write column."""
+        tpr = self.K + 1 if self.K else 1
+        return 2 * self.chunk * tpr + tpr
+
+    def _need_own_pages(self, slot: int) -> int:
+        """Own pages ``slot`` must hold before the next dispatch."""
+        meta, req = self._pmeta[slot], self._slot_req[slot]
+        grown = len(req.tokens) - meta["admit_toks"]
+        slack = self.K + 1 if self.K else 0
+        cap = meta["base"] + req.max_new_tokens - meta["admit_toks"] + slack
+        return self._pages_for(min(meta["base"] + grown + self._growth_margin(), cap))
+
+    def _set_pmeta(self, slot: int, req, base: int, n_prefix: int):
+        self._admit_seq += 1
+        self._pmeta[slot] = dict(base=base, admit_toks=len(req.tokens), n_prefix=n_prefix,
+                                 seq=self._admit_seq)
+
+    def _admit_pages(self, req, slot: int, base: int, prefix_pages=()) -> list[int]:
+        """Reserve the initial own pages of a request admitted into ``slot``
+        whose own region starts with ``base`` prefill columns, behind the
+        shared ``prefix_pages``; returns the own pages."""
+        own = self._alloc_pages(self._initial_own_pages(req))
+        self._assign_pages(slot, own, prefix_pages)
+        self._set_pmeta(slot, req, base, len(prefix_pages))
+        return own
+
+    def _alloc_pages(self, n: int) -> list[int]:
+        ids, self._free_pages = self._free_pages[:n], self._free_pages[n:]
+        if len(ids) != n:
+            raise RuntimeError("paged pool: admission must wait on the free list")
+        self._peak_pages = max(self._peak_pages, self.NP - 1 - len(self._free_pages))
+        return ids
+
+    def _assign_pages(self, slot: int, own: list[int], prefix_pages=()):
+        self._slot_pages[slot] = list(own)
+        ids = list(prefix_pages) + list(own)
+        self._table[slot] = 0
+        self._table[slot, :len(ids)] = ids
+        self._table_dev = None
+
+    def _append_pages(self, slot: int, new: list[int]):
+        start = self._pmeta[slot]["n_prefix"] + len(self._slot_pages[slot])
+        self._slot_pages[slot].extend(new)
+        self._table[slot, start:start + len(new)] = new
+        self._table_dev = None
+
+    def _release_slot_pages(self, slot: int):
+        """Free a retired slot's own pages (a prefix's shared pages are never
+        freed) and point its table row at the trash page, so the garbage
+        writes of later chunks for the dead row land nowhere live.  A chunk
+        already queued keeps its old table, but the device runs it before
+        any insert that could refill the freed pages."""
+        if not self.page:
+            return
+        self._free_pages.extend(self._slot_pages[slot])
+        self._slot_pages[slot] = []
+        self._pmeta[slot] = None
+        self._table[slot] = 0
+        self._table_dev = None
+
+    def _release_slot(self, slot: int):
+        self._release_slot_pages(slot)
+        self._free.append(slot)
+
+    def _preempt_slot(self, slot: int):
+        """Evict a live slot under pool pressure: free its pages, flip it
+        dead on the device and requeue its request at the FRONT with its
+        tokens kept; re-admission prefills prompt + tokens again and goes on
+        with the rest of the budget (recompute preemption)."""
+        req = self._slot_req[slot]
+        self._n_preempt += 1
+        self._slot_req[slot] = None
+        self._release_slot(slot)
+        self._kill_slot_device(slot)
+        self._queue.insert(0, req)
+
+    def _preempt_prefill_job(self):
+        """Abort the chunked-prefill job under pool pressure: free its
+        reserved pages and requeue its request at the front (its prefill
+        starts again on re-admission)."""
+        job, self._prefill_job = self._prefill_job, None
+        self._n_preempt += 1
+        self._free_pages.extend(job["pages"])
+        self._free.append(job["slot"])
+        self._queue.insert(0, job["req"])
+
+    def _ensure_page_coverage(self):
+        """Grow every live slot's table to cover the columns the next
+        dispatch can write: a column whose entry were still 0 would send the
+        token's KV to the trash page and corrupt the stream.  Oldest slots
+        grow first; when the free list cannot cover a growth, the youngest
+        other slot is preempted (then the chunked-prefill job) until it can.
+        The submit-time ceiling check guarantees that a lone slot fits."""
+        if not self.page:
+            return
+        order = sorted((s for s in range(self.B)
+                        if self._slot_req[s] is not None and self._pmeta[s] is not None),
+                       key=lambda s: self._pmeta[s]["seq"])
+        for slot in order:
+            if self._slot_req[slot] is None:  # preempted earlier in this pass
+                continue
+            while True:
+                delta = self._need_own_pages(slot) - len(self._slot_pages[slot])
+                if delta <= 0:
+                    break
+                if delta <= len(self._free_pages):
+                    self._append_pages(slot, self._alloc_pages(delta))
+                    break
+                victims = [s for s in order if self._slot_req[s] is not None and s != slot]
+                if victims:
+                    self._preempt_slot(max(victims, key=lambda s: self._pmeta[s]["seq"]))
+                elif self._prefill_job is not None:
+                    self._preempt_prefill_job()
+                else:
+                    raise RuntimeError(
+                        f"paged pool invariant broken: slot {slot} needs {delta} more pages, "
+                        f"{len(self._free_pages)} free, nothing left to preempt")
+
+    def _table_device(self):
+        """The block table on the device, uploaded into a new buffer when the
+        host table changed (a chunk already queued still reads its own)."""
+        if self._table_dev is None:
+            t = torch.from_numpy(self._table.copy())
+            if self.device.type == "cuda":  # from pinned memory: no wait on the queue
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            self._table_dev = t
+            self._n_table_uploads += 1
+        return self._table_dev
+
+    def _row_table(self, row) -> torch.Tensor:
+        """One table row [MP] as a [1, MP] int32 table on the device."""
+        return torch.from_numpy(np.asarray(row, np.int32).reshape(1, -1).copy()).to(self.device)
+
+    def _pool(self, table) -> dict:
+        """The pool with a block ``table``: the cache a paged forward takes."""
+        return dict(self._state["cache"], table=table)
+
+    def _scatter_pages(self, slab, page_ids):
+        """A one-row [L, 1, Hkv, n*P, D] slab's columns into pool pages
+        ``page_ids`` (n of them; page-aligned buckets guarantee the
+        length), one indexed assignment per tensor."""
+        pool, P, n = self._state["cache"], self.page, len(page_ids)
+        ids = torch.tensor(page_ids, dtype=torch.long, device=self.device)
+        for name, t in pool.items():
+            if name in ("k", "v"):
+                L, _, H, _, D = slab[name].shape
+                t[:, :, ids] = slab[name][:, 0, :, :n * P].reshape(L, H, n, P, D)
+            else:  # scales [L, 1, Hkv, 1, S] -> [L, Hkv, n, 1, P]
+                L, _, H = slab[name].shape[:3]
+                t[:, :, ids] = slab[name][:, 0, :, 0, :n * P].reshape(L, H, n, 1, P)
+
     # ----------------------------------------------------------- device
     def _forward(self, ids, **kw):
         if not self.is_vlm:
@@ -210,12 +437,21 @@ class ServingEngine:
         return self.params(ids, attn_impl=self.attn_impl, compute_dtype=self.compute_dtype,
                            **kw)
 
+    def _new_slab(self, n: int) -> dict:
+        """A fresh one-row [L, 1, Hkv, n, D] cache of the engine's dtype."""
+        return decoder_module(self.dec_cfg).init_kv_cache(
+            self.dec_cfg, 1, n, dtype=self.cache_dtype, device=self.device)
+
     def _init_state(self):
         dev, B = self.device, self.B
         z = torch.zeros((B,), dtype=torch.long, device=dev)
+        dec = decoder_module(self.dec_cfg)
         state = {
-            "cache": decoder_module(self.dec_cfg).init_kv_cache(
-                self.dec_cfg, B, self.smax, dtype=self.cache_dtype, device=dev),
+            "cache": (dec.init_paged_kv_cache(self.dec_cfg, self.NP, self.page,
+                                              dtype=self.cache_dtype, device=dev)
+                      if self.page else
+                      dec.init_kv_cache(self.dec_cfg, B, self.smax, dtype=self.cache_dtype,
+                                        device=dev)),
             "kv_valid": torch.zeros((B, self.smax), dtype=torch.int32, device=dev),
             "write_col": z.clone(),   # next cache column per slot
             "pos_next": z.clone(),    # next rope position per slot
@@ -245,11 +481,12 @@ class ServingEngine:
     def _arm_slot(self, req, slot: int, first: int, valid_row, write_col: int, pos_next: int,
                   hist=None):
         """Slot state after an insert: validity row (the first n columns),
-        next column and position, first token and budget; under speculation
-        the token history ``hist`` (first n columns, -2 = no token) and the
-        request's draft corpus."""
+        next column and position, first token and budget (what is left of it
+        for a preempted request); under speculation the token history
+        ``hist`` (first n columns, -2 = no token) and the request's draft
+        corpus."""
         st = self._state
-        max_new = req.max_new_tokens
+        max_new = req.max_new_tokens - len(req.tokens)
         finished_now = self.eos >= 0 and first == self.eos
         n = valid_row.shape[-1]
         st["kv_valid"][slot].zero_()
@@ -278,17 +515,25 @@ class ServingEngine:
 
     def _prefill_insert(self, req: Request, slot: int) -> int:
         """Prefill ``req`` into ``slot``'s cache columns and arm the slot;
-        returns the first token."""
-        ids_t, mask_t = self._left_padded(req.prompt_ids)
+        returns the first token.  Paged: into a slab, whose pages then land
+        in the slot's own pages."""
+        prompt = self._eff_prompt(req)
+        ids_t, mask_t = self._left_padded(prompt)
         sp = ids_t.shape[1]
-        # the slot's columns 0..sp-1 of every layer, written in place
-        slab = _cols(self._state["cache"], 0, sp, slice(slot, slot + 1))
+        if self.page:
+            own = self._admit_pages(req, slot, sp)
+            slab = self._new_slab(sp)
+        else:
+            # the slot's columns 0..sp-1 of every layer, written in place
+            slab = _cols(self._state["cache"], 0, sp, slice(slot, slot + 1))
         out = self._forward(ids_t, pixel_values=self._pixels(req.pixel_values),
                             attention_mask=mask_t, kv_cache=slab, cache_offset=0,
                             kv_valid_mask=mask_t, last_logit_only=True)
+        if self.page:
+            self._scatter_pages(slab, own[: sp // self.page])
         first = self._first_token(req, out["logits"][0, -1])
         hist = torch.where(mask_t[0] > 0, ids_t[0], -2) if self.K else None
-        self._arm_slot(req, slot, first, mask_t[0], sp, len(req.prompt_ids), hist)
+        self._arm_slot(req, slot, first, mask_t[0], sp, len(prompt), hist)
         return first
 
     def _prefix_fill(self, slab, ids, mask, pix=None):
@@ -297,39 +542,49 @@ class ServingEngine:
         self._forward(ids, pixel_values=pix, attention_mask=mask, kv_cache=slab,
                       cache_offset=0, kv_valid_mask=mask, last_logit_only=True)
 
-    def _extend(self, slab, P: int, kv_row, plen: int, ids):
+    def _extend(self, slab, P: int, kv_row, plen: int, ids, table=None):
         """Chunked prefill: C unpadded prompt tokens run as one chunk_decode
         pass against the first P columns of ``slab`` (seen through
         ``kv_row``) and land at columns P..P+C-1; returns the validity row of
-        the P+C columns."""
+        the P+C columns.  Paged: against the pool through the one-row block
+        ``table`` instead of a slab; the row is then [1, smax] wide."""
         C = ids.shape[1]
         dev = self.device
-        row = torch.zeros((1, P + C), dtype=torch.int32, device=dev)
-        row[:, :P] = kv_row
+        row = torch.zeros((1, self.smax if table is not None else P + C), dtype=torch.int32,
+                          device=dev)
+        row[:, :P] = kv_row[:, :P]
+        cache = self._pool(table) if table is not None else _cols(slab, 0, P + C)
         self._forward(ids, attention_mask=torch.ones((1, C), dtype=torch.int32, device=dev),
-                      positions=plen + torch.arange(C, device=dev)[None],
-                      kv_cache=_cols(slab, 0, P + C),
+                      positions=plen + torch.arange(C, device=dev)[None], kv_cache=cache,
                       cache_offset=torch.full((1,), P, dtype=torch.long, device=dev),
                       kv_valid_mask=row, chunk_decode=True, last_logit_only=True)
-        row[:, P:] = 1
+        row[:, P:P + C] = 1
         return row
 
-    def _suffix_insert(self, req, slot: int, pslab, pvalid, phist, plen: int, suffix):
+    def _suffix_insert(self, req, slot: int, pslab, pvalid, phist, plen: int, suffix,
+                       table=None):
         """The P-column slab ``pslab`` lands in ``slot``'s cache columns
         0..P-1; the RIGHT-padded suffix runs as one chunk_decode pass (its
         queries read the prefix through ``pvalid`` plus their own chunk
         columns causally), written at columns P..P+sp-1.  Arms the slot;
-        returns the first token."""
+        returns the first token.  Paged: the prefix's columns are already in
+        the pool, where the one-row block ``table`` (the slot's row) points;
+        the pass reads and writes the pool through it and ``pslab`` is
+        unused."""
         dev = self.device
         P, n_sfx = pvalid.shape[-1], len(suffix)
         sp = _bucket(max(n_sfx, 1), self.bucket_multiple)
         ids = np.full((1, sp), self.pad_id, np.int64)
         ids[0, :n_sfx] = suffix
         ids_t = torch.from_numpy(ids).to(dev)
-        slab = _cols(self._state["cache"], 0, P + sp, slice(slot, slot + 1))
-        for name, dst in _cols(slab, 0, P).items():
-            dst.copy_(pslab[name])
-        row = torch.zeros((1, P + sp), dtype=torch.int32, device=dev)
+        if table is not None:
+            slab = self._pool(table)
+            row = torch.zeros((1, self.smax), dtype=torch.int32, device=dev)
+        else:
+            slab = _cols(self._state["cache"], 0, P + sp, slice(slot, slot + 1))
+            for name, dst in _cols(slab, 0, P).items():
+                dst.copy_(pslab[name])
+            row = torch.zeros((1, P + sp), dtype=torch.int32, device=dev)
         row[:, :P] = pvalid
         out = self._forward(ids_t, attention_mask=torch.ones((1, sp), dtype=torch.int32,
                                                              device=dev),
@@ -343,7 +598,7 @@ class ServingEngine:
             hist = torch.full((P + sp,), -2, dtype=torch.long, device=dev)
             hist[:P] = phist
             hist[P:P + n_sfx] = ids_t[0, :n_sfx]
-        self._arm_slot(req, slot, first, row[0], P + n_sfx, plen + n_sfx, hist)
+        self._arm_slot(req, slot, first, row[0, :P + sp], P + n_sfx, plen + n_sfx, hist)
         return first
 
     # ------------------------------------------------------- prefix cache
@@ -354,56 +609,96 @@ class ServingEngine:
         ``prefix=<id>`` prefill only their suffix against it.  The slab is
         copied into the slot's columns at insert: what is saved is the
         recomputation, not cache memory.  Left-padded to its bucket like any
-        prompt, so suffix columns continue contiguously."""
+        prompt, so suffix columns continue contiguously.
+
+        Paged: the slab is written ONCE into shared pool pages that are never
+        freed and that every prefix request's table points at (no copy, and
+        the slab is not kept).  Register prefixes before submitting requests:
+        pinned pages shrink the pool that queued requests were checked
+        against."""
         if adapter is not None:
             raise NotImplementedError("prefixes per adapter need multi-LoRA serving, which is "
                                       "not ported yet")
         ids_t, mask_t = self._left_padded(list(prompt_ids))
         P = ids_t.shape[1]
-        slab = decoder_module(self.dec_cfg).init_kv_cache(
-            self.dec_cfg, 1, P, dtype=self.cache_dtype, device=self.device)
+        if self.page and P // self.page > len(self._free_pages):
+            raise ValueError(f"prefix needs {P // self.page} pool pages but only "
+                             f"{len(self._free_pages)} are free (kv_pool_pages; register "
+                             "prefixes before submitting requests)")
+        slab = self._new_slab(P)
         self._prefix_fill(slab, ids_t, mask_t, self._pixels(pixel_values))
+        pages = []
+        if self.page:
+            pages = self._alloc_pages(P // self.page)
+            if self._state is None:
+                self._state = self._init_state()
+            self._scatter_pages(slab, pages)
+            slab = None
         pid = len(self._prefixes)
         self._prefixes[pid] = dict(slab=slab, mask=mask_t, plen=len(prompt_ids), P=P,
-                                   hist=torch.where(mask_t[0] > 0, ids_t[0], -2))
+                                   hist=torch.where(mask_t[0] > 0, ids_t[0], -2), pages=pages)
         return pid
 
     def _fill_with_prefix(self, req, slot):
         """Admit a request against a registered prefix: copy the cached
-        slab, prefill only the suffix."""
+        slab (dense) or point the slot's table at the prefix's pages (paged),
+        and prefill only the suffix."""
         pre = self._prefixes[req.prefix]
+        suffix = self._eff_prompt(req)
+        table = None
+        if self.page:
+            sp = _bucket(max(len(suffix), 1), self.bucket_multiple)
+            self._admit_pages(req, slot, sp, prefix_pages=pre["pages"])
+            table = self._row_table(self._table[slot])
         first = self._suffix_insert(req, slot, pre["slab"], pre["mask"], pre["hist"],
-                                    pre["plen"], req.prompt_ids)
+                                    pre["plen"], suffix, table=table)
         self._after_insert(req, slot, first)
 
     # ---------------------------------------------------- chunked prefill
     def _needs_chunked_prefill(self, req) -> bool:
         C = self.prefill_chunk
-        if not C or req.prefix is not None or len(req.prompt_ids) <= C:
+        prompt = self._eff_prompt(req)
+        if not C or req.prefix is not None or len(prompt) <= C:
             return False
         if req.pixel_values is not None:
             # image features splice at image-token positions during the
             # pixel-carrying first chunk: an image span crossing the chunk
             # boundary prefills whole
             tid = getattr(self.model_cfg, "image_token_id", None)
-            if tid is None or any(int(t) == tid for t in req.prompt_ids[C:]):
+            if tid is None or any(int(t) == tid for t in prompt[C:]):
                 return False
         return True
 
     def _start_prefill_job(self, req, slot):
         """First chunk of a chunked prefill: exactly C (unpadded) prompt
         tokens (pixels ride here) into a slab that holds every column the
-        prompt will need."""
-        C, n = self.prefill_chunk, len(req.prompt_ids)
-        n_full = (n - 1) // C  # chunks before the final (<= C) one
-        total = n_full * C + _bucket(n - n_full * C, self.bucket_multiple)
-        slab = decoder_module(self.dec_cfg).init_kv_cache(
-            self.dec_cfg, 1, total, dtype=self.cache_dtype, device=self.device)
-        ids = torch.tensor([req.prompt_ids[:C]], dtype=torch.long, device=self.device)
+        prompt will need.  Paged: the job reserves every page its request
+        can need up front and writes there (the first chunk through a slab,
+        the others through a one-row table of those pages), but the slot's
+        own table row stays on the trash page until the final insert, so the
+        idle slot's decode writes cannot reach the job's pages."""
+        C, prompt = self.prefill_chunk, list(self._eff_prompt(req))
+        n = len(prompt)
+        ids = torch.tensor([prompt[:C]], dtype=torch.long, device=self.device)
         mask = torch.ones((1, C), dtype=torch.int32, device=self.device)
-        self._prefix_fill(_cols(slab, 0, C), ids, mask, self._pixels(req.pixel_values))
+        job = dict(req=req, slot=slot, P=C, pos=C, kv_row=mask, prompt=prompt, slab=None,
+                   pages=None, table=None)
+        if self.page:
+            job["pages"] = self._alloc_pages(self._own_pages_needed(req))
+            slab = self._new_slab(C)
+            self._prefix_fill(slab, ids, mask, self._pixels(req.pixel_values))
+            self._scatter_pages(slab, job["pages"][:C // self.page])
+            row = np.zeros((self.MP,), np.int32)
+            row[:len(job["pages"])] = job["pages"]
+            job["table"] = self._row_table(row)
+        else:
+            n_full = (n - 1) // C  # chunks before the final (<= C) one
+            total = n_full * C + _bucket(n - n_full * C, self.bucket_multiple)
+            job["slab"] = self._new_slab(total)
+            self._prefix_fill(_cols(job["slab"], 0, C), ids, mask,
+                              self._pixels(req.pixel_values))
         self._n_prefill_chunks += 1
-        self._prefill_job = dict(req=req, slot=slot, slab=slab, P=C, pos=C, kv_row=mask)
+        self._prefill_job = job
 
     def _advance_prefill(self):
         """One more chunk of the in-flight chunked prefill; the final
@@ -411,20 +706,30 @@ class ServingEngine:
         first token and arms the slot."""
         job = self._prefill_job
         req, C = job["req"], self.prefill_chunk
-        prompt = req.prompt_ids
+        prompt = job["prompt"]
         self._n_prefill_chunks += 1
         if len(prompt) - job["pos"] > C:
             ids = torch.tensor([prompt[job["pos"]:job["pos"] + C]], dtype=torch.long,
                                device=self.device)
-            job["kv_row"] = self._extend(job["slab"], job["P"], job["kv_row"], job["pos"], ids)
+            job["kv_row"] = self._extend(job["slab"], job["P"], job["kv_row"], job["pos"], ids,
+                                         table=job["table"])
             job["P"] += C
             job["pos"] += C
             return
         self._prefill_job = None
         hist = (torch.tensor(prompt[:job["pos"]], dtype=torch.long, device=self.device)
                 if self.K else None)
-        first = self._suffix_insert(req, job["slot"], _cols(job["slab"], 0, job["P"]),
-                                    job["kv_row"], hist, job["pos"], prompt[job["pos"]:])
+        pslab = None
+        if self.page:
+            # the slot takes the job's pages; growth never adds to them, since
+            # the job reserved its request's whole region
+            self._assign_pages(job["slot"], job["pages"])
+            sp = _bucket(len(prompt) - job["pos"], self.bucket_multiple)
+            self._set_pmeta(job["slot"], req, job["P"] + sp, 0)
+        else:
+            pslab = _cols(job["slab"], 0, job["P"])
+        first = self._suffix_insert(req, job["slot"], pslab, job["kv_row"][:, :job["P"]], hist,
+                                    job["pos"], prompt[job["pos"]:], table=job["table"])
         self._after_insert(req, job["slot"], first)
 
     def _decode_chunk(self):
@@ -436,13 +741,14 @@ class ServingEngine:
         ones = torch.ones((B, 1), dtype=torch.int32, device=dev)
         emits = torch.empty((T, B), dtype=torch.long, device=dev)
         lives = torch.empty((T, B), dtype=torch.bool, device=dev)
+        cache = self._pool(self._table_device()) if self.page else st["cache"]
         for t in range(T):
             live = st["live"] & (st["remaining"] > 0)
             cols = st["write_col"]
             st["kv_valid"][rows, cols] = torch.maximum(
                 st["kv_valid"][rows, cols], live.to(torch.int32))
             out = self._forward(st["token"][:, None], attention_mask=ones,
-                                positions=st["pos_next"][:, None], kv_cache=st["cache"],
+                                positions=st["pos_next"][:, None], kv_cache=cache,
                                 cache_offset=cols, kv_valid_mask=st["kv_valid"])
             nxt = torch.argmax(out["logits"][:, -1, :], dim=-1)
             emits[t] = torch.where(live, nxt, self.pad_id)
@@ -501,6 +807,7 @@ class ServingEngine:
         emits = torch.empty((T, B, K + 1), dtype=torch.long, device=dev)
         n_emits = torch.empty((T, B), dtype=torch.long, device=dev)
         dones = torch.empty((T, B), dtype=torch.bool, device=dev)
+        cache = self._pool(self._table_device()) if self.page else st["cache"]
         for t in range(T):
             live = st["live"] & (st["remaining"] > 0)
             cur, pos, token = st["write_col"], st["pos_next"], st["token"]
@@ -511,7 +818,7 @@ class ServingEngine:
             # satisfy cur + K < smax by the submit check)
             cur_w = torch.clamp(cur, max=self.smax - (K + 1))
             out = self._forward(torch.clamp(chunk, 0, vocab - 1), attention_mask=ones,
-                                positions=pos[:, None] + ar[None, :], kv_cache=st["cache"],
+                                positions=pos[:, None] + ar[None, :], kv_cache=cache,
                                 cache_offset=cur_w, kv_valid_mask=st["kv_valid"],
                                 chunk_decode=True)
             preds = torch.argmax(out["logits"], dim=-1)  # [B, K+1]
@@ -586,6 +893,16 @@ class ServingEngine:
             raise ValueError(
                 f"prompt bucket {sp} + max_new {max_new_tokens} (+ speculative slack {slack}) "
                 f"exceeds max_len {self.smax}")
+        if self.page:
+            own = (sp if prefix is None
+                   else _bucket(max(len(prompt_ids), 1), self.bucket_multiple))
+            need = self._pages_for(own + max_new_tokens + slack)
+            # what a drained engine could ever free: prefix pages stay pinned
+            ceiling = self.NP - 1 - sum(len(p["pages"]) for p in self._prefixes.values())
+            if need > ceiling:
+                raise ValueError(f"request needs {need} pages but the pool can free at most "
+                                 f"{ceiling} (kv_pool_pages {self.NP}, minus pinned prefix "
+                                 "pages)")
         self._uid += 1
         req = Request(self._uid, list(prompt_ids), max_new_tokens, pixel_values)
         req.prefix = prefix
@@ -601,9 +918,17 @@ class ServingEngine:
         if self._prefill_job is not None:
             self._advance_prefill()
         while self._free and self._queue:
+            # paged admission: the head request waits (strict FIFO) until the
+            # free list holds its prompt pages plus one growth margin (a
+            # chunked prefill reserves its whole region)
+            chunked = self._needs_chunked_prefill(self._queue[0])
+            if self.page and len(self._free_pages) < (
+                    self._own_pages_needed(self._queue[0]) if chunked
+                    else self._initial_own_pages(self._queue[0])):
+                break
             # strict FIFO: a long prompt at the head waits for the active
             # chunked prefill rather than being overtaken
-            if self._needs_chunked_prefill(self._queue[0]):
+            if chunked:
                 if self._prefill_job is not None:
                     break
                 self._start_prefill_job(self._queue.pop(0), self._free.pop(0))
@@ -637,9 +962,11 @@ class ServingEngine:
         req.done_t = time.monotonic()
         if self._slot_req[slot] is req:
             self._slot_req[slot] = None
-            self._free.append(slot)
+            self._release_slot(slot)
             if kill_device:
                 self._kill_slot_device(slot)
+        elif req in self._queue:  # finished while preempted and queued
+            self._queue.remove(req)
 
     def cancel(self, req) -> bool:
         """Abort a request: drop it from the queue, or retire its slot
@@ -654,6 +981,8 @@ class ServingEngine:
             return True
         if self._prefill_job is not None and self._prefill_job["req"] is req:
             job, self._prefill_job = self._prefill_job, None
+            if self.page:
+                self._free_pages.extend(job["pages"])
             req.done = True
             req.finish_reason = "cancel"
             req.done_t = time.monotonic()
@@ -668,23 +997,24 @@ class ServingEngine:
     def _after_insert(self, req, slot, first: int):
         self._n_prefill += 1
         now = time.monotonic()
-        req.first_t = now
+        if not req.first_t:  # a preempted request keeps its first TTFT
+            req.first_t = now
         if self.eos >= 0 and first == self.eos:
             req.done = True
             req.finish_reason = "eos"
             req.done_t = now
-            self._free.append(slot)
+            self._release_slot(slot)
             return
         req.tokens.append(first)
         if self._apply_stop(req, len(req.tokens) - 1):
             # the insert armed the slot on the device; disarm it
             self._slot_req[slot] = req
             self._retire(req, slot, "stop", kill_device=True)
-        elif len(req.tokens) >= req.max_new_tokens:
+        elif len(req.tokens) >= req.max_new_tokens:  # a budget spans preemptions
             req.done = True
             req.finish_reason = "length"
             req.done_t = now
-            self._free.append(slot)
+            self._release_slot(slot)
         else:
             self._slot_req[slot] = req
 
@@ -694,7 +1024,11 @@ class ServingEngine:
         req.done_t = time.monotonic()
         if self._slot_req[b] is req:
             self._slot_req[b] = None
-            self._free.append(b)
+            self._release_slot(b)
+        elif req in self._queue:
+            # preempted after this chunk was queued, then completed by its
+            # tokens: never re-admit it
+            self._queue.remove(req)
 
     def _consume(self, wait, snapshot):
         """Deliver one chunk's emissions to its dispatch-time slot mapping
@@ -755,6 +1089,7 @@ class ServingEngine:
         if self._state is None:
             self._state = self._init_state()
         self._fill_slots()
+        self._ensure_page_coverage()
         prev, self._pending = self._pending, None
         if any(r is not None for r in self._slot_req):
             self._n_dispatch += 1
@@ -781,9 +1116,11 @@ class ServingEngine:
         """Engine counters: decode dispatches, prefills, chunked-prefill
         chunks, per-slot live rounds and emitted tokens.
         ``tokens_per_round`` is 1.0 for plain greedy decoding and up to K+1
-        under speculation (the measured acceptance)."""
+        under speculation (the measured acceptance).  Paged: the pool's
+        usable pages, those in use now, the most ever in use, preemptions
+        and block-table uploads."""
         rounds = max(self._n_live_rounds, 1)
-        return {
+        out = {
             "dispatches": self._n_dispatch,
             "prefills": self._n_prefill,
             "prefill_chunks": self._n_prefill_chunks,
@@ -791,6 +1128,13 @@ class ServingEngine:
             "emitted": self._n_emitted,
             "tokens_per_round": self._n_emitted / rounds,
         }
+        if self.page:
+            out["pool_pages"] = self.NP - 1
+            out["pool_pages_used"] = self.NP - 1 - len(self._free_pages)
+            out["pool_pages_peak"] = self._peak_pages
+            out["preemptions"] = self._n_preempt
+            out["table_uploads"] = self._n_table_uploads
+        return out
 
     def drain(self, requests: list[Request]) -> list[list[int]]:
         """Run until the given requests complete; return their token lists."""

@@ -1,7 +1,7 @@
 """Kernels B1 (flash forward), B2/B3 (flash backward: dq, dk/dv), B4/B4q
-(flash decode, bf16 and int8 cache) and B5/B5q (verify-chunk attention,
-bf16 and int8 cache) against their plain PyTorch versions on the card, in
-bf16.
+(flash decode, bf16 and int8 cache), B5/B5q (verify-chunk attention, bf16
+and int8 cache) and B6/B6q, B7/B7q (the same two on a paged cache) against
+their plain PyTorch versions on the card, in bf16.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  On the card:
 
@@ -17,7 +17,9 @@ bf16 at the same place; what differs is the f32 summation order and the final
 bf16 rounding of sums over up to 768 queries or keys, so gradients agree to
 1% of the largest gradient entry plus one bf16 ulp of the entry.  On an
 int8 cache the kernels keep the scales outside the products while the plain
-version dequantizes the slab to bf16 first: the same 2e-2.
+version dequantizes the slab to bf16 first: the same 2e-2.  The paged
+kernels share the dense kernels' bodies and arithmetic order, so on the same
+logical columns they must equal the dense kernels bit for bit.
 """
 
 import numpy as np
@@ -29,6 +31,8 @@ from multimodal_unlearning_tpu_torch.ops.attention import (
     flash_attention, flash_attention_bwd, flash_attention_lse)
 from multimodal_unlearning_tpu_torch.ops.decode_attention import (
     chunk_decode_attention, decode_attention)
+from multimodal_unlearning_tpu_torch.ops.paged_attention import (
+    paged_chunk_decode_attention, paged_decode_attention)
 from multimodal_unlearning_tpu_torch.models.llama import quantize_kv
 
 pytestmark = pytest.mark.cuda
@@ -217,3 +221,85 @@ def test_flash_attention_autograd_runs_the_kernels(dev):
     for gg, w in zip(got, want):
         atol = 2e-2 * w.float().abs().max().item()
         torch.testing.assert_close(gg.float(), w.float(), atol=atol, rtol=2 ** -6)
+
+
+def _paged(cache, P, rng):
+    """The dense [L,B,Hkv,S,D] cache chopped into a pool of pages assigned
+    by a random permutation (page 0 left unused, as the engine keeps it)."""
+    L, B, H, S, D = cache["k"].shape
+    MP = S // P
+    dev = cache["k"].device
+    table = torch.from_numpy((1 + rng.permutation(B * MP)).reshape(B, MP).astype(np.int32)).to(dev)
+    pool = {"table": table}
+    for n, t in cache.items():
+        if n in ("k", "v"):
+            pool[n] = torch.zeros((L, H, B * MP + 1, P, D), dtype=t.dtype, device=dev)
+            pool[n][:, :, table.long()] = t.reshape(L, B, H, MP, P, D).transpose(1, 2)
+        else:
+            pool[n] = torch.zeros((L, H, B * MP + 1, 1, P), dtype=t.dtype, device=dev)
+            pool[n][:, :, table.long()] = t.reshape(L, B, H, 1, MP, P).permute(0, 2, 1, 4, 3, 5)
+    return pool
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("P", [16, 128])
+@pytest.mark.parametrize("G", [1, 4])
+def test_paged_decode_matches_plain(dev, int8, P, G):
+    rng = np.random.default_rng(6)
+    L, B, Hkv, S, D, layer = 4, 8, 32 // G, 2048, 128, 3
+    dense = _cache(rng, (L, B, Hkv, S, D), dev, int8)
+    pool = _paged(dense, P, rng)
+    q = _randn(rng, (B, Hkv * G, 1, D), dev)
+    valid = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    for b, n in enumerate(rng.integers(1, S - 256, B)):
+        valid[b, :100] = 1                 # a prefix ending inside a page ...
+        valid[b, 256: 256 + n] = 1         # ... and, after an all-invalid gap page, the rest
+    valid[6] = 0                           # an idle row
+    name = "paged_decode_q8" if int8 else "paged_decode"
+    before = kernels.LAUNCHES[name]
+    o = paged_decode_attention(q, pool, layer, valid)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    ref = paged_decode_attention(q, pool, layer, valid, impl="plain")
+    torch.testing.assert_close(o.float(), ref.float(), atol=O_TOL, rtol=0)
+    assert torch.all(o[6] == 0)
+    assert torch.equal(o, decode_attention(q, dense, layer, valid))  # B4/B4q, bit for bit
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("P", [16, 128])
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,C,case",
+    [
+        (8, 32, 32, 5, "verify"),          # K = 4, chunks straddling page boundaries
+        (4, 32, 8, 5, "gqa"),
+        (1, 32, 32, 512, "prefill_chunk"),  # 512 queries behind 1,024 prefix columns
+        (2, 8, 8, 3, "fresh_page"),        # the chunk starts a page past every valid one
+    ],
+    ids=["verify", "gqa", "prefill_chunk", "fresh_page"],
+)
+def test_paged_chunk_matches_plain(dev, int8, P, B, Hq, Hkv, C, case):
+    rng = np.random.default_rng(7)
+    L, S, D, layer = 3, 2048, 128, 1
+    dense = _cache(rng, (L, B, Hkv, S, D), dev, int8)
+    pool = _paged(dense, P, rng)
+    q = _randn(rng, (B, Hq, C, D), dev)
+    valid = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    offset = torch.zeros((B,), dtype=torch.int32, device=dev)
+    for b in range(B):
+        if case == "prefill_chunk":
+            off, start = 1024, 0
+        elif case == "fresh_page":
+            off, start = 4 * 128, 3
+        else:  # a chunk straddling a page boundary: it starts 2 columns before one
+            off, start = (int(rng.integers(2, 15)) * 128 - 2), int(rng.integers(0, 100))
+        valid[b, start:off] = 1
+        offset[b] = off
+    name = "paged_chunk_q8" if int8 else "paged_chunk"
+    before = kernels.LAUNCHES[name]
+    o = paged_chunk_decode_attention(q, pool, layer, valid, offset)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    ref = paged_chunk_decode_attention(q, pool, layer, valid, offset, impl="plain")
+    torch.testing.assert_close(o.float(), ref.float(), atol=O_TOL, rtol=0)
+    assert torch.equal(o, chunk_decode_attention(q, dense, layer, valid, offset))  # B5/B5q

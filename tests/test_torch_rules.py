@@ -56,8 +56,9 @@ def test_port_imports_with_jax_blocked():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
-    for name in ("serve.engine", "train.trainer", "train.losses", "train.optim",
-                 "utils.quantize", "utils.pytree", "models.lora", "cli.mm_forget", "bench"):
+    for name in ("serve.engine", "serve.http", "cli.serve_http", "ops.paged_attention",
+                 "train.trainer", "train.losses", "train.optim", "utils.quantize",
+                 "utils.pytree", "models.lora", "cli.mm_forget", "bench"):
         assert f"multimodal_unlearning_tpu_torch.{name}" in mods
 
 
@@ -91,7 +92,7 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
 
 
 @pytest.mark.parametrize("option", [
-    {"page_size": 16}, {"temperature": 0.7}, {"logprobs": True}, {"adapters": {"a": None}},
+    {"temperature": 0.7}, {"logprobs": True}, {"adapters": {"a": None}},
     {"mesh": object()}, {"cache_dtype": torch.float64},
 ], ids=lambda o: next(iter(o)))
 def test_unported_engine_options_raise(option):
@@ -105,7 +106,7 @@ def test_unported_engine_options_raise(option):
 
 
 @pytest.mark.parametrize("option", [
-    {"speculate_k": 2}, {"prefill_chunk": 64}, {"cache_dtype": torch.int8},
+    {"speculate_k": 2}, {"prefill_chunk": 64}, {"cache_dtype": torch.int8}, {"page_size": 16},
 ], ids=lambda o: next(iter(o)))
 def test_ported_engine_options_construct(option):
     from multimodal_unlearning_tpu_torch.models import llava
