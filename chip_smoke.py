@@ -24,10 +24,14 @@
    a chunked-prefill pass (C 512 behind 1,024 columns), GQA, chunks that
    straddle a page boundary and the verify round on pages of 16, each pool
    holding a dense cache's columns, on which the paged kernels must give the
-   dense kernels' output bit for bit -- and times kernel, plain version,
+   dense kernels' output bit for bit; B8 (grouped-int4 W4A16 matmul) at
+   LLaVA-1.5-7B's q/k/v/o, gate/up, down and lm_head products at M = 8, 40,
+   512 and 1024, groups of 64 and a ragged N, within 1e-2 of the largest
+   plain output -- and times kernel, plain version,
    (paged) the dense kernel on the same columns, and one PyTorch library call
    (``scaled_dot_product_attention`` and its backward, on the gathered bf16
-   view for the paged kernels, the yardstick only).
+   view for the paged kernels; ``torch._weight_int4pack_mm`` for B8; the
+   yardstick only).
 3. Serves LLaVA-1.5-7B at full width (random weights from a seed, bf16)
    through ``cli.serve.build_engine`` + ``ServingEngine``: ten requests of
    mixed prompt lengths, two with synthetic 336x336 pixels, 32..64 new
@@ -47,6 +51,15 @@
    asserted, prefill logits against the bf16 run printed; then speculation
    on the same quantized model, held against the plain int8 run by the same
    rule, B5q launches asserted.  Decode windows of each configuration.
+   3f. (run before 3c, on a second init of the bf16 model from the same
+   seed, the bf16 model parked on the host) ``quantize_base=int4``: grouped
+   int4 (W4A16) through kernel B8, (i) with the bf16 cache, B8 launches
+   asserted and the dequant path taken only for the 1,280-row prompt bucket
+   (rows above 1024), its streams held against the same model on B8's plain
+   version by the first-difference rule, prefill logits against the bf16
+   run printed, a decode window under the profiler with B8's share; (ii)
+   with speculation (K 4) and chunked prefill (512): B8 runs at M = 40 and
+   512, streams held against (i).
    3d. The bf16 model on a paged cache (pages of 128 columns): (i) plain
    decode on a 25-page pool with budgets 96 tokens longer, so that admission
    queues and a slot is preempted (asserted), its streams' first tokens held
@@ -67,7 +80,7 @@
    loss moving, B1/B2/B3 launched exactly as often as the step's structure
    gives, and the loss and LoRA gradients must agree with the same step on
    the plain attention versions.  Then one step under the profiler.
-5. Prints one ``{"kernels": [...]}`` line (eleven kernels), the card's name and power limit,
+5. Prints one ``{"kernels": [...]}`` line (twelve kernels), the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -76,6 +89,9 @@ result; without a CUDA device it exits 1 before doing anything.
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import itertools
 import json
 import statistics
 import subprocess
@@ -92,11 +108,13 @@ from multimodal_unlearning_tpu_torch.data import preprocess_image
 from multimodal_unlearning_tpu_torch.ops import kernels
 from multimodal_unlearning_tpu_torch.ops.attention import (
     flash_attention_lse, flash_bwd_dkv, flash_bwd_dq)
+from multimodal_unlearning_tpu_torch.ops import int4_matmul as b8
 from multimodal_unlearning_tpu_torch.ops.decode_attention import (
     chunk_decode_attention, decode_attention)
 from multimodal_unlearning_tpu_torch.ops.paged_attention import (
     gather_layer_kv, paged_chunk_decode_attention, paged_decode_attention)
 from multimodal_unlearning_tpu_torch.serve import ServingEngine
+from multimodal_unlearning_tpu_torch.utils import quantize
 from multimodal_unlearning_tpu_torch.utils.pytree import tree_leaves_with_path
 
 # bf16 kernel vs f32 plain version: the kernel rounds p to bf16 before the
@@ -124,6 +142,14 @@ LOGIT_TOL = 0.25
 # top-2 margins of 0.01-0.1 at many prompts, inside the noise of two bf16
 # computations of the same function
 TIE_MARGIN = 0.2
+# B8 against its plain version: both form exact products of bf16 activations
+# and int4 values and sum them in f32 in another order; the kernel then rounds
+# each output to bf16, one ulp being 2^-8 of it: max |err| <= 1e-2 of the
+# largest plain output
+B8_REL_TOL = 1e-2
+# a weight stream timed cold: B8 cycles through copies of its weight that
+# together exceed the H100's 50 MB L2, as a decode step reads each weight once
+COLD_BYTES = 120e6
 # published peaks of one H100 SXM (dense bf16 tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -541,6 +567,137 @@ def check_b7(dev, gen):
     return worst, record
 
 
+def cuda_ms_cycle(fns, iters=24) -> float:
+    """cuda_ms over a cycle of calls (each on its own copy of the inputs)."""
+    calls = itertools.cycle(fns)
+    return cuda_ms(lambda: next(calls)(), iters=iters, warmup=len(fns))
+
+
+def device_ms_cycle(fns, iters=24) -> float:
+    """Device time per call (ms) over a cycle of calls: the summed time of
+    the device kernels the calls launch, from torch.profiler.  Unlike CUDA
+    events around back-to-back calls it leaves out the gaps in which the
+    device waits for the host to launch the next call, which for calls of
+    ~10-20 us are most of the window."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    calls = itertools.cycle(fns)
+    for _ in range(len(fns)):
+        next(calls)()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            next(calls)()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and not getattr(e, "is_user_annotation", False)) / 1e3 / iters
+
+
+def _int4pack_yardstick(q4, s, G):
+    """One PyTorch call computing B8's function: ``torch._weight_int4pack_mm``
+    on the same int4 values repacked by ``torch._convert_weight_to_int4pack``
+    (tinygemm's unsigned nibbles: q = v + 8, zero 0, bf16 scales); None where
+    the card's torch refuses the shape."""
+    try:
+        v = quantize.unpack_int4(q4).to(torch.int32) + 8          # [K, N], row order
+        q = v.t().contiguous()                                     # [N, K]
+        packed = torch._convert_weight_to_int4pack(((q[:, ::2] << 4) | q[:, 1::2]).to(
+            torch.uint8), 8)
+        st = s.t()
+        sz = torch.stack([st, torch.zeros_like(st)], -1).transpose(0, 1).contiguous().to(
+            torch.bfloat16)                                        # [K/G, N, 2]
+        return lambda x: torch._weight_int4pack_mm(x, packed, G, sz)
+    except (RuntimeError, AttributeError, TypeError) as e:
+        print(f"  torch._weight_int4pack_mm refused this shape: {str(e)[:120]}", flush=True)
+        return None
+
+
+# B8's cases: LLaVA-1.5-7B's products (name, K, N, group), then the rows M
+B8_SHAPES = [("qkvo", 4096, 4096, 128), ("gate_up", 4096, 11008, 128),
+             ("down", 11008, 4096, 128), ("lm_head", 4096, 32000, 128),
+             ("g64", 4096, 4096, 64), ("ragged_n", 4096, 4000, 128)]
+B8_ROWS = (8, 40, 512, 1024)
+
+
+def check_b8(dev, gen):
+    """B8 (grouped-int4 W4A16 matmul) against its plain version at
+    LLaVA-1.5-7B's products -- q/k/v/o 4096x4096, gate/up 4096x11008, down
+    11008x4096 (43 groups per half), lm_head 4096x32000 -- at M = 8 (decode),
+    40 (a verify round of 8 rows x 5), 512 (a chunked-prefill pass) and 1024
+    (the largest prefill bucket B8 takes), plus groups of 64 and a ragged N.
+    Times kernel, plain version and one PyTorch call by their device time
+    (profiler) on weights cycled through more than the L2 holds.  Returns
+    (max error, {case: numbers})."""
+    worst, record = 0.0, {}
+    for name, K, N, G in B8_SHAPES:
+        w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+        leaf = quantize.quantize_leaf_int4(w, G)
+        del w
+        q4, s = leaf["q4"], leaf["s"]
+        wbytes = q4.numel() + 4 * s.numel()
+        copies = [(quantize.in_contiguous(q4.clone()), s.clone())
+                  for _ in range(max(1, int(-(-COLD_BYTES // wbytes))))]
+        lib = _int4pack_yardstick(q4, s, G)
+        lib_copies = None
+        for M in (B8_ROWS if name in ("qkvo", "gate_up", "down", "lm_head") else B8_ROWS[:2]):
+            x = randn(gen, (M, K), dev)
+            y = b8.grouped_int4_matmul(x, q4, s)
+            torch.cuda.synchronize()
+            ref = b8.int4_matmul_reference(x, q4, s, torch.float32)
+            err = (y.float() - ref).abs().max().item()
+            top = ref.abs().max().item()
+            if not torch.isfinite(y).all() or err > B8_REL_TOL * top:
+                raise AssertionError(f"B8 {name} M{M}: max |err| {err:.4e} against max |plain| "
+                                     f"{top:.4e} (tol {B8_REL_TOL} of it)")
+            worst = max(worst, err)
+            nbytes = 2 * M * K + wbytes + 2 * M * N
+            b_ms, b_by = bound(nbytes, 2.0 * M * K * N)
+            per, splits = b8.splits_for(M, N, s.shape[0] // 2)
+            kernel_calls = [lambda q=q, t=t: b8.grouped_int4_matmul(x, q, t) for q, t in copies]
+            ms = device_ms_cycle(kernel_calls)
+            event_ms = cuda_ms_cycle(kernel_calls)
+            plain_ms = device_ms_cycle([lambda q=q, t=t: b8.int4_matmul_reference(x, q, t)
+                                        for q, t in copies[:2]], iters=4)
+            lib_name, lib_err = "torch._weight_int4pack_mm", None
+            if lib is not None:
+                try:
+                    lib_err = (lib(x).float() - ref).abs().max().item()
+                except RuntimeError as e:
+                    print(f"  torch._weight_int4pack_mm failed at M{M}: {str(e)[:120]}")
+            if lib_err is not None:
+                if lib_copies is None:
+                    lib_copies = [_int4pack_yardstick(q, t, G) for q, t in copies]
+                lib_ms = device_ms_cycle([lambda f=f: f(x) for f in lib_copies])
+            else:  # the stated fallback: bf16 matmul on the dequantized weight
+                lib_name = "bf16 torch.matmul on the dequantized weight (dequant excluded)"
+                dense = [quantize.dequantize_leaf({"q4": q, "s": t}) for q, t in copies[:3]]
+                lib_ms = device_ms_cycle([lambda d=d: x @ d for d in dense])
+                del dense
+            print(f"B8 {name} M{M} K{K} N{N} G{G}: max|err| {err:.3e} (max|plain| {top:.3e}), "
+                  f"{splits} split(s) of {per} groups | device time per call: kernel "
+                  f"{ms:.4f} ms (CUDA events around back-to-back calls {event_ms:.4f} ms), "
+                  f"plain {plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms (max|err| vs plain "
+                  f"{'n/a' if lib_err is None else f'{lib_err:.3e}'}), bound {b_ms:.4f} ms "
+                  f"({b_by}; {nbytes / 1e6:.2f} MB, {2.0 * M * K * N / 1e9:.3f} GFLOP); "
+                  f"{len(copies)} weight copies cycled", flush=True)
+            record[f"{name}_m{M}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                          bound_ms=b_ms, bound_by=b_by, library=lib_name,
+                                          event_ms=event_ms)
+            del x, y, ref
+        del copies, lib, lib_copies, q4, s, leaf
+        torch.cuda.empty_cache()
+    # B8's share of a decode step (M = 8): 32 layers x (q, k, v, o, gate, up,
+    # down) + lm_head
+    step = lambda key: 32 * (4 * record["qkvo_m8"][key] + 2 * record["gate_up_m8"][key]
+                             + record["down_m8"][key]) + record["lm_head_m8"][key]
+    print(f"B8 per decode step at M 8 (225 launches), device time: kernels {step('ms'):.3f} ms "
+          f"against a bound of {step('bound_ms'):.3f} ms; the yardstick "
+          f"{step('library_ms'):.3f} ms; CUDA events around back-to-back B8 calls "
+          f"{step('event_ms'):.3f} ms", flush=True)
+    return worst, record
+
+
 def check_bwd(dev, gen):
     """B2 and B3 cases; returns per kernel (max error over cases, numbers of
     the forget step's case)."""
@@ -813,10 +970,11 @@ def prefill_profile(engine, spec):
           flush=True)
 
 
-def decode_window(engine, label, profile=False):
+def decode_window(engine, label, profile=False, ranges=()):
     """Steady decode with all slots live: ms per decode step (a verify round
     under speculation) and delivered tokens/s over 3 chunks, and
-    (optionally) the device's busy share over one more chunk."""
+    (optionally) the device's busy share over one more chunk, with the
+    device time of the kernels whose names contain one of ``ranges``."""
     rng = np.random.default_rng(1)
     # 1 + 5 chunks of tokens: every slot stays live through the timed and
     # the profiled chunks
@@ -836,11 +994,13 @@ def decode_window(engine, label, profile=False):
     tok_s = (sum(len(r.tokens) for r in reqs) - n0) / wall
     busy = ""
     if profile:
-        wall, dev_ms, n, top = profiled(engine.step)
+        wall, dev_ms, n, top, *by_range = profiled(engine.step, ranges=ranges)
+        shares = "".join(f"; {r} {ms:.2f} ms ({ms / dev_ms:.3f} of device time)"
+                         for r, ms in (by_range[0].items() if by_range else ()))
         busy = (f"; under the profiler one chunk took {wall:.2f} ms wall, {n} device kernels, "
                 f"{dev_ms:.2f} ms of device time (busy share {dev_ms / wall:.3f} under the "
-                f"profiler, {dev_ms / (step_ms * engine.chunk):.3f} of an unprofiled chunk); "
-                f"device time by kernel: {top}")
+                f"profiler, {dev_ms / (step_ms * engine.chunk):.3f} of an unprofiled chunk)"
+                f"{shares}; device time by kernel: {top}")
     engine.run()
     for r in reqs:
         if not r.done or not (len(r.tokens) == budget or r.finish_reason == "eos"):
@@ -1022,6 +1182,139 @@ def run_int8_path(model, specs, bf16_logits, base=SERVE_ARGS):
     spec._state = None
     return engine, spec, launches, slaunches, ([r.tokens for r in reqs],
                                                [r.tokens for r in sreqs])
+
+
+# ------------------------------------------------------------- phase 3f
+@contextlib.contextmanager
+def b8_rows():
+    """Counts the rows M of every W4A16 product that ``utils/quantize``
+    hands to ``grouped_int4_matmul`` (B8, or its plain version under
+    ``use_plain``) while the block runs."""
+    seen = collections.Counter()
+    orig = quantize.grouped_int4_matmul
+
+    def spy(x, *args, **kw):
+        seen[x.shape[0]] += 1
+        return orig(x, *args, **kw)
+
+    quantize.grouped_int4_matmul = spy
+    try:
+        yield seen
+    finally:
+        quantize.grouped_int4_matmul = orig
+
+
+def run_int4_path(model, specs, bf16_logits, base=SERVE_ARGS):
+    """The serve config with ``quantize_base=int4`` (grouped int4, W4A16
+    through B8) on a second init of the bf16 model from the same seed, the
+    bf16 model parked on the host meanwhile so that the int4 runs' peak
+    memory is their own: (i) plain decode with the bf16 cache, held against
+    the same model on B8's plain version; (ii) speculation (K 4) with
+    chunked prefill (512), held against (i).  Returns the B8 launches of
+    (i) and (ii) and the rows of (i)'s products."""
+    dev = next(model.parameters()).device
+    model.to("cpu")
+    torch.cuda.empty_cache()
+    try:
+        return _int4_path(model, specs, bf16_logits, base)
+    finally:
+        model.to(dev)
+        torch.cuda.empty_cache()
+
+
+def _check_dequant(label, want_rows):
+    """The dequant path ran exactly for the prompt buckets of ``want_rows``
+    (rows above ``INT4_MAX_KERNEL_ROWS``) and for nothing else."""
+    got = {m for m, _, _ in quantize.INT4_DEQUANT_CALLS}
+    if got != want_rows or any(m <= quantize.INT4_MAX_KERNEL_ROWS for m in got):
+        raise AssertionError(f"{label}: the dequant path ran at rows {sorted(got)}, expected "
+                             f"{sorted(want_rows)} (B8 takes up to "
+                             f"{quantize.INT4_MAX_KERNEL_ROWS} rows)")
+
+
+def _int4_path(bf16_model, specs, bf16_logits, base):
+    logits = {}
+    cfg = serve.load_config(base + ["quantize_base=int4"])
+    t0 = time.perf_counter()
+    engine, _, _, _ = serve.build_engine(
+        cfg, on_prefill=lambda r, last: logits.__setitem__(r.uid, last.float().cpu()))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model = engine.params
+    if not torch.equal(model.projector.fc1.cpu(), bf16_model.projector.fc1):
+        raise AssertionError("the int4 model was not drawn from the bf16 model's seed")
+    tower = model.language_model
+    n4 = sum(isinstance(m, quantize.QTensor4) for m in tower.modules())
+    wbytes = quantize.tree_nbytes(tower)
+    bf16_bytes = quantize.tree_nbytes(bf16_model.language_model)
+    long_buckets = {-(-len(ids) // engine.bucket_multiple) * engine.bucket_multiple
+                    for ids, _, _ in specs} - set(range(quantize.INT4_MAX_KERNEL_ROWS + 1))
+    jobs = [(ids, n, pix, None, None) for ids, n, pix in specs]
+    warm = [(ids, 2, pix, None, None) for ids, _, pix in (specs[0], specs[-2])]
+    prompts = [(ids, pix) for ids, _, pix in specs]
+    _serve(engine, warm, counted=False)
+    quantize.INT4_DEQUANT_CALLS.clear()
+    with b8_rows() as rows:
+        reqs, wall, launches, peak = _serve(engine, jobs)
+    label = "int4 path (i) (quantize_base=int4, bf16 cache)"
+    _report(label, engine, reqs, wall, launches, peak)
+    print(f"{label}: {n4} int4 leaves, decoder weights {wbytes / 2**30:.3f} GiB (bf16 "
+          f"{bf16_bytes / 2**30:.3f} GiB), init + quantize {build_s:.1f} s; B8 launches "
+          f"{launches['int4_matmul']}, rows per product {dict(sorted(rows.items()))}; dequant "
+          f"path {dict(quantize.INT4_DEQUANT_CALLS)}", flush=True)
+    if launches["int4_matmul"] == 0 or any(m > quantize.INT4_MAX_KERNEL_ROWS for m in rows):
+        raise AssertionError(f"{label}: B8 launches {launches['int4_matmul']}, rows {rows}")
+    _check_dequant(label, long_buckets)
+    if not all(torch.isfinite(logits[r.uid]).all() for r in reqs):
+        raise AssertionError(f"{label}: prefill logits not finite")
+    d = [(logits[r.uid] - b).abs().max().item() for r, b in zip(reqs, bf16_logits)]
+    print(f"{label}: prefill logits vs the bf16 run, max|diff| per request (a finding, not a "
+          f"gate: int4 rounding of random weights): {[round(x, 4) for x in d]}", flush=True)
+    engine._state = None
+
+    # the same model and requests on B8's plain version (a module global
+    # read at each call), and the first differences judged on that path
+    prev = b8.use_plain(True)
+    try:
+        plain, _, _, _ = serve.build_engine(cfg, model=model)  # quantized: passes through
+        preqs, pwall, plaunches, _ = _serve(plain, jobs)
+        plain._state = None
+        if plaunches["int4_matmul"] != 0:
+            raise AssertionError(f"B8 launched on its plain version's run: {plaunches}")
+        ties = first_difference(model, f"{label} vs plain B8", [r.tokens for r in reqs],
+                                [r.tokens for r in preqs], prompts)
+    finally:
+        b8.use_plain(prev)
+    print(f"{label} vs the same model on B8's plain version ({pwall:.3f} s): streams agree up "
+          f"to first differences at near-ties {ties} (tie margin {TIE_MARGIN})", flush=True)
+    decode_window(engine, "int4 weights, bf16 cache", profile=True,
+                  ranges=("int4_matmul_kernel", "sum_splits_kernel"))
+
+    scfg = dict(cfg, speculative_k=4, prefill_chunk=512)
+    spec, _, _, _ = serve.build_engine(scfg, model=model)
+    sjobs = [(ids, n, pix, list(ids[-spec.R:]) if i % 2 == 0 else None, None)
+             for i, (ids, n, pix) in enumerate(specs)]
+    _serve(spec, warm, counted=False)
+    quantize.INT4_DEQUANT_CALLS.clear()
+    with b8_rows() as srows:
+        sreqs, swall, slaunches, speak = _serve(spec, sjobs)
+    slabel = "int4 path (ii) with speculation (K=4) + chunked prefill (512)"
+    _report(slabel, spec, sreqs, swall, slaunches, speak)
+    print(f"{slabel}: B8 launches {slaunches['int4_matmul']}, rows per product "
+          f"{dict(sorted(srows.items()))}", flush=True)
+    verify_rows = spec.B * (spec.K + 1)
+    if slaunches["int4_matmul"] == 0 or not {verify_rows, 512} <= set(srows):
+        raise AssertionError(f"{slabel}: B8 must run at M = {verify_rows} (verify) and 512 "
+                             f"(chunks): {slaunches['int4_matmul']} launches, rows {srows}")
+    _check_dequant(slabel, set())
+    if spec.stats()["prefill_chunks"] == 0:
+        raise AssertionError(f"{slabel}: no prompt went through chunked prefill")
+    ties = first_difference(model, slabel, [r.tokens for r in sreqs], [r.tokens for r in reqs],
+                            prompts)
+    print(f"{slabel} vs (i): streams agree up to first differences at near-ties {ties} (tie "
+          f"margin {TIE_MARGIN})", flush=True)
+    decode_window(spec, "int4 weights, speculation K=4")
+    return launches["int4_matmul"], slaunches["int4_matmul"], dict(rows)
 
 
 # ------------------------------------------------------------- phase 3d/3e
@@ -1269,6 +1562,7 @@ def main() -> int:
     b6_err, b6 = check_b6(dev, gen)
     b7_err, b7 = check_b7(dev, gen)
     bwd_err, bwd = check_bwd(dev, gen)
+    b8_err, b8_rec = check_b8(dev, gen)
     torch.cuda.empty_cache()
 
     cfg = serve.load_config(SERVE_ARGS + ["quantize_base=false"])
@@ -1299,6 +1593,9 @@ def main() -> int:
     # paged60 with speculation, chunked prefill and the system prompt
     paged_launches = run_paged_path(model, specs, processor, dense_streams, spec_streams)
     torch.cuda.empty_cache()
+    # grouped int4 (W4A16, B8) on a second init from the same seed, before
+    # the bf16 model is quantized to int8 in place
+    b8_launches, b8_spec_launches, b8_rows_seen = run_int4_path(model, specs, bf16_logits)
     # the serve config as it ships: quantizes the model in place
     eng8, spec8, q8_launches, spec8_launches, (streams8, spec_streams8) = run_int8_path(
         model, specs, bf16_logits)
@@ -1378,6 +1675,15 @@ def main() -> int:
              **b7["paged_chunk_q8"]["verify"],
              **{k: b7["paged_chunk_q8"][k] for k in ("prefill_chunk", "gqa", "straddle",
                                                       "verify_p16")}),
+        dict(name="int4_matmul (B8)", route="cuda",
+             source="multimodal_unlearning_tpu_torch/ops/csrc/int4_matmul.cu",
+             replaces="multimodal_unlearning_tpu/ops/int4_matmul.py:45",
+             launches=b8_launches, max_abs_err=b8_err,
+             # the headline case: gate/up at decode (M 8), then every case
+             **{k: v for k, v in b8_rec["gate_up_m8"].items() if k != "library"},
+             library_call=b8_rec["gate_up_m8"]["library"],
+             speculative_launches=b8_spec_launches, rows_per_product=b8_rows_seen,
+             cases={k: v for k, v in b8_rec.items() if k != "gate_up_m8"}),
     ]
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

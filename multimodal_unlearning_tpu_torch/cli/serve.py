@@ -11,10 +11,13 @@ optional expected-answer text seeding the speculative lookup}.
       model_family=llava requests=reqs.jsonl save_file=out.jsonl
 
 As ``configs/mm/serve.yaml`` ships it, the decoder is int8 (W8A16,
-``quantize_base=true``).  ``kv_cache_dtype=int8`` quantizes the KV cache,
-``speculative_k=4`` verifies prompt-lookup drafts, ``prefill_chunk=512``
-prefills long prompts in chunks and ``system_prompt=...`` prefills a shared
-prefix once (text requests prefill only their own suffix against it).
+``quantize_base=true``); ``quantize_base=int4`` (or ``int4:g64``, groups of
+64 rows) serves a grouped-int4 decoder (W4A16, kernel B8, bf16 activations)
+and ``quantize_base=false`` bf16 weights.  ``kv_cache_dtype=int8`` quantizes
+the KV cache, ``speculative_k=4`` verifies prompt-lookup drafts,
+``prefill_chunk=512`` prefills long prompts in chunks and
+``system_prompt=...`` prefills a shared prefix once (text requests prefill
+only their own suffix against it).
 ``page_size=128`` pages the KV cache (``kv_pool_pages=N`` caps the pool;
 0 keeps the dense layout's capacity): the summary line then reports the
 pool's peak pages and preemptions.
@@ -44,6 +47,7 @@ from multimodal_unlearning_tpu_torch.data import ByteTokenizer, MMProcessor, pre
 from multimodal_unlearning_tpu_torch.device import resolve_device
 from multimodal_unlearning_tpu_torch.models import VLM_KINDS, decoder_module, vlm_module
 from multimodal_unlearning_tpu_torch.serve import ServingEngine
+from multimodal_unlearning_tpu_torch.utils.quantize import tree_nbytes
 
 # configs/mm/serve.yaml, the keys this port reads (plus ``device``)
 DEFAULTS = {
@@ -260,9 +264,11 @@ def run(cfg: dict):
     pool = (f"; paged pool {st['pool_pages']} pages of {engine.page}, peak "
             f"{st['pool_pages_peak']}, {st['preemptions']} preemptions"
             if engine.page else "")
+    tower = engine.params.language_model if kind in VLM_KINDS else engine.params
     print(f"served {len(reqs)} requests, {n_tok} tokens in {dt:.1f}s "
           f"({n_tok / max(dt, 1e-9):.1f} tok/s; {st['dispatches']} dispatches, "
-          f"{st['tokens_per_round']:.2f} tok/round{pool}) "
+          f"{st['tokens_per_round']:.2f} tok/round{pool}; decoder weights "
+          f"{tree_nbytes(tower) / 2**30:.3f} GiB, quantize_base={cfg.get('quantize_base')}) "
           f"on {engine.device} -> {cfg['save_file']}")
     return results
 

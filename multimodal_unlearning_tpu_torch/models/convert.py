@@ -7,10 +7,11 @@ with numpy arrays as leaves (``jax.tree.map(np.asarray, params)``):
 The port's modules keep exactly that layout, so conversion copies leaf by
 leaf and checks that every parameter is covered and every shape agrees.
 
-A quantized tree (``utils/quantize.py``: ``{"q": int8, "s": f32}`` leaves)
-crosses with its int8 storage: the leaf becomes a ``QTensor`` at the same
-path.  A LoRA adapter tree crosses as a nested dict of trainable tensors
-(``adapters_from_jax``).
+A quantized tree (``utils/quantize.py``: ``{"q": int8, "s": f32}`` or grouped
+int4 ``{"q4": int8, "s": f32}`` leaves) crosses with its int8 storage: the
+leaf becomes a ``QTensor`` / ``QTensor4`` at the same path, its int8 array
+stored ``in_contiguous`` as the port's quantizer stores it.  A LoRA adapter
+tree crosses as a nested dict of trainable tensors (``adapters_from_jax``).
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import torch
 from multimodal_unlearning_tpu_torch.config import LlamaConfig, LlavaConfig, VitConfig
 from multimodal_unlearning_tpu_torch.device import resolve_device
 from multimodal_unlearning_tpu_torch.models import llama, llava, vit
-from multimodal_unlearning_tpu_torch.utils.quantize import QTensor, in_contiguous, is_qtensor
+from multimodal_unlearning_tpu_torch.utils.quantize import (
+    QTensor, QTensor4, in_contiguous, is_qtensor)
 
 
 @torch.no_grad()
@@ -35,7 +37,7 @@ def load_tree(module: torch.nn.Module, tree: dict) -> None:
             path = prefix + key
             if is_qtensor(val):
                 _load_quantized(node, key, val, path)
-                seen.update((path + ".q", path + ".s"))
+                seen.update(f"{path}.{k}" for k in val)
                 continue
             if isinstance(val, dict):
                 walk(getattr(node, key), val, path + ".")
@@ -57,21 +59,24 @@ def load_tree(module: torch.nn.Module, tree: dict) -> None:
 
 def _load_quantized(node, key, leaf, path):
     """Replace the float parameter ``node.<key>`` by a ``QTensor`` holding
-    the leaf's int8 values and f32 scales."""
+    the leaf's int8 values and f32 scales, or by a ``QTensor4`` holding a
+    grouped-int4 leaf's packed bytes [.., in/2, out] and group scales."""
     target = getattr(node, key, None)
-    if "q4" in leaf:
-        raise NotImplementedError(f"{path}: grouped int4 leaves are not ported yet")
-    if not isinstance(target, (torch.nn.Parameter, QTensor)):
+    if not isinstance(target, (torch.nn.Parameter, QTensor, QTensor4)):
         raise KeyError(f"{path}: the port's model has no such parameter")
-    q = np.array(leaf["q"])
+    int4 = "q4" in leaf
+    q = np.array(leaf["q4"] if int4 else leaf["q"])
     s = np.array(leaf["s"], dtype=np.float32)
-    if q.dtype != np.int8 or tuple(q.shape) != tuple(target.shape):
-        raise ValueError(f"{path}: quantized leaf {q.dtype}{q.shape} != int8"
-                         f"{tuple(target.shape)}")
-    device = (target.q if isinstance(target, QTensor) else target).device
+    shape = tuple(target.shape)
+    if int4 and isinstance(target, torch.nn.Parameter):
+        shape = shape[:-2] + (shape[-2] // 2, shape[-1])  # the packed [.., in/2, out]
+    if q.dtype != np.int8 or tuple(q.shape) != shape:
+        raise ValueError(f"{path}: quantized leaf {q.dtype}{q.shape} != int8{shape}")
+    device = (target if isinstance(target, torch.nn.Parameter) else target.s).device
     delattr(node, key)
-    setattr(node, key, QTensor(in_contiguous(torch.from_numpy(q).to(device)),
-                               torch.from_numpy(s).to(device)))
+    cls = QTensor4 if int4 else QTensor
+    setattr(node, key, cls(in_contiguous(torch.from_numpy(q).to(device)),
+                           torch.from_numpy(s).to(device)))
 
 
 def adapters_from_jax(tree: dict, *, device=None, dtype=torch.float32) -> dict:

@@ -3,9 +3,11 @@
 Counterpart of ``multimodal_unlearning_tpu/models/llama.py`` for serving
 and for the forget step.  Parameters keep the JAX layout
 (``models/params.py``): ``[in, out]`` weights stacked on a leading L
-dimension, dense or int8-quantized (``utils/quantize.py``: a quantized leaf
-dequantizes per layer, W8A16, or runs W8A8 when ``enable_int8_compute`` is
-on).  The forward loops over the layers where the JAX package scans them.
+dimension, dense, int8- or grouped-int4-quantized (``utils/quantize.py``: an
+int8 leaf dequantizes per layer, W8A16, or runs W8A8 when
+``enable_int8_compute`` is on; an int4 leaf runs W4A16 through
+``int4_matmul``, kernel B8 for up to 1024 rows).  The forward loops over
+the layers where the JAX package scans them.
 
 Modes of ``forward``:
   no cache (training, teacher-forced evaluation): ``kv_cache=None``; causal
@@ -48,7 +50,8 @@ from multimodal_unlearning_tpu_torch.ops.decode_attention import (
     chunk_decode_attention, decode_attention)
 from multimodal_unlearning_tpu_torch.ops.rope import apply_rope_bsd, rope_table
 from multimodal_unlearning_tpu_torch.utils.quantize import (
-    dequantize_leaf, embed_lookup, int8_matmul, int8_matmul_group, is_qtensor, qs_of)
+    dequantize_leaf, embed_lookup, int4_matmul, int8_matmul, int8_matmul_group, is_int4,
+    is_qtensor, qs_of)
 
 __all__ = ["LlamaConfig", "Llama", "init_params", "rms_norm", "dense", "init_kv_cache",
            "init_paged_kv_cache", "positions_from_mask", "enable_int8_compute",
@@ -84,7 +87,7 @@ def enable_int8_compute(on: bool = True) -> bool:
 
 
 def _is_int8(w) -> bool:
-    return is_qtensor(w) and not (isinstance(w, dict) and "q4" in w)
+    return is_qtensor(w) and not is_int4(w)
 
 
 def _maybe_dequant(w, dtype):
@@ -108,7 +111,12 @@ def apply_lora_delta(y, t, ll, scale):
 
 
 def dense(x, w, lora_leaf=None, lora_scale: float = 0.0):
-    if _is_int8(w) and INT8_COMPUTE:
+    # a grouped-int4 leaf always takes the W4A16 product (kernel B8 for
+    # small M): the W8A8 route of INT8_COMPUTE is int8-only, and a dense
+    # dequant here would write bf16 weights at every decode step
+    if is_int4(w):
+        y = int4_matmul(x, *qs_of(w))
+    elif _is_int8(w) and INT8_COMPUTE:
         y = int8_matmul(x, *qs_of(w))
     else:
         y = x @ _maybe_dequant(w, x.dtype)

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from multimodal_unlearning_tpu_torch.utils.quantize import QTensor, is_qtensor
+from multimodal_unlearning_tpu_torch.utils.quantize import QTensor, is_int4, is_qtensor
 
 # every decoder linear except lm_head
 DEFAULT_TARGETS = (
@@ -33,11 +33,12 @@ def _get(node, name):
 
 def _weight_shape(w):
     """Logical [.., in, out] shape of a dense or int8-quantized weight."""
+    if is_int4(w):
+        raise NotImplementedError("LoRA over grouped int4 bases is not ported yet (int4 "
+                                  "training is a later slice)")
     if isinstance(w, QTensor):
         return tuple(w.q.shape)
     if is_qtensor(w):
-        if "q4" in w:
-            raise NotImplementedError("LoRA over grouped int4 bases is not ported yet")
         return tuple(w["q"].shape)
     return tuple(w.shape)
 

@@ -1,0 +1,167 @@
+"""Grouped-int4 W4A16 matmul: kernel B8 and its plain PyTorch version.
+
+Counterpart of ``multimodal_unlearning_tpu/ops/int4_matmul.py``.  A grouped
+int4 weight ``[K, N]`` is stored as ``q4`` int8 ``[K/2, N]`` (half-split
+nibble packing: byte i holds row i in its low nibble and row i + K/2 in its
+high nibble, values in [-7, 7]) and ``s`` f32 ``[K/G, N]``, one scale per
+(group of G contracting rows, output column), the low half's groups first
+(``utils/quantize.quantize_leaf_int4``).  The port stores ``q4`` with the
+K/2 dimension contiguous (strides ``(1, K/2)``, as ``in_contiguous`` lays
+out int8 weights): a column's packed bytes are one run in memory, which is
+what the kernel loads.  Shape and values are the JAX leaf's.
+
+``grouped_int4_matmul(x, q4, s)`` computes
+
+    y = sum_g (x_lo[:, g] @ lo_g) * s_lo[g] + (x_hi[:, g] @ hi_g) * s_hi[g]
+
+with f32 partials per group, the f32 scale row applied to the partial and
+never to a materialised weight, as the TPU kernel does.  On a CUDA tensor it
+launches B8 (``csrc/int4_matmul.cu``) or raises; on a CPU tensor it runs
+``int4_matmul_reference``, the same arithmetic in plain torch.  The plain
+version also runs on the card while ``PLAIN`` is set (``use_plain``): a
+module global read at each call, for holding a whole model against it.
+
+Which calls reach it is ``utils/quantize.int4_matmul``'s rule: M <= 1024
+rows and a shape that ``supported`` accepts; the rest dequantizes one weight
+at a time.  There is no backward: int4 training is a later slice, and a call
+whose input needs a gradient raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from multimodal_unlearning_tpu_torch.ops import kernels
+
+__all__ = ["grouped_int4_matmul", "int4_matmul_reference", "supported", "nibbles",
+           "use_plain", "splits_for"]
+
+PLAIN = False  # set via use_plain(); the plain version on the card too
+
+_BN = 128          # output columns per block (csrc/int4_matmul.cu)
+_MAX_GROUP = 128   # the widest scale group a stage of the kernel holds
+_TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
+
+
+def use_plain(on: bool = True) -> bool:
+    """Run the plain version instead of B8 on the card as well.  Returns the
+    previous value so callers can restore it; the flag is read at each call."""
+    global PLAIN
+    prev = PLAIN
+    PLAIN = on
+    return prev
+
+
+def nibbles(packed):
+    """(low, high) sign-extended int4 values of a packed int8 array, int8:
+    two arithmetic shifts each (int8 shifts wrap, as the kernel's)."""
+    return (packed << 4) >> 4, packed >> 4
+
+
+def _group(q4, s) -> int | None:
+    """The scale group width G of a 2-D leaf, or None if ``s`` does not tile
+    the packed rows into two halves of whole groups."""
+    if q4.ndim != 2 or s.ndim != 2 or s.shape[1] != q4.shape[1] or s.shape[0] % 2:
+        return None
+    gh = s.shape[0] // 2
+    if gh == 0 or q4.shape[0] % gh:
+        return None
+    return q4.shape[0] // gh
+
+
+def supported(q4, s) -> bool:
+    """Shapes B8 takes: a 2-D leaf whose scale groups are a multiple of 16
+    rows and at most 128 wide (every group the port's quantizer gives at
+    real widths: 128, and 64 or 32 from ``int4:g64`` / ``int4:g32``); any N,
+    a ragged last column tile included.  Others take the dequant path."""
+    g = _group(q4, s)
+    return g is not None and g % 16 == 0 and g <= _MAX_GROUP
+
+
+def int4_matmul_reference(x, q4, s, out_dtype=None):
+    """The plain version of B8: per-group f32 partials ``x_lo[:, g] @ lo_g``
+    and ``x_hi[:, g] @ hi_g``, each times its f32 scale row, summed in f32
+    and cast to ``out_dtype`` (default ``x.dtype``).  x: [M, K]."""
+    out_dtype = out_dtype or x.dtype
+    K2, N = q4.shape
+    gh = s.shape[0] // 2
+    G = K2 // gh
+    x32 = x.reshape(-1, 2 * K2).to(torch.float32)
+    M = x32.shape[0]
+    parts = []
+    for xh, wq, sh in zip((x32[:, :K2], x32[:, K2:]), nibbles(q4), (s[:gh], s[gh:])):
+        xg = xh.reshape(M, gh, G).transpose(0, 1)            # [gh, M, G]
+        w = wq.to(torch.float32).reshape(gh, G, N)           # exact int4 values
+        parts.append(torch.bmm(xg, w) * sh.to(torch.float32)[:, None, :])  # [gh, M, N]
+    return (parts[0] + parts[1]).sum(0).to(out_dtype)
+
+
+def splits_for(M: int, N: int, gh: int) -> tuple[int, int]:
+    """(groups per split, splits): how B8 divides the scale groups among
+    blocks.  With fewer (N, M) tiles than the card has SMs, the groups are
+    split so that about ``_TARGET_BLOCKS`` blocks stream the weight, and a
+    second pass sums their f32 partials."""
+    bm = 16 if M <= 16 else 32 if M <= 32 else 64
+    tiles = -(-N // _BN) * -(-M // bm)
+    if tiles >= 132:
+        return gh, 1
+    per = -(-gh // min(gh, -(-_TARGET_BLOCKS // tiles)))
+    return per, -(-gh // per)
+
+
+def _check(x, q4, s, out_dtype):
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"B8 takes bf16 activations, got {x.dtype} (int4 serving computes in "
+                        "bf16; the plain version runs on the CPU)")
+    if q4.dtype != torch.int8 or s.dtype != torch.float32:
+        raise TypeError(f"B8 takes int8 q4 and f32 scales, got {q4.dtype} and {s.dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"B8 writes bf16 or f32, not {out_dtype}")
+    if x.ndim != 2 or x.shape[1] != 2 * q4.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)} must be [M, K] with K = 2 * {q4.shape[0]}")
+    if not supported(q4, s):
+        raise ValueError(f"B8 does not take q4 {tuple(q4.shape)} with scales {tuple(s.shape)}: "
+                         "groups must be a multiple of 16 rows and at most 128")
+    if q4.device != x.device or s.device != x.device:
+        raise ValueError("x, q4 and s must be on one device")
+    if q4.stride() != (1, q4.shape[0]) or q4.data_ptr() % 16:
+        raise ValueError("B8 reads q4 with its K/2 dimension contiguous (strides (1, K/2), "
+                         "16-byte aligned), as quantize_leaf_int4 stores it")
+    if not s.is_contiguous():
+        raise ValueError("the scales must be contiguous [K/G, N]")
+
+
+def grouped_int4_matmul(x, q4, s, out_dtype=None):
+    """``x @ dequant(q4, s)`` for x [M, K]: kernel B8 on a CUDA tensor (bf16
+    x, bf16 or f32 out), the plain version on a CPU tensor or while
+    ``PLAIN`` is set.  Raises for an input that needs a gradient."""
+    if x.requires_grad:
+        raise NotImplementedError("int4 training (a backward through the W4A16 product) is "
+                                  "not ported yet: it comes after int4 serving, in a later "
+                                  "slice")
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu" or PLAIN:
+        return int4_matmul_reference(x, q4, s, out_dtype)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"grouped_int4_matmul has no kernel for device {x.device}")
+    _check(x, q4, s, out_dtype)
+    M, K2, N = x.shape[0], q4.shape[0], q4.shape[1]
+    if M == 0:
+        return torch.empty((0, N), dtype=out_dtype, device=x.device)
+    x = x.contiguous()
+    if x.data_ptr() % 16:  # the kernel copies x in 16-byte runs
+        x = x.clone()
+    gh = s.shape[0] // 2
+    per, splits = splits_for(M, N, gh)
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device) if splits > 1
+          else None)
+    fn = kernels.launcher("int4_matmul")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), q4.data_ptr(), s.data_ptr(), out.data_ptr(),
+                 None if ws is None else ws.data_ptr(), M, K2, N, K2 // gh, per, splits,
+                 int(out_dtype == torch.float32), stream)
+    kernels.check("int4_matmul", err)
+    kernels.LAUNCHES["int4_matmul"] += 1
+    return out

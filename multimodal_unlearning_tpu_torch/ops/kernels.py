@@ -9,8 +9,9 @@ an unchanged one is reused.  Nothing is built when this module is imported.
 
 A library may export more than one kernel (``flash_decode.cu`` holds B4,
 its int8 variant B4q and their paged-cache instances B6 and B6q;
-``chunk_decode.cu`` B5, B5q, B7 and B7q): ``SOURCES`` names the libraries,
-``_SIGNATURES`` each kernel's library, symbol and argtypes.
+``chunk_decode.cu`` B5, B5q, B7 and B7q; ``int4_matmul.cu`` B8 alone):
+``SOURCES`` names the libraries, ``_SIGNATURES`` each kernel's library,
+symbol and argtypes.
 ``LAUNCHES`` counts the launches of each kernel; its wrapper adds one where
 it launches, and nowhere else.
 """
@@ -34,6 +35,7 @@ SOURCES = {
     "flash_bwd_dq": "flash_bwd_dq.cu",
     "flash_bwd_dkv": "flash_bwd_dkv.cu",
     "chunk_decode": "chunk_decode.cu",
+    "int4_matmul": "int4_matmul.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -59,6 +61,7 @@ _SIGNATURES = {
     "paged_decode_q8": ("flash_decode", "mmu_paged_decode_q8", [_P] * 8 + [_I] * 9 + [_F, _P]),
     "paged_chunk": ("chunk_decode", "mmu_paged_chunk_bf16", _PAGED_CHUNK_ARGS),
     "paged_chunk_q8": ("chunk_decode", "mmu_paged_chunk_q8", _PAGED_CHUNK_ARGS),
+    "int4_matmul": ("int4_matmul", "mmu_int4_matmul", [_P] * 5 + [_I] * 7 + [_P]),
 }
 
 LAUNCHES = {name: 0 for name in _SIGNATURES}

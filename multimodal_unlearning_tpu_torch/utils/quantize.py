@@ -1,34 +1,46 @@
-"""Int8 weight quantization for frozen parameter trees (QLoRA-style).
+"""Weight quantization for frozen parameter trees (QLoRA-style).
 
-Counterpart of ``multimodal_unlearning_tpu/utils/quantize.py``, int8 only.
-A quantized leaf is ``{"q": int8[..., in, out], "s": f32[..., 1, out]}``
-(per-output-channel symmetric int8): a plain dict in a dict tree, a
-``QTensor`` module holding the two arrays at the same paths in a model.
-``models/llama.dense`` and the embedding lookup dequantize transparently
-(W8A16), or run W8A8 through ``int8_matmul`` when
-``llama.enable_int8_compute`` is on.
+Counterpart of ``multimodal_unlearning_tpu/utils/quantize.py``.  A quantized
+leaf is ``{"q": int8[..., in, out], "s": f32[..., 1, out]}`` (per-output-
+channel symmetric int8) or ``{"q4": int8[..., in/2, out], "s": f32[..., in/G,
+out]}`` (grouped int4, two values nibble-packed per byte along the
+contracting dim, half-split: byte i holds row i in its low nibble and row
+i + in/2 in its high nibble): a plain dict in a dict tree, a ``QTensor`` /
+``QTensor4`` module holding the two arrays at the same paths in a model.
+Both store their int8 array with the ``in`` (``in/2``) dimension contiguous
+(``in_contiguous``); shapes and values are the JAX leaves'.
+``models/llama.dense`` and the embedding lookup dequantize transparently:
+int8 per layer (W8A16), or W8A8 through ``int8_matmul`` when
+``llama.enable_int8_compute`` is on; int4 through ``int4_matmul`` (W4A16:
+kernel B8 for M <= 1024 rows, ``ops/int4_matmul.py``), whatever that flag.
 
 The W8A8 products are exact int8 x int8 -> int32: ``torch._int_mm`` on the
-card, an int32 matmul on the CPU.  Grouped int4 leaves (``"q4"``) and the MoE
-expert functions are not ported yet.
+card, an int32 matmul on the CPU.  The MoE expert functions are not ported
+yet.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 
 import torch
 from torch import nn
 from torch.profiler import record_function
 
+from multimodal_unlearning_tpu_torch.ops.int4_matmul import (
+    grouped_int4_matmul, nibbles as _nibbles, supported as _int4_supported)
+
 _MIN_QUANT_ELEMS = 2**16
 _FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+INT4_MAX_KERNEL_ROWS = 1024  # int4_matmul: B8 up to this many rows, then the dequant path
 
 
 class QTensor(nn.Module):
-    """A quantized leaf inside a model: ``q`` and ``s`` at the JAX tree's
-    paths ``<leaf>.q`` and ``<leaf>.s``, frozen.  Indexing the stacked layer
-    dimension gives the plain ``{"q", "s"}`` dict the functions below take."""
+    """An int8 quantized leaf inside a model: ``q`` and ``s`` at the JAX
+    tree's paths ``<leaf>.q`` and ``<leaf>.s``, frozen.  Indexing the stacked
+    layer dimension gives the plain ``{"q", "s"}`` dict the functions below
+    take."""
 
     def __init__(self, q: torch.Tensor, s: torch.Tensor):
         super().__init__()
@@ -43,19 +55,45 @@ class QTensor(nn.Module):
         return self.q.shape
 
 
+class QTensor4(nn.Module):
+    """A grouped-int4 leaf inside a model: the packed ``q4`` and the group
+    scales ``s`` at the JAX tree's paths ``<leaf>.q4`` and ``<leaf>.s``,
+    frozen.  Indexing the stacked layer dimension gives the plain
+    ``{"q4", "s"}`` dict.  ``shape`` is the packed array's ([..., in/2, out])."""
+
+    def __init__(self, q4: torch.Tensor, s: torch.Tensor):
+        super().__init__()
+        self.q4 = nn.Parameter(q4, requires_grad=False)
+        self.s = nn.Parameter(s, requires_grad=False)
+
+    def __getitem__(self, index) -> dict:
+        return {"q4": self.q4[index], "s": self.s[index]}
+
+    @property
+    def shape(self):
+        return self.q4.shape
+
+
 def is_qtensor(x) -> bool:
-    if isinstance(x, QTensor):
+    """A quantized leaf of either kind, in either form."""
+    if isinstance(x, (QTensor, QTensor4)):
         return True
     return isinstance(x, dict) and set(x.keys()) in ({"q", "s"}, {"q4", "s"})
 
 
+def is_int4(x) -> bool:
+    """A grouped-int4 leaf, in either form."""
+    return isinstance(x, QTensor4) or (isinstance(x, dict) and set(x.keys()) == {"q4", "s"})
+
+
 def qs_of(qt):
-    """(q, s) of a quantized leaf in either form."""
+    """(values, scales) of a quantized leaf in either form: the int8 ``q``,
+    or for an int4 leaf the packed ``q4``."""
     if isinstance(qt, QTensor):
         return qt.q, qt.s
-    if "q4" in qt:
-        raise NotImplementedError("grouped int4 leaves are not ported yet (slice 6)")
-    return qt["q"], qt["s"]
+    if isinstance(qt, QTensor4):
+        return qt.q4, qt.s
+    return (qt["q4"] if "q4" in qt else qt["q"]), qt["s"]
 
 
 def _quantize_2d(w):
@@ -70,14 +108,17 @@ def in_contiguous(q):
     """The same [..., in, out] int8 values stored with the ``in`` dimension
     contiguous (strides (.., 1, in)): the layout in which the forward W8A8
     product, which contracts over ``in``, reaches the int8 tensor cores
-    (``int_matmul``).  Shapes and values are unchanged."""
+    (``int_matmul``), and in which B8 reads a column's packed bytes as one
+    run.  Shapes and values are unchanged."""
     return q.transpose(-1, -2).contiguous().transpose(-1, -2)
 
 
-def _quantize(w):
+def _per_layer(fn, w):
+    """``fn`` on a 2-D weight, or on each leading index of a stacked one
+    (bounds the f32 transients to one layer's weight; changes no value)."""
     if w.ndim <= 2:
-        return _quantize_2d(w)
-    parts = [_quantize(w[i]) for i in range(w.shape[0])]
+        return fn(w)
+    parts = [_per_layer(fn, w[i]) for i in range(w.shape[0])]
     return torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts])
 
 
@@ -87,19 +128,77 @@ def quantize_leaf(w) -> dict:
     ``in_contiguous`` gives it.  A stacked leaf is quantized one leading
     index at a time, which bounds the f32 transients to one layer's weight
     and changes no value."""
-    q, s = _quantize(w)
+    q, s = _per_layer(_quantize_2d, w)
     return {"q": in_contiguous(q), "s": s}
+
+
+def _int4_groups(in_dim: int, group_size: int) -> int:
+    """Largest divisor of ``in_dim`` that is <= group_size (scale groups
+    must tile the contracting dim exactly)."""
+    g = min(group_size, in_dim)
+    while in_dim % g:
+        g -= 1
+    return g
+
+
+def _quantize_int4_2d(w, group_size):
+    w32 = w.to(torch.float32)
+    in_dim, out = w32.shape
+    # scale groups must not straddle the half boundary
+    g = _int4_groups(in_dim // 2, group_size)
+    wg = w32.reshape(in_dim // g, g, out)
+    absmax = wg.abs().amax(dim=-2)                                   # [in/g, out]
+    s = torch.where(absmax > 0, absmax / 7.0, torch.ones_like(absmax))
+    q = torch.clamp(torch.round(wg / s[:, None, :]), -7, 7).reshape(in_dim, out).to(torch.int8)
+    half = in_dim // 2
+    return (q[:half] & 0xF) | (q[half:] << 4), s
+
+
+@torch.no_grad()
+def quantize_leaf_int4(w, group_size: int = 128) -> dict:
+    """Group-wise symmetric int4 along the CONTRACTING (second-to-last) dim:
+    ``group_size`` input channels (the largest divisor of in/2 not above it)
+    share one f32 scale per output channel, the AWQ/GPTQ-style W4A16 layout.
+    Leaf = {"q4": int8[..., in/2, out], "s": f32[..., in/G, out]}, half-split
+    nibble packing (byte i: row i low, row i + in/2 high), ``q4`` laid out as
+    ``in_contiguous`` gives it.  A stacked leaf is quantized one leading
+    index at a time."""
+    if w.shape[-2] % 2:
+        raise ValueError(f"int4 packing needs an even contracting dim, got {w.shape[-2]}")
+    q4, s = _per_layer(lambda t: _quantize_int4_2d(t, group_size), w)
+    return {"q4": in_contiguous(q4), "s": s}
+
+
+def unpack_int4(packed):
+    """Nibble-packed int8 [..., in/2, out] -> int4 VALUES as int8 [..., in,
+    out] (half-split layout: low nibbles are rows [0, in/2), high the rest)."""
+    return torch.cat(_nibbles(packed), dim=-2)
 
 
 def dequantize_leaf(qt, dtype=torch.bfloat16):
     q, s = qs_of(qt)
+    if is_int4(qt):  # grouped int4: scales along the contracting dim
+        v = unpack_int4(q)
+        *lead, in_dim, out = v.shape
+        n_groups = s.shape[-2]
+        vg = v.to(torch.float32).reshape(*lead, n_groups, in_dim // n_groups, out)
+        return (vg * s[..., :, None, :]).reshape(*lead, in_dim, out).to(dtype)
     return (q.to(torch.float32) * s).to(dtype)
 
 
 def embed_lookup(et, input_ids):
     """Dequantizing embedding lookup for a quantized table [V, H]: gather
-    the int8 rows, then apply the one [1, H] channel-scale row.  f32 out."""
+    the quantized rows, then the matching scales (int8: the one [1, H]
+    channel-scale row; int4: the token's vocab-group row of the [V/G, H]
+    grid).  An int4 table is nibble-packed along V: gather the pair row,
+    pick the token's nibble.  f32 out."""
     q, s = qs_of(et)
+    if is_int4(et):
+        half = q.shape[0]
+        lo, hi = _nibbles(q[input_ids % half])                         # [..., H]
+        rows = torch.where((input_ids < half)[..., None], lo, hi)
+        g = 2 * half // s.shape[0]
+        return rows.to(torch.float32) * s[input_ids // g]
     return q[input_ids].to(torch.float32) * s[0]
 
 
@@ -112,49 +211,62 @@ def _want_quant(v, min_elems: int) -> bool:
     )
 
 
-def _check_bits(bits: int) -> None:
+def _leaf_quantizer(bits: int, group_size: int):
+    """The leaf function of ``bits`` (8: per-channel int8, 4: grouped int4)."""
+    if bits == 8:
+        return quantize_leaf
     if bits == 4:
-        raise NotImplementedError("bits=4 (grouped int4, W4A16) is not ported yet (slice 6)")
-    if bits != 8:
-        raise ValueError(f"bits must be 8 or 4, got {bits}")
+        return lambda w: quantize_leaf_int4(w, group_size)
+    raise ValueError(f"bits must be 8 or 4, got {bits}")
 
 
-def quantize_tree(params, *, bits: int = 8, min_elems: int = _MIN_QUANT_ELEMS):
+def _module_leaf(leaf: dict) -> nn.Module:
+    return QTensor4(leaf["q4"], leaf["s"]) if "q4" in leaf else QTensor(leaf["q"], leaf["s"])
+
+
+def quantize_tree(params, *, bits: int = 8, group_size: int = 128,
+                  min_elems: int = _MIN_QUANT_ELEMS):
     """Quantize every large (>= 2-D) float leaf; small leaves stay as they
-    are.  Returns a new tree (a dict tree, or a deep copy of a module) and
-    leaves ``params`` alone: the float tree and the quantized one are alive
+    are.  ``bits``: 8 = per-output-channel int8 (the W8A16/W8A8 base), 4 =
+    grouped int4 with ``group_size`` (W4A16, half the int8 weight stream).
+    Returns a new tree (a dict tree, or a deep copy of a module) and leaves
+    ``params`` alone: the float tree and the quantized one are alive
     together.  See ``quantize_tree_inplace`` for trees near the memory limit."""
-    _check_bits(bits)
+    qfn = _leaf_quantizer(bits, group_size)
     if isinstance(params, nn.Module):
-        return quantize_tree_inplace(copy.deepcopy(params), bits=bits, min_elems=min_elems)
+        return quantize_tree_inplace(copy.deepcopy(params), bits=bits, group_size=group_size,
+                                     min_elems=min_elems)
     if isinstance(params, dict) and not is_qtensor(params):
-        return {k: quantize_tree(v, bits=bits, min_elems=min_elems) for k, v in params.items()}
-    return quantize_leaf(params) if _want_quant(params, min_elems) else params
+        return {k: quantize_tree(v, bits=bits, group_size=group_size, min_elems=min_elems)
+                for k, v in params.items()}
+    return qfn(params) if _want_quant(params, min_elems) else params
 
 
-def quantize_tree_inplace(params, *, bits: int = 8, min_elems: int = _MIN_QUANT_ELEMS):
+def quantize_tree_inplace(params, *, bits: int = 8, group_size: int = 128,
+                          min_elems: int = _MIN_QUANT_ELEMS):
     """Destructive ``quantize_tree``: quantizes leaf by leaf and drops each
     float leaf before touching the next, so the peak is the float tree plus
     one leaf's transients.  ``params`` (a module, or a nested dict of tensors)
     is changed and also returned; a quantized leaf of a module becomes a
-    ``QTensor`` at the same path.  Leaves equal ``quantize_tree``'s exactly.
+    ``QTensor`` (int8) or ``QTensor4`` (int4) at the same path.  Leaves equal
+    ``quantize_tree``'s exactly.
 
     Only modules and nested dicts are traversed; a list or tuple container
     would be silently skipped, so it raises."""
-    _check_bits(bits)
+    qfn = _leaf_quantizer(bits, group_size)
     if isinstance(params, nn.Module):
         for module in list(params.modules()):
-            if isinstance(module, QTensor):
+            if isinstance(module, (QTensor, QTensor4)):
                 continue
             # names only: a list of the parameters would keep every float
             # leaf alive until the loop ends
             for name in [n for n, _ in module.named_parameters(recurse=False)]:
                 p = getattr(module, name)
                 if _want_quant(p, min_elems):
-                    leaf = quantize_leaf(p.data)
+                    leaf = qfn(p.data)
                     delattr(module, name)
                     del p
-                    setattr(module, name, QTensor(leaf["q"], leaf["s"]))
+                    setattr(module, name, _module_leaf(leaf))
         return params
 
     def rec(d, path):
@@ -171,7 +283,7 @@ def quantize_tree_inplace(params, *, bits: int = 8, min_elems: int = _MIN_QUANT_
                     "-- use quantize_tree or restructure the tree as dicts")
             elif _want_quant(v, min_elems):
                 d[key] = None  # drop the float leaf first
-                d[key] = quantize_leaf(v)
+                d[key] = qfn(v)
                 del v
         return d
 
@@ -187,6 +299,50 @@ def tree_nbytes(tree) -> int:
     if isinstance(tree, torch.Tensor):
         return tree.numel() * tree.element_size()
     return 0
+
+
+# ---------------------------------------------------------------------------
+# W4A16 matmul: grouped int4 weights against float activations.
+# ---------------------------------------------------------------------------
+
+# (M, K, N) -> calls of int4_matmul that took the dequant path
+INT4_DEQUANT_CALLS: collections.Counter = collections.Counter()
+
+
+def int4_matmul(x, q4, s, out_dtype=None):
+    """``x @ dequant(q4, s)``.  x: [..., in], q4: [in/2, out] half-split
+    nibble-packed, s: [in/G, out] with G | in/2.  Dispatches as the JAX
+    function does: at most ``INT4_MAX_KERNEL_ROWS`` rows (decode, verify
+    rounds, chunked-prefill passes, short prefills) on a shape B8 takes
+    (``ops/int4_matmul.supported``) go to ``grouped_int4_matmul`` (B8 on the
+    card, its plain version on the CPU), which keeps the packed bytes as the
+    only weight traffic.  Anything else -- a long prefill, an odd group --
+    dequantizes each half of this one weight to x's dtype and multiplies it
+    with ``torch.matmul``, and is counted in ``INT4_DEQUANT_CALLS``.  No
+    backward: int4 training is a later slice."""
+    if x.requires_grad:
+        raise NotImplementedError("int4 training (a backward through the W4A16 product) is not "
+                                  "ported yet: it comes after int4 serving, in a later slice")
+    out_dtype = out_dtype or x.dtype
+    K, N = x.shape[-1], q4.shape[-1]
+    M = x.numel() // K if K else 0
+    if q4.ndim == 2 and M <= INT4_MAX_KERNEL_ROWS and _int4_supported(q4, s):
+        y = grouped_int4_matmul(x.reshape(M, K), q4, s, out_dtype)
+        return y.reshape(*x.shape[:-1], N)
+    INT4_DEQUANT_CALLS[(M, K, N)] += 1
+    half = q4.shape[-2]
+    gh = s.shape[-2] // 2
+    g = half // gh
+    lo, hi = _nibbles(q4)
+
+    def dq(q_half, s_half):
+        qg = q_half.to(torch.float32).reshape(gh, g, N)
+        return (qg * s_half[:, None, :]).reshape(half, N).to(x.dtype)
+
+    with record_function("mmu::int4_dequant_matmul"):
+        y = x[..., :half] @ dq(lo, s[:gh])
+        y = y + x[..., half:] @ dq(hi, s[gh:])
+    return y.to(out_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Kernels B1 (flash forward), B2/B3 (flash backward: dq, dk/dv), B4/B4q
 (flash decode, bf16 and int8 cache), B5/B5q (verify-chunk attention, bf16
-and int8 cache) and B6/B6q, B7/B7q (the same two on a paged cache) against
-their plain PyTorch versions on the card, in bf16.
+and int8 cache), B6/B6q, B7/B7q (the same two on a paged cache) and B8
+(grouped-int4 W4A16 matmul) against their plain PyTorch versions on the
+card, in bf16.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  On the card:
 
@@ -19,7 +20,11 @@ bf16 rounding of sums over up to 768 queries or keys, so gradients agree to
 int8 cache the kernels keep the scales outside the products while the plain
 version dequantizes the slab to bf16 first: the same 2e-2.  The paged
 kernels share the dense kernels' bodies and arithmetic order, so on the same
-logical columns they must equal the dense kernels bit for bit.
+logical columns they must equal the dense kernels bit for bit.  B8 and its
+plain version form the same exact products of bf16 activations and int4
+values; they differ in the f32 summation order and the final bf16 rounding
+of each output, one bf16 ulp being 2^-8 of it: max |err| <= 1e-2 of the
+largest plain output.
 """
 
 import numpy as np
@@ -34,6 +39,9 @@ from multimodal_unlearning_tpu_torch.ops.decode_attention import (
 from multimodal_unlearning_tpu_torch.ops.paged_attention import (
     paged_chunk_decode_attention, paged_decode_attention)
 from multimodal_unlearning_tpu_torch.models.llama import quantize_kv
+from multimodal_unlearning_tpu_torch.ops.int4_matmul import (
+    grouped_int4_matmul, int4_matmul_reference)
+from multimodal_unlearning_tpu_torch.utils import quantize as tq
 
 pytestmark = pytest.mark.cuda
 
@@ -303,3 +311,50 @@ def test_paged_chunk_matches_plain(dev, int8, P, B, Hq, Hkv, C, case):
     ref = paged_chunk_decode_attention(q, pool, layer, valid, offset, impl="plain")
     torch.testing.assert_close(o.float(), ref.float(), atol=O_TOL, rtol=0)
     assert torch.equal(o, chunk_decode_attention(q, dense, layer, valid, offset))  # B5/B5q
+
+
+def _int4_case(rng, M, K, N, G, dev):
+    x = _randn(rng, (M, K), dev)
+    w = torch.from_numpy(rng.standard_normal((K, N), dtype=np.float32)).to(dev) * K ** -0.5
+    return x, tq.quantize_leaf_int4(w, G)
+
+
+@pytest.mark.parametrize("M", [1, 8, 40, 512, 1024])
+@pytest.mark.parametrize(
+    "K,N,G",
+    [(4096, 4096, 128), (4096, 11008, 128), (11008, 4096, 128), (4096, 32000, 128),
+     (4096, 4096, 64), (4096, 4096, 32), (1024, 1000, 128)],
+    ids=["qkvo", "gate_up", "down", "lm_head", "g64", "g32", "ragged_n"],
+)
+def test_int4_matmul_matches_plain(dev, M, K, N, G):
+    rng = np.random.default_rng(M + N + G)
+    x, qt = _int4_case(rng, M, K, N, G, dev)
+    before = kernels.LAUNCHES["int4_matmul"]
+    y = grouped_int4_matmul(x, qt["q4"], qt["s"])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["int4_matmul"] == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == (M, N)
+    ref = int4_matmul_reference(x, qt["q4"], qt["s"], torch.float32)
+    assert (y.float() - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+    y32 = grouped_int4_matmul(x, qt["q4"], qt["s"], torch.float32)
+    assert (y32 - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def test_int4_matmul_dispatch_and_refusals(dev):
+    rng = np.random.default_rng(3)
+    x, qt = _int4_case(rng, 1100, 1024, 512, 128, dev)
+    before = kernels.LAUNCHES["int4_matmul"]
+    tq.INT4_DEQUANT_CALLS.clear()
+    tq.int4_matmul(x[:1024], qt["q4"], qt["s"])  # B8
+    y = tq.int4_matmul(x, qt["q4"], qt["s"])      # more than 1024 rows: the dequant path
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["int4_matmul"] == before + 1
+    assert dict(tq.INT4_DEQUANT_CALLS) == {(1100, 1024, 512): 1}
+    ref = int4_matmul_reference(x, qt["q4"], qt["s"], torch.float32)
+    assert (y.float() - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
+    with pytest.raises(TypeError, match="bf16"):
+        grouped_int4_matmul(x.float(), qt["q4"], qt["s"])
+    with pytest.raises(ValueError, match="contiguous"):
+        grouped_int4_matmul(x, qt["q4"].contiguous(), qt["s"])  # row-major packed bytes
+    assert grouped_int4_matmul(x[:0], qt["q4"], qt["s"]).shape == (0, 512)
+    assert kernels.LAUNCHES["int4_matmul"] == before + 1

@@ -77,8 +77,10 @@ def test_quantize_tree_matches_jax_and_inplace(weights):
                                       np.asarray(want["layers"]["q_proj"]["q"]))
         _close(t["embed"]["s"], want["embed"]["s"])
     assert tq.tree_nbytes(got) == jq.tree_nbytes(want)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tq.quantize_tree(ttree(), bits=4)
+    # bits=4 quantizes now (grouped int4, tests/test_torch_int4.py); other widths raise
+    assert tq.is_int4(tq.quantize_tree(ttree(), bits=4)["embed"])
+    with pytest.raises(ValueError, match="bits"):
+        tq.quantize_tree(ttree(), bits=3)
     with pytest.raises(TypeError):
         tq.quantize_tree_inplace({"a": [torch.zeros(2)]})
 

@@ -57,6 +57,7 @@ def test_port_imports_with_jax_blocked():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
     for name in ("serve.engine", "serve.http", "cli.serve_http", "ops.paged_attention",
+                 "ops.int4_matmul",
                  "train.trainer", "train.losses", "train.optim", "utils.quantize",
                  "utils.pytree", "models.lora", "cli.mm_forget", "bench"):
         assert f"multimodal_unlearning_tpu_torch.{name}" in mods
@@ -117,8 +118,7 @@ def test_ported_engine_options_construct(option):
     ServingEngine(model, cfg, "llava", device="cpu", **option)
 
 
-@pytest.mark.parametrize("override", ["quantize_base=int4", "model_path=/nonexistent",
-                                      "processor_path=/nonexistent"])
+@pytest.mark.parametrize("override", ["model_path=/nonexistent", "processor_path=/nonexistent"])
 def test_unported_serve_options_raise(override):
     from multimodal_unlearning_tpu_torch.cli import serve
 
@@ -126,6 +126,14 @@ def test_unported_serve_options_raise(override):
                              "quantize_base=false", override])
     with pytest.raises(NotImplementedError):
         serve.build_engine(cfg)
+
+
+@pytest.mark.parametrize("override", ["quantize_base=int4", "quantize_base=int4:g64"])
+def test_ported_serve_options_construct(override):
+    from multimodal_unlearning_tpu_torch.cli import serve
+
+    cfg = serve.load_config(["model_family=tiny-llava-test", "device=cpu", override])
+    serve.build_engine(cfg)
 
 
 @pytest.mark.parametrize("name", sorted(tconfig.PRESETS))
