@@ -14,6 +14,9 @@ per position and kv-head (position on the LAST axis).
   chunked-prefill / prefix-suffix passes).  On a CUDA tensor the kernel
   ``csrc/chunk_decode.cu`` reads the layer through strides (a slot's or a
   slab's columns may be a view): B5 on a bf16 cache, B5q on an int8 one.
+  For few rows (G*C <= 32, the verify round) it splits the columns across
+  blocks by ``chunk_split_plan`` and merges the splits in the same call;
+  ``chunk_attention_split_reference`` is that arithmetic, plainly.
 
 A paged cache (a ``"table"`` key: pools [L, Hkv, NP, P, D] and a block
 table, ``ops/paged_attention.py``) routes both functions to their paged
@@ -33,13 +36,21 @@ throws their output away, so no token depends on it.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from multimodal_unlearning_tpu_torch.ops import kernels
 from multimodal_unlearning_tpu_torch.ops.attention import IMPLS, NEG_INF, mha_reference
 
 __all__ = ["decode_attention", "chunk_decode_attention", "chunk_attention_reference",
-           "dequant_layer"]
+           "chunk_attention_split_reference", "chunk_split_plan", "dequant_layer"]
+
+CHUNK_TILE = 64         # cache columns per tile of csrc/chunk_decode.cu
+CHUNK_SPLIT_ROWS = 32   # rows G*C up to which the kernel splits the columns
+CHUNK_SPLIT_WARPS = 4   # f32 partials per split there (the kernel's warps)
+_SPLIT_BLOCKS_PER_SM = 4
+_SPLIT_MIN_TILES = 4    # fewest tiles a split should hold
 
 
 def _check_cache(cache):
@@ -186,6 +197,100 @@ def chunk_attention_reference(q, k, v, visible, sm_scale):
     return torch.einsum("bhcs,bhsd->bhcd", p, v).to(q.dtype)
 
 
+def chunk_split_plan(B: int, Hkv: int, M: int, Smax: int, sm_count: int) -> tuple[int, int]:
+    """(splits, per): how the chunk kernel cuts the columns [0, Smax) of each
+    (batch row, kv-head) into ``splits`` runs of ``per`` logical columns
+    each, ``per`` a multiple of the kernel's 64-column tile, the last run
+    possibly shorter, none empty.  ``M`` = G*C query rows per kv-head.
+
+    Long chunks (M > 32) take one split: their row tiles fill the card.
+    Short ones (the verify round) split the columns so that the B x Hkv x
+    splits blocks come to about four per SM, with at least four tiles per
+    split.  A pure function of its arguments: the dense and the paged call
+    of one shape get one plan, in logical columns."""
+    tiles = -(-Smax // CHUNK_TILE)
+    splits = 1
+    if M <= CHUNK_SPLIT_ROWS:
+        want = -(-_SPLIT_BLOCKS_PER_SM * sm_count // (B * Hkv))
+        splits = max(1, min(want, tiles // _SPLIT_MIN_TILES))
+    per_tiles = -(-tiles // splits)
+    return -(-tiles // per_tiles), per_tiles * CHUNK_TILE
+
+
+def chunk_attention_split_reference(q, k, v, visible, sm_scale, plan, k_scale=None,
+                                    v_scale=None):
+    """The split-and-combine arithmetic of the chunk kernel, plainly: each
+    run of ``plan = (splits, per)`` columns gives its partial (running max m,
+    sum l, unnormalised o) of the rows' visible columns, and the runs merge
+    by the log-sum-exp rule, o = sum_s e^(m_s - M) o_s / sum_s e^(m_s - M) l_s
+    over the runs that saw a column; a row that sees nothing gives 0.
+
+    q [B, Hq, C, D], k/v [B, Hkv, Sk, D], visible [B, C, Sk].  With
+    ``k_scale``/``v_scale`` [B, Hkv, Sk] (an int8 cache: k and v hold the
+    integers) the scales stay outside both products, as in the kernel:
+    s = (q.k_int) k_s, and p v_s multiplies v_int while l sums p.  In f32
+    (f64 stays f64); returns q's dtype.  Tests only."""
+    splits, per = plan
+    group = q.shape[1] // k.shape[1]
+    acc_t = torch.promote_types(q.dtype, torch.float32)
+
+    def heads(t):  # [B, Hkv, ...] -> [B, Hq, ...]
+        t = t.to(acc_t)
+        return t.repeat_interleave(group, dim=1) if group > 1 else t
+
+    kf, vf = heads(k), heads(v)
+    s = torch.einsum("bhcd,bhsd->bhcs", q.to(acc_t), kf)
+    if k_scale is not None:
+        s = s * heads(k_scale)[:, :, None, :]
+    s = s * sm_scale
+    vis = visible[:, None].expand_as(s)
+    neg = torch.full((), float("-inf"), dtype=acc_t, device=s.device)
+    parts = []
+    for sp in range(splits):
+        cols = slice(sp * per, min((sp + 1) * per, s.shape[-1]))
+        ss, vv = torch.where(vis[..., cols], s[..., cols], neg), vis[..., cols]
+        m = ss.amax(dim=-1, keepdim=True)
+        p = torch.where(vv, torch.exp(ss - torch.where(vv.any(-1, keepdim=True), m, 0.0)), 0.0)
+        l = p.sum(dim=-1, keepdim=True)
+        pv = p if v_scale is None else p * heads(v_scale)[:, :, None, cols]
+        parts.append((m, l, torch.einsum("bhcs,bhsd->bhcd", pv, vf[:, :, cols])))
+    top = torch.stack([torch.where(l > 0, m, neg) for m, l, _ in parts]).amax(dim=0)
+    top = torch.where(torch.isfinite(top), top, 0.0)
+    o = torch.zeros_like(parts[0][2])
+    l_sum = torch.zeros_like(parts[0][1])
+    for m, l, o_s in parts:
+        w = torch.where(l > 0, torch.exp(m - top), 0.0)
+        o = o + w * o_s
+        l_sum = l_sum + w * l
+    return torch.where(l_sum > 0, o / torch.where(l_sum > 0, l_sum, 1.0), 0.0).to(q.dtype)
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    idx = torch.device(device).index
+    return _sm_count(torch.cuda.current_device() if idx is None else idx)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_scratch(q, Hkv, Smax):
+    """The chunk kernel's plan for q [B, Hq, C, D] against Smax columns and,
+    where it merges partials, their f32 scratch (partials x B*Hq*C x (D+2)):
+    short chunks give one partial per split and warp, long ones one per
+    split."""
+    B, Hq, C, D = q.shape
+    M = (Hq // Hkv) * C
+    splits, per = chunk_split_plan(B, Hkv, M, Smax, sm_count(q.device))
+    parts = splits * CHUNK_SPLIT_WARPS if M <= CHUNK_SPLIT_ROWS else splits
+    ws = None
+    if parts > 1:
+        ws = torch.empty(parts * B * Hq * C * (D + 2), dtype=torch.float32, device=q.device)
+    return splits, per, ws
+
+
 def _cache_strides(t, D):
     """(sL, sB, sH, sS) of a cache view whose head dim is contiguous, with
     16-byte aligned rows (what the kernel's vector loads need)."""
@@ -220,6 +325,7 @@ def _chunk_cuda(q, cache, layer, kv_valid, offset, sm_scale):
     valid = kv_valid.to(torch.int32).contiguous()
     off = offset.to(torch.int32).contiguous()
     o = torch.empty_like(q)
+    splits, per, ws = split_scratch(q, Hkv, Smax)
     name = "chunk_decode" if k_s is None else "chunk_decode_q8"
     fn = kernels.launcher(name)
     with torch.cuda.device(q.device):
@@ -227,8 +333,8 @@ def _chunk_cuda(q, cache, layer, kv_valid, offset, sm_scale):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  None if k_s is None else k_s.data_ptr(),
                  None if v_s is None else v_s.data_ptr(), valid.data_ptr(), off.data_ptr(),
-                 o.data_ptr(), B, Hq, Hkv, C, Smax, D, int(layer), *strides, *tstrides,
-                 float(sm_scale), stream)
+                 o.data_ptr(), None if ws is None else ws.data_ptr(), B, Hq, Hkv, C, Smax, D,
+                 int(layer), per, splits, *strides, *tstrides, float(sm_scale), stream)
     kernels.check(name, err)
     kernels.LAUNCHES[name] += 1
     return o

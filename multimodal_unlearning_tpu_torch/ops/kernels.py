@@ -11,9 +11,15 @@ A library may export more than one kernel (``flash_decode.cu`` holds B4,
 its int8 variant B4q and their paged-cache instances B6 and B6q;
 ``chunk_decode.cu`` B5, B5q, B7 and B7q; ``int4_matmul.cu`` B8 alone):
 ``SOURCES`` names the libraries, ``_SIGNATURES`` each kernel's library,
-symbol and argtypes.
+symbol and argtypes.  The headers ``common.cuh`` and ``mma.cuh`` (cp.async,
+ldmatrix and mma.sync helpers) are included by the sources and hashed into
+every library's name.
 ``LAUNCHES`` counts the launches of each kernel; its wrapper adds one where
-it launches, and nowhere else.
+it launches, and nowhere else.  One C call may run more than one device
+kernel: ``chunk_decode.cu``'s launchers run, when the columns are split
+across blocks, a second kernel that merges the splits' partials, inside the
+same call; B8's launcher likewise sums its split-K partials.  Each such call
+counts once.
 """
 
 from __future__ import annotations
@@ -43,8 +49,8 @@ NVCC_FLAGS = [
 ]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_CHUNK_ARGS = [_P] * 8 + [_I] * 7 + [_LL] * 7 + [_F, _P]
-_PAGED_CHUNK_ARGS = [_P] * 9 + [_I] * 9 + [_F, _P]
+_CHUNK_ARGS = [_P] * 9 + [_I] * 9 + [_LL] * 7 + [_F, _P]
+_PAGED_CHUNK_ARGS = [_P] * 10 + [_I] * 11 + [_F, _P]
 # kernel -> (library, launcher symbol, its argtypes) (csrc/*.cu, extern "C")
 _SIGNATURES = {
     "flash_fwd": ("flash_fwd", "mmu_flash_fwd_bf16",

@@ -27,11 +27,11 @@ int8 pools dequantized exactly), then the dense plain attention.  Pages
 past a row's extent and all-invalid gap pages contribute nothing on every
 route; a row that sees no column gives 0.
 
-On an NVIDIA H100 80GB HBM3 at its 700 W power limit (``chip_smoke.py``):
-B6 takes 0.032-0.053 ms on 8 rows with 1,909 valid columns of a 32-head
-pool (bound 0.0094 ms, bytes; B4 on the same columns 0.028 ms), B7 0.39 ms
-at the speculative verify round (B 8, C 5; bound 0.053 ms), each within a
-few percent of the dense kernel and equal to it bit for bit; the gather +
+On an NVIDIA H100 80GB HBM3 at its 700 W power limit (``chip_smoke.py``,
+device time): B6 takes 0.022 ms on 8 rows with 1,909 valid columns of a
+32-head pool (bound 0.0094 ms, bytes; B4 on the same columns the same), B7
+0.086 ms at the speculative verify round (B 8, C 5; bound 0.053 ms), each
+within ~10% of the dense kernel and equal to it bit for bit; the gather +
 plain attention takes 2-3 ms.
 """
 
@@ -42,7 +42,8 @@ import torch
 from multimodal_unlearning_tpu_torch.ops import kernels
 from multimodal_unlearning_tpu_torch.ops.attention import mha_reference
 from multimodal_unlearning_tpu_torch.ops.decode_attention import (
-    _check_cache, _launch_args, _route, chunk_attention_reference, chunk_visibility)
+    _check_cache, _launch_args, _route, chunk_attention_reference, chunk_visibility,
+    split_scratch)
 
 __all__ = ["is_paged", "gather_layer_kv", "paged_decode_attention",
            "paged_chunk_decode_attention"]
@@ -159,6 +160,8 @@ def _chunk_cuda(q, cache, layer, kv_valid, offset, sm_scale):
     q = q.contiguous()
     off = offset.to(torch.int32).contiguous()
     o = torch.empty_like(q)
+    # the dense call's plan over the same logical columns
+    splits, per, ws = split_scratch(q, Hkv, table.shape[1] * P)
     name = "paged_chunk" if k_s is None else "paged_chunk_q8"
     fn = kernels.launcher(name)
     with torch.cuda.device(q.device):
@@ -166,8 +169,9 @@ def _chunk_cuda(q, cache, layer, kv_valid, offset, sm_scale):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  None if k_s is None else k_s.data_ptr(),
                  None if v_s is None else v_s.data_ptr(), valid.data_ptr(), off.data_ptr(),
-                 table.data_ptr(), o.data_ptr(), B, Hq, Hkv, C, NP, P, table.shape[1], D,
-                 int(layer), float(sm_scale), stream)
+                 table.data_ptr(), o.data_ptr(), None if ws is None else ws.data_ptr(), B, Hq,
+                 Hkv, C, NP, P, table.shape[1], D, int(layer), per, splits, float(sm_scale),
+                 stream)
     kernels.check(name, err)
     kernels.LAUNCHES[name] += 1
     return o

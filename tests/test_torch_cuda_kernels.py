@@ -68,8 +68,14 @@ def _randn(rng, shape, dev):
         (2, 32, 8, 200, 200, 128, True, 0, 37),      # GQA
         (2, 8, 8, 70, 300, 128, True, 230, 0),       # q_offset > 0
         (3, 4, 2, 129, 129, 64, False, 0, 129),      # a fully padded batch row
+        (2, 4, 4, 37, 93, 128, False, 0, 5),         # Sq, Sk multiples of neither 16 nor 64
+        (1, 8, 8, 100, 100, 64, True, 0, 3),         # the same, causal, D 64
+        (1, 4, 2, 40, 200, 128, True, 130, 0),       # the causal range ends inside a tile
+        (2, 4, 4, 129, 129, 128, True, 0, 129),      # dead rows at D 128
+        (1, 8, 8, 150, 150, 128, True, 0, 0),        # an odd count of paired causal row blocks
     ],
-    ids=["vit", "prefill", "gqa", "q_offset", "dead_row"],
+    ids=["vit", "prefill", "gqa", "q_offset", "dead_row", "ragged", "ragged_causal_d64",
+         "causal_mid_tile", "dead_row_d128", "causal_odd_blocks"],
 )
 def test_flash_fwd_matches_plain(dev, B, Hq, Hkv, Sq, Sk, D, causal, q_offset, pad):
     rng = np.random.default_rng(0)
@@ -146,8 +152,15 @@ def test_flash_decode_q8_matches_plain(dev, G, Smax):
         (1, 32, 32, 512, 2048, 1536),  # a chunked-prefill pass over a slab view
         (4, 32, 8, 5, 2048, 0),      # GQA
         (3, 8, 8, 70, 1000, 0),      # C not a multiple of the tile, Smax of neither 64 nor 128
+        (4, 32, 32, 1, 2048, 0),     # C 1: one live row per tile, split columns
+        (2, 8, 8, 16, 1000, 0),      # G*C 16: one m16 row tile
+        (2, 8, 8, 17, 1000, 0),      # G*C 17: two row tiles
+        (2, 8, 2, 10, 2048, 0),      # GQA, G*C 40: past two row tiles, one 64-row block
+        (2, 8, 2, 17, 1000, 0),      # GQA, G*C 68: past 64 rows, two blocks
+        (8, 32, 32, 5, 128, 0),      # Smax of two tiles: one split
     ],
-    ids=["verify", "prefill_chunk", "gqa", "ragged"],
+    ids=["verify", "prefill_chunk", "gqa", "ragged", "c1", "c16", "c17", "gqa_m40", "gqa_m68",
+         "one_split"],
 )
 def test_chunk_decode_matches_plain(dev, int8, B, Hq, Hkv, C, Smax, slab):
     rng = np.random.default_rng(5)
@@ -283,8 +296,9 @@ def test_paged_decode_matches_plain(dev, int8, P, G):
         (4, 32, 8, 5, "gqa"),
         (1, 32, 32, 512, "prefill_chunk"),  # 512 queries behind 1,024 prefix columns
         (2, 8, 8, 3, "fresh_page"),        # the chunk starts a page past every valid one
+        (4, 32, 32, 1, "verify_c1"),       # one query per row, split columns
     ],
-    ids=["verify", "gqa", "prefill_chunk", "fresh_page"],
+    ids=["verify", "gqa", "prefill_chunk", "fresh_page", "verify_c1"],
 )
 def test_paged_chunk_matches_plain(dev, int8, P, B, Hq, Hkv, C, case):
     rng = np.random.default_rng(7)
@@ -311,6 +325,29 @@ def test_paged_chunk_matches_plain(dev, int8, P, B, Hq, Hkv, C, case):
     ref = paged_chunk_decode_attention(q, pool, layer, valid, offset, impl="plain")
     torch.testing.assert_close(o.float(), ref.float(), atol=O_TOL, rtol=0)
     assert torch.equal(o, chunk_decode_attention(q, dense, layer, valid, offset))  # B5/B5q
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_chunk_decode_split_edges(dev, int8):
+    """The split regime's edges: a row whose prefix ends in the first split
+    (every later split sees no column), a row that sees nothing at all
+    (offset at Smax, nothing valid: 0), a row whose chunk sits in the last
+    split behind a gap; the split plan has many splits here."""
+    from multimodal_unlearning_tpu_torch.ops.decode_attention import chunk_split_plan, sm_count
+    rng = np.random.default_rng(8)
+    L, B, Hkv, G, C, Smax, D, layer = 2, 3, 4, 2, 5, 2048, 128, 1
+    assert chunk_split_plan(B, Hkv, G * C, Smax, sm_count(dev))[0] > 4
+    cache = _cache(rng, (L, B, Hkv, Smax, D), dev, int8)
+    q = _randn(rng, (B, Hkv * G, C, D), dev)
+    valid = torch.zeros((B, Smax), dtype=torch.int32, device=dev)
+    valid[0, 3:40] = 1
+    valid[2, :30] = 1
+    offset = torch.tensor([40, Smax, Smax - C], dtype=torch.int32, device=dev)
+    o = chunk_decode_attention(q, cache, layer, valid, offset)
+    torch.cuda.synchronize()
+    ref = chunk_decode_attention(q, cache, layer, valid, offset, impl="plain")
+    torch.testing.assert_close(o.float(), ref.float(), atol=O_TOL, rtol=0)
+    assert torch.all(o[1] == 0)
 
 
 def _int4_case(rng, M, K, N, G, dev):
