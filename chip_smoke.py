@@ -770,6 +770,7 @@ def check_bwd(dev, gen):
         ("vit", 1, 16, 16, 577, 577, 64, False, 0, 0, False),
         ("dead_rows", 2, 8, 8, 200, 200, 128, True, 0, 0, True),
     ]
+    # the forget path's own batch is unpadded (bench.synthetic_batch), as "step"
     worst = {"dq": 0.0, "dkv": 0.0}
     record = {}
     for name, B, Hq, Hkv, Sq, Sk, D, causal, q_off, pad, dead_row in cases:
@@ -822,6 +823,11 @@ def check_bwd(dev, gen):
         dkv_bytes = 2 * (q.numel() + do.numel() + 2 * (k.numel() + v.numel())) + small
         dq_b = bound(dq_bytes, 6.0 * D * pairs)
         dkv_b = bound(dkv_bytes, 8.0 * D * pairs)
+        # both bounds, the larger of which is the kernel's bound
+        dq_ops_ms = 6.0 * D * pairs / PEAK_BF16_FLOPS * 1e3
+        dkv_ops_ms = 8.0 * D * pairs / PEAK_BF16_FLOPS * 1e3
+        dq_bytes_ms = dq_bytes / PEAK_HBM_BYTES * 1e3
+        dkv_bytes_ms = dkv_bytes / PEAK_HBM_BYTES * 1e3
         # device time on copies of q, k, v, do cycled past the L2; the
         # CUDA-event time of back-to-back calls on one copy beside it
         copies = [(q, k, v, do)] + [tuple(t.clone() for t in (q, k, v, do))
@@ -854,11 +860,13 @@ def check_bwd(dev, gen):
               f"q_offset={q_off} pad={pad} dead_row={dead_row}: max|err| dq "
               f"{errs['dq']:.3e} dk {errs['dk']:.3e} dv {errs['dv']:.3e} | device time: B2 kernel "
               f"{dq_ms:.4f} ms (CUDA events {dq_event:.4f} ms), plain {dq_plain:.4f} ms, bound "
-              f"{dq_b[0]:.4f} ms ({dq_b[1]}; "
-              f"{6.0 * D * pairs / 1e9:.3f} GFLOP, {dq_bytes / 1e6:.2f} MB) | B3 kernel "
+              f"{dq_b[0]:.4f} ms ({dq_b[1]}; bytes {dq_bytes_ms:.4f} ms for "
+              f"{dq_bytes / 1e6:.2f} MB, operations {dq_ops_ms:.4f} ms for "
+              f"{6.0 * D * pairs / 1e9:.3f} GFLOP) | B3 kernel "
               f"{dkv_ms:.4f} ms (CUDA events {dkv_event:.4f} ms), plain {dkv_plain:.4f} ms, "
-              f"bound {dkv_b[0]:.4f} ms "
-              f"({dkv_b[1]}; {8.0 * D * pairs / 1e9:.3f} GFLOP, {dkv_bytes / 1e6:.2f} MB) | "
+              f"bound {dkv_b[0]:.4f} ms ({dkv_b[1]}; bytes {dkv_bytes_ms:.4f} ms for "
+              f"{dkv_bytes / 1e6:.2f} MB, operations {dkv_ops_ms:.4f} ms for "
+              f"{8.0 * D * pairs / 1e9:.3f} GFLOP) | "
               f"sdpa backward (dq, dk and dv in one call) {lib_ms:.4f} ms", flush=True)
         if name == "step":
             record["dq"] = dict(ms=dq_ms, plain_ms=dq_plain, library_ms=lib_ms,

@@ -1,7 +1,8 @@
 // Tensor-core and asynchronous-copy helpers shared by the port's kernels
-// (flash_fwd.cu, chunk_decode.cu, int4_matmul.cu): cp.async copies into
-// shared memory with zero-fill, ldmatrix fragment loads and the
-// mma.sync.m16n8k16 bf16 product with f32 accumulation.
+// (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu, chunk_decode.cu,
+// int4_matmul.cu): cp.async copies into shared memory with zero-fill,
+// ldmatrix fragment loads and the mma.sync.m16n8k16 bf16 product with f32
+// accumulation.
 //
 // Fragment layout of mma.m16n8k16 (lane = 4 * gid + tig):
 //   A (16x16, row-major) a[0]: (row gid,   cols 2tig, 2tig+1)

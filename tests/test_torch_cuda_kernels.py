@@ -196,8 +196,14 @@ def test_chunk_decode_matches_plain(dev, int8, B, Hq, Hkv, C, Smax, slab):
         (2, 8, 8, 70, 300, 128, True, 230, 0),       # q_offset > 0, Sk > Sq
         (1, 16, 16, 577, 577, 64, False, 0, 0),      # ViT shape, not causal
         (3, 4, 2, 129, 129, 64, True, 0, 129),       # a fully padded batch row: dead rows
+        (1, 8, 8, 320, 320, 128, True, 0, 0),        # 5 row and key blocks: a middle pair
+        (2, 8, 8, 129, 129, 128, True, 0, 0),        # lengths past a multiple of the tiles
+        (2, 4, 4, 70, 300, 64, True, 230, 3),        # the same at D 64, with padding
+        (2, 16, 4, 333, 333, 64, True, 0, 61),       # GQA group 4, odd blocks, left padding
+        (2, 8, 8, 300, 300, 128, True, 0, 128),      # key blocks 0 and 1 all padding
     ],
-    ids=["step", "left_pad", "gqa", "q_offset", "vit", "dead_row"],
+    ids=["step", "left_pad", "gqa", "q_offset", "vit", "dead_row", "odd_blocks", "len_129",
+         "ragged_d64", "gqa4_pad", "pad_block"],
 )
 def test_flash_bwd_matches_plain(dev, B, Hq, Hkv, Sq, Sk, D, causal, q_offset, pad):
     rng = np.random.default_rng(2)
@@ -221,6 +227,26 @@ def test_flash_bwd_matches_plain(dev, B, Hq, Hkv, Sq, Sk, D, causal, q_offset, p
         torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=2 ** -7, msg=lambda m: f"{name}: {m}")
     dead = (lse <= -1e29).expand_as(got[0])
     assert torch.all(got[0].float()[dead] == 0)
+    # a key the mask refuses gets exactly 0
+    for g in got[1:]:
+        assert torch.all(g[0, :, :pad] == 0)
+
+
+def test_flash_bwd_deterministic(dev):
+    """B2 and B3 add nothing atomically: two calls give the same bits."""
+    rng = np.random.default_rng(4)
+    B, Hq, Hkv, S, D = 2, 32, 8, 512, 128
+    q = _randn(rng, (B, Hq, S, D), dev)
+    k, v = (_randn(rng, (B, Hkv, S, D), dev) for _ in range(2))
+    do = _randn(rng, (B, S, Hq, D), dev).transpose(1, 2)
+    mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+    mask[1, :37] = 0
+    o, lse = flash_attention_lse(q, k, v, mask, causal=True)
+    first = flash_attention_bwd(q, k, v, mask, do, o, lse, causal=True)
+    second = flash_attention_bwd(q, k, v, mask, do, o, lse, causal=True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 def test_flash_attention_autograd_runs_the_kernels(dev):
