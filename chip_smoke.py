@@ -37,6 +37,10 @@ a result line.)
    yardstick only), all by device time from the profiler on inputs cycled
    past the L2 (copies, or the cache's layers), with the CUDA-event time of
    back-to-back calls on one input (the older method) beside the kernel's.
+   B8 also: the bound by bytes and by operations at every case, the port's
+   own route above 1024 rows (per-weight dequant + ``torch.matmul``,
+   dequant included) at M 40, 512 and 1024, and its host time per call at
+   M 8.  The one-token decode kernels print their split plan.
 3. Serves LLaVA-1.5-7B at full width (random weights from a seed, bf16)
    through ``cli.serve.build_engine`` + ``ServingEngine``: ten requests of
    mixed prompt lengths, two with synthetic 336x336 pixels, 32..64 new
@@ -59,8 +63,9 @@ a result line.)
    3f. (run before 3c, on a second init of the bf16 model from the same
    seed, the bf16 model parked on the host) ``quantize_base=int4``: grouped
    int4 (W4A16) through kernel B8, (i) with the bf16 cache, B8 launches
-   asserted and the dequant path taken only for the 1,280-row prompt bucket
-   (rows above 1024), its streams held against the same model on B8's plain
+   asserted (one per product) and the dequant path taken only for the
+   1,280-row prompt bucket (rows above 1024), its streams held against the
+   same model on B8's plain
    version by the first-difference rule, prefill logits against the bf16
    run printed, a decode window under the profiler with B8's share; (ii)
    with speculation (K 4) and chunked prefill (512): B8 runs at M = 40 and
@@ -113,6 +118,7 @@ from multimodal_unlearning_tpu_torch.data import preprocess_image
 from multimodal_unlearning_tpu_torch.ops import kernels
 from multimodal_unlearning_tpu_torch.ops.attention import (
     flash_attention_lse, flash_bwd_dkv, flash_bwd_dq)
+from multimodal_unlearning_tpu_torch.ops import decode_attention as dec_ops
 from multimodal_unlearning_tpu_torch.ops import int4_matmul as b8
 from multimodal_unlearning_tpu_torch.ops.decode_attention import (
     chunk_decode_attention, decode_attention)
@@ -273,7 +279,41 @@ def check_b1(dev, gen):
     return worst, record
 
 
+def decode_plan(B, Hkv, G, Smax):
+    """The one-token kernel's column runs at this shape, as text (a tree
+    without the split plan runs one block per row)."""
+    plan = getattr(dec_ops, "decode_split_plan", None)
+    if plan is None:
+        return "one block per (row, kv-head)"
+    splits, per = plan(B, Hkv, G, Smax, dec_ops.sm_count(torch.device("cuda")))
+    return f"{splits} run(s) of {per} columns per (row, kv-head)"
+
+
+def narrowed(valid, extent):
+    """The mask as the serving engine hands it to attention: narrowed to its
+    first ``extent`` columns (no row holds a valid column past them), on a
+    tree whose decode kernels take a narrowed mask; the full mask otherwise."""
+    return valid[:, :extent] if hasattr(dec_ops, "valid_columns") else valid
+
+
+def short_rows(B, S, rng, idle=5):
+    """The engine's decode rows in its profiled windows: 100-180 valid
+    columns (a left-padded 128-column prompt bucket plus decoded columns),
+    row ``idle`` all invalid; the engine's extent for them is 256 columns."""
+    valid = torch.zeros((B, S), dtype=torch.int32)
+    for b in range(B):
+        if b != idle:
+            plen = int(rng.integers(60, 121))
+            valid[b, 128 - plen:128 + int(rng.integers(40, 61))] = 1
+    return valid, 256
+
+
 def check_b4(dev, gen):
+    """B4 at the stacked [4, 8, 32, 2048, 128] cache, layer 3, in two cases:
+    ragged rows of 0-1,470 valid columns (the mask at full width), and the
+    engine's short decode rows (100-180 valid) with the mask narrowed to the
+    engine's extent.  Returns (max error, numbers of the ragged case with the
+    short case's under "short_rows")."""
     L, B, Hq, Hkv, Smax, D, layer = 4, 8, 32, 32, 2048, 128, 3
     cache = {n: randn(gen, (L, B, Hkv, Smax, D), dev) for n in ("k", "v")}
     q = randn(gen, (B, Hq, 1, D), dev)
@@ -287,34 +327,48 @@ def check_b4(dev, gen):
         bucket = int(rng.integers(1, 12)) * 128
         plen = int(rng.integers(1, bucket + 1))
         valid[b, bucket - plen:bucket + int(rng.integers(0, 64))] = 1
-    o = decode_attention(q, cache, layer, valid)
-    torch.cuda.synchronize()
-    ref = decode_attention(q, cache, layer, valid, impl="plain")
-    err = (o.float() - ref.float()).abs().max().item()
-    if err > KERNEL_TOL or not torch.all(o[5] == 0):
-        raise AssertionError(f"B4: max |err| {err} (tol {KERNEL_TOL}) or the all-invalid "
-                             "row not 0")
-    n_valid = int(valid.sum().item())
-    # the function needs the valid K and V columns of layer 3, q, o, valid
-    nbytes = 2 * n_valid * Hkv * D * 2 + 2 * (q.numel() + o.numel()) + 4 * valid.numel()
-    flops = 4.0 * D * n_valid * Hq
-    b_ms, b_by = bound(nbytes, flops)
-    full_ms, _ = bound(2 * 2 * B * Hkv * Smax * D, 0.0)
-    # device time cycled over the cache's layers (each read cold), CUDA events beside it
-    ms = device_ms_cycle([lambda l=l: decode_attention(q, cache, l, valid) for l in range(L)])
-    event_ms = cuda_ms(lambda: decode_attention(q, cache, layer, valid))
-    plain_ms = device_ms_cycle([lambda: decode_attention(q, cache, layer, valid, impl="plain")],
-                               iters=4)
-    bool_mask = valid.bool()[:, None, None, :]
-    lib_ms = device_ms_cycle([lambda l=l: F.scaled_dot_product_attention(
-        q, cache["k"][l], cache["v"][l], attn_mask=bool_mask) for l in range(L)])
-    print(f"B4 cache [{L},{B},{Hkv},{Smax},{D}] layer {layer}, {n_valid} valid columns of "
-          f"{B * Smax}: max|err| {err:.3e} | device time: kernel {ms:.4f} ms (CUDA events "
-          f"{event_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-          f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.2f} MB; "
-          f"streaming all {B * Smax} columns would be {full_ms:.4f} ms)", flush=True)
-    return err, dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                     event_ms=event_ms)
+    short, extent = short_rows(B, Smax, rng)
+    cases = (("ragged", valid), ("short rows", narrowed(short.to(dev), extent)))
+    worst, record = 0.0, {}
+    for label, mask in cases:
+        o = decode_attention(q, cache, layer, mask)
+        torch.cuda.synchronize()
+        ref = decode_attention(q, cache, layer, mask, impl="plain")
+        err = (o.float() - ref.float()).abs().max().item()
+        if err > KERNEL_TOL or not torch.all(o[5] == 0):
+            raise AssertionError(f"B4 {label}: max |err| {err} (tol {KERNEL_TOL}) or the "
+                                 "all-invalid row not 0")
+        worst = max(worst, err)
+        n_valid = int(mask.sum().item())
+        # the function needs the valid K and V columns of layer 3, q, o, the mask
+        nbytes = 2 * n_valid * Hkv * D * 2 + 2 * (q.numel() + o.numel()) + 4 * mask.numel()
+        flops = 4.0 * D * n_valid * Hq
+        b_ms, b_by = bound(nbytes, flops)
+        full_ms, _ = bound(2 * 2 * B * Hkv * Smax * D, 0.0)
+        # device time cycled over the cache's layers (each read cold), CUDA events beside it
+        ms = device_ms_cycle([lambda l=l: decode_attention(q, cache, l, mask) for l in range(L)])
+        event_ms = cuda_ms(lambda: decode_attention(q, cache, layer, mask))
+        plain_ms = device_ms_cycle([lambda: decode_attention(q, cache, layer, mask,
+                                                             impl="plain")], iters=4)
+        S = mask.shape[1]
+        bool_mask = mask.bool()[:, None, None, :]
+        lib_ms = device_ms_cycle([lambda l=l: F.scaled_dot_product_attention(
+            q, cache["k"][l][:, :, :S], cache["v"][l][:, :, :S], attn_mask=bool_mask)
+            for l in range(L)])
+        print(f"B4 {label}: cache [{L},{B},{Hkv},{Smax},{D}] layer {layer}, mask of {S} "
+              f"columns, {n_valid} valid columns of {B * Smax}, "
+              f"{decode_plan(B, Hkv, Hq // Hkv, S)}: max|err| {err:.3e} | "
+              f"device time: kernel {ms:.4f} ms (CUDA events "
+              f"{event_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+              f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.2f} MB; "
+              f"streaming all {B * Smax} columns would be {full_ms:.4f} ms)", flush=True)
+        numbers = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                       bound_by=b_by, event_ms=event_ms)
+        if label == "ragged":
+            record.update(numbers)
+        else:
+            record["short_rows"] = dict(numbers, mask_columns=S, valid_columns=n_valid)
+    return worst, record
 
 
 def _int8_cache(shape, dev, gen):
@@ -365,13 +419,34 @@ def check_b4q(dev, gen):
     lib_ms = device_ms_cycle([lambda c=c: F.scaled_dot_product_attention(
         q, *c, attn_mask=bool_mask) for c in slabs])
     print(f"B4q int8 cache [{L},{B},{Hkv},{Smax},{D}] layer {layer}, {n_valid} valid columns of "
-          f"{B * Smax}: max|err| {err:.3e} | device time: kernel {ms:.4f} ms (CUDA events "
+          f"{B * Smax}, {decode_plan(B, Hkv, Hq // Hkv, Smax)}: max|err| {err:.3e} | "
+          f"device time: kernel {ms:.4f} ms (CUDA events "
           f"{event_ms:.4f} ms), plain {plain_ms:.4f} ms, "
           f"sdpa on a bf16 cache of the same shape {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
           f"({b_by}; {nbytes / 1e6:.2f} MB)", flush=True)
     del slabs
-    return err, dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                     event_ms=event_ms)
+    record = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                  event_ms=event_ms)
+    # the engine's short decode rows, the mask narrowed to its extent
+    short, extent = short_rows(B, Smax, rng, idle=2)
+    mask = narrowed(short.to(dev), extent)
+    o = decode_attention(q, cache, layer, mask)
+    torch.cuda.synchronize()
+    s_err = (o.float() - decode_attention(q, cache, layer, mask, impl="plain").float()
+             ).abs().max().item()
+    if s_err > KERNEL_TOL or not torch.all(o[2] == 0):
+        raise AssertionError(f"B4q short rows: max |err| {s_err} (tol {KERNEL_TOL}) or the "
+                             "all-invalid row not 0")
+    n_s = int(mask.sum().item())
+    s_bound, _ = bound(n_s * Hkv * (2 * D + 8) + 2 * (q.numel() + o.numel()) + 4 * mask.numel(),
+                       4.0 * D * n_s * Hq)
+    s_ms = device_ms_cycle([lambda l=l: decode_attention(q, cache, l, mask) for l in cold])
+    print(f"B4q short rows: mask of {mask.shape[1]} columns, {n_s} valid, "
+          f"{decode_plan(B, Hkv, Hq // Hkv, mask.shape[1])}: max|err| {s_err:.3e} | device "
+          f"time: kernel {s_ms:.4f} ms, bound {s_bound:.4f} ms", flush=True)
+    record["short_rows"] = dict(ms=s_ms, bound_ms=s_bound, mask_columns=mask.shape[1],
+                                valid_columns=n_s, max_abs_err=s_err)
+    return max(err, s_err), record
 
 
 def check_b5(dev, gen):
@@ -476,8 +551,9 @@ def check_b6(dev, gen):
     columns; ragged rows as the engine leaves them, an all-invalid gap page
     after a 100-column prefix in row 1, an idle row 5.  The pool holds a
     dense cache's columns: B6/B6q must give B4/B4q's output bit for bit on
-    it, and B4/B4q's time on it stands beside theirs.  Returns per kernel
-    (max error, {page size: numbers})."""
+    it, and B4/B4q's time on it stands beside theirs.  At pages of 128 also
+    the engine's short decode rows with the mask narrowed to its extent.
+    Returns per kernel (max error, {page size: numbers})."""
     L, B, Hq, Hkv, S, D, layer = 4, 8, 32, 32, 2048, 128, 3
     rng = np.random.default_rng(3)
     valid = torch.zeros((B, S), dtype=torch.int32, device=dev)
@@ -491,6 +567,7 @@ def check_b6(dev, gen):
         bucket = int(rng.integers(1, 12)) * 128
         plen = int(rng.integers(1, bucket + 1))
         valid[b, bucket - plen:bucket + int(rng.integers(0, 64))] = 1
+    short, extent = short_rows(B, S, np.random.default_rng(4))
     q = randn(gen, (B, Hq, 1, D), dev)
     n_valid = int(valid.sum().item())
     worst = {"paged_decode": 0.0, "paged_decode_q8": 0.0}
@@ -527,7 +604,8 @@ def check_b6(dev, gen):
                 q, *c, attn_mask=valid.bool()[:, None, None, :]) for c in views])
             label = "B6q" if int8 else "B6"
             print(f"{label} pool [{L},{Hkv},{pool['k'].shape[2]},{P},{D}]{' int8' if int8 else ''} "
-                  f"layer {layer}, {B} rows of {S} logical columns, {n_valid} valid: max|err| "
+                  f"layer {layer}, {B} rows of {S} logical columns, {n_valid} valid, "
+                  f"{decode_plan(B, Hkv, Hq // Hkv, S)}: max|err| "
                   f"{err:.3e}, equal to the dense kernel's | device time: kernel {ms:.4f} ms "
                   f"(CUDA events {event_ms:.4f} ms; the dense kernel on the same columns "
                   f"{dense_ms:.4f} ms), plain (gather + attention) {plain_ms:.4f} ms, "
@@ -535,6 +613,31 @@ def check_b6(dev, gen):
                   f"{nbytes / 1e6:.2f} MB)", flush=True)
             record[kname][P] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                                     bound_by=b_by, dense_kernel_ms=dense_ms, event_ms=event_ms)
+            if P == 128:  # the engine's short decode rows, the mask narrowed to its extent
+                mask = narrowed(short.to(dev), extent)
+                o = paged_decode_attention(q, pool, layer, mask)
+                torch.cuda.synchronize()
+                s_err = (o.float() - paged_decode_attention(q, pool, layer, mask, impl="plain")
+                         .float()).abs().max().item()
+                if s_err > KERNEL_TOL or not torch.all(o[5] == 0):
+                    raise AssertionError(f"{kname} short rows: max |err| {s_err} (tol "
+                                         f"{KERNEL_TOL}) or the idle row not 0")
+                if not torch.equal(o, decode_attention(q, dense, layer, mask)):
+                    raise AssertionError(f"{kname} short rows: not B4's output bit for bit")
+                worst[kname] = max(worst[kname], s_err)
+                n_s = int(mask.sum().item())
+                s_bound, _ = bound(n_s * Hkv * per_col + 2 * (q.numel() + o.numel())
+                                   + 4 * (mask.numel() + pool["table"].numel()),
+                                   4.0 * D * n_s * Hq)
+                s_ms = device_ms_cycle([lambda l=l: paged_decode_attention(q, pool, l, mask)
+                                        for l in range(L)])
+                print(f"{label} P{P} short rows: mask of {mask.shape[1]} columns, {n_s} valid, "
+                      f"{decode_plan(B, Hkv, Hq // Hkv, mask.shape[1])}: max|err| {s_err:.3e}, "
+                      f"equal to the dense kernel's | device time: kernel {s_ms:.4f} ms, bound "
+                      f"{s_bound:.4f} ms", flush=True)
+                record[kname][P]["short_rows"] = dict(ms=s_ms, bound_ms=s_bound,
+                                                      mask_columns=mask.shape[1],
+                                                      valid_columns=n_s, max_abs_err=s_err)
             del dense, pool, o, ref, views
     return worst, record
 
@@ -630,8 +733,9 @@ def device_ms_cycle(fns, iters=24) -> float:
     device waits for the host to launch the next call, which for calls of
     ~10-20 us are most of the window.  The profiler now and then drops
     device events from a window (a window of zero, or of half the time, was
-    seen), so two windows are taken and the larger kept; a window with no
-    device kernel at all is taken again (twice at most), then raises."""
+    seen; once three windows of zero in a row), so two windows are taken and
+    the larger kept; a window with no device kernel at all is taken again
+    (six times at most), then raises."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     calls = itertools.cycle(fns)
@@ -639,7 +743,7 @@ def device_ms_cycle(fns, iters=24) -> float:
         next(calls)()
     torch.cuda.synchronize()
     totals = []
-    for _ in range(4):
+    for _ in range(8):
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 next(calls)()
@@ -651,7 +755,7 @@ def device_ms_cycle(fns, iters=24) -> float:
             totals.append(total)
         if len(totals) == 2:
             return max(totals) / 1e3 / iters
-    raise RuntimeError("the profiler recorded no device time in two of four windows")
+    raise RuntimeError("the profiler recorded no device time in seven of eight windows")
 
 
 def _int4pack_yardstick(q4, s, G):
@@ -680,6 +784,44 @@ B8_SHAPES = [("qkvo", 4096, 4096, 128), ("gate_up", 4096, 11008, 128),
 B8_ROWS = (8, 40, 512, 1024)
 
 
+def _dequant_yardstick():
+    """The port's own route above ``INT4_MAX_KERNEL_ROWS``: each half of the
+    weight dequantized to bf16, then ``torch.matmul`` (dequant included);
+    None on a tree that does not have it as a function."""
+    return getattr(quantize, "int4_dequant_matmul", None)
+
+
+def b8_host_us(dev, gen, calls=1000, layers=4):
+    """Host microseconds per ``grouped_int4_matmul`` call at M = 8 on the
+    q/k/v/o product, called as the engine calls it: each call indexes one
+    layer of a stacked ``QTensor4`` (fresh ``q4``/``s`` views every call).  A
+    host timer around ``calls`` back-to-back calls, read before the device is
+    waited for (the kernels, ~5-12 us each, keep up)."""
+    w = torch.randn((layers, 4096, 4096), generator=gen, device=dev) * 4096 ** -0.5
+    leaf = quantize.quantize_leaf_int4(w, 128)
+    del w
+    stacked = quantize.QTensor4(leaf["q4"], leaf["s"])
+    x = randn(gen, (8, 4096), dev)
+
+    def call(i):
+        lw = stacked[i % layers]
+        return b8.grouped_int4_matmul(x, lw["q4"], lw["s"])
+
+    for i in range(20):
+        call(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(calls):
+        call(i)
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / calls * 1e6
+    print(f"B8 host time per call at M 8 (q/k/v/o, {calls} back-to-back calls, each on one "
+          f"layer of a {layers}-layer stacked leaf): {host:.2f} us (to the device's end "
+          f"{wall:.2f} us)", flush=True)
+    return host
+
+
 def check_b8(dev, gen):
     """B8 (grouped-int4 W4A16 matmul) against its plain version at
     LLaVA-1.5-7B's products -- q/k/v/o 4096x4096, gate/up 4096x11008, down
@@ -687,9 +829,13 @@ def check_b8(dev, gen):
     40 (a verify round of 8 rows x 5), 512 (a chunked-prefill pass) and 1024
     (the largest prefill bucket B8 takes), plus groups of 64 and a ragged N.
     Times kernel, plain version and one PyTorch call by their device time
-    (profiler) on weights cycled through more than the L2 holds.  Returns
+    (profiler) on weights cycled through more than the L2 holds, with the
+    bounds by bytes and by operations at every case; at M 40, 512 and 1024
+    also the port's dequant route (per-weight dequant + ``torch.matmul``,
+    dequant included), the route above ``INT4_MAX_KERNEL_ROWS``.  Returns
     (max error, {case: numbers})."""
     worst, record = 0.0, {}
+    dequant_mm = _dequant_yardstick()
     for name, K, N, G in B8_SHAPES:
         w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
         leaf = quantize.quantize_leaf_int4(w, G)
@@ -712,7 +858,9 @@ def check_b8(dev, gen):
                                      f"{top:.4e} (tol {B8_REL_TOL} of it)")
             worst = max(worst, err)
             nbytes = 2 * M * K + wbytes + 2 * M * N
-            b_ms, b_by = bound(nbytes, 2.0 * M * K * N)
+            flops = 2.0 * M * K * N
+            b_ms, b_by = bound(nbytes, flops)
+            bytes_ms, ops_ms = bound(nbytes, 0.0)[0], bound(0.0, flops)[0]
             per, splits = b8.splits_for(M, N, s.shape[0] // 2)
             kernel_calls = [lambda q=q, t=t: b8.grouped_int4_matmul(x, q, t) for q, t in copies]
             ms = device_ms_cycle(kernel_calls)
@@ -734,16 +882,24 @@ def check_b8(dev, gen):
                 dense = [quantize.dequantize_leaf({"q4": q, "s": t}) for q, t in copies[:3]]
                 lib_ms = device_ms_cycle([lambda d=d: x @ d for d in dense])
                 del dense
+            dq_ms, dq_txt = None, ""
+            if dequant_mm is not None and M >= 40 and name in ("qkvo", "gate_up", "down",
+                                                                "lm_head"):
+                dq_ms = device_ms_cycle([lambda q=q, t=t: dequant_mm(x, q, t)
+                                         for q, t in copies[:2]], iters=8)
+                dq_txt = f", the dequant route (dequant + torch.matmul) {dq_ms:.4f} ms"
             print(f"B8 {name} M{M} K{K} N{N} G{G}: max|err| {err:.3e} (max|plain| {top:.3e}), "
                   f"{splits} split(s) of {per} groups | device time per call: kernel "
                   f"{ms:.4f} ms (CUDA events around back-to-back calls {event_ms:.4f} ms), "
                   f"plain {plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms (max|err| vs plain "
-                  f"{'n/a' if lib_err is None else f'{lib_err:.3e}'}), bound {b_ms:.4f} ms "
-                  f"({b_by}; {nbytes / 1e6:.2f} MB, {2.0 * M * K * N / 1e9:.3f} GFLOP); "
-                  f"{len(copies)} weight copies cycled", flush=True)
+                  f"{'n/a' if lib_err is None else f'{lib_err:.3e}'}){dq_txt}, bound {b_ms:.4f} "
+                  f"ms ({b_by}; bytes {bytes_ms:.4f} ms for {nbytes / 1e6:.2f} MB, operations "
+                  f"{ops_ms:.4f} ms for {flops / 1e9:.3f} GFLOP); {len(copies)} weight copies "
+                  f"cycled", flush=True)
             record[f"{name}_m{M}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                          bound_ms=b_ms, bound_by=b_by, library=lib_name,
-                                          event_ms=event_ms)
+                                          bound_ms=b_ms, bound_by=b_by, bound_bytes_ms=bytes_ms,
+                                          bound_ops_ms=ops_ms, library=lib_name,
+                                          dequant_matmul_ms=dq_ms, event_ms=event_ms)
             del x, y, ref
         del copies, lib, lib_copies, q4, s, leaf
         torch.cuda.empty_cache()
@@ -755,6 +911,8 @@ def check_b8(dev, gen):
           f"against a bound of {step('bound_ms'):.3f} ms; the yardstick "
           f"{step('library_ms'):.3f} ms; CUDA events around back-to-back B8 calls "
           f"{step('event_ms'):.3f} ms", flush=True)
+    record["decode_step_ms"] = step("ms")
+    record["host_us_m8"] = b8_host_us(dev, gen)
     return worst, record
 
 
@@ -1347,6 +1505,10 @@ def _int4_path(bf16_model, specs, bf16_logits, base):
           f"path {dict(quantize.INT4_DEQUANT_CALLS)}", flush=True)
     if launches["int4_matmul"] == 0 or any(m > quantize.INT4_MAX_KERNEL_ROWS for m in rows):
         raise AssertionError(f"{label}: B8 launches {launches['int4_matmul']}, rows {rows}")
+    products = sum(n for m, n in rows.items() if m > 0)  # an empty product launches nothing
+    if launches["int4_matmul"] != products:  # one launch per product, its splits folded in it
+        raise AssertionError(f"{label}: {launches['int4_matmul']} B8 launches for {products} "
+                             "products")
     _check_dequant(label, long_buckets)
     if not all(torch.isfinite(logits[r.uid]).all() for r in reqs):
         raise AssertionError(f"{label}: prefill logits not finite")
@@ -1370,8 +1532,7 @@ def _int4_path(bf16_model, specs, bf16_logits, base):
         b8.use_plain(prev)
     print(f"{label} vs the same model on B8's plain version ({pwall:.3f} s): streams agree up "
           f"to first differences at near-ties {ties} (tie margin {TIE_MARGIN})", flush=True)
-    decode_window(engine, "int4 weights, bf16 cache", profile=True,
-                  ranges=("int4_matmul_kernel", "sum_splits_kernel"))
+    decode_window(engine, "int4 weights, bf16 cache", profile=True, ranges=("int4_matmul",))
 
     scfg = dict(cfg, speculative_k=4, prefill_chunk=512)
     spec, _, _, _ = serve.build_engine(scfg, model=model)
@@ -1389,6 +1550,10 @@ def _int4_path(bf16_model, specs, bf16_logits, base):
     if slaunches["int4_matmul"] == 0 or not {verify_rows, 512} <= set(srows):
         raise AssertionError(f"{slabel}: B8 must run at M = {verify_rows} (verify) and 512 "
                              f"(chunks): {slaunches['int4_matmul']} launches, rows {srows}")
+    sproducts = sum(n for m, n in srows.items() if m > 0)
+    if slaunches["int4_matmul"] != sproducts:
+        raise AssertionError(f"{slabel}: {slaunches['int4_matmul']} B8 launches for {sproducts} "
+                             "products")
     _check_dequant(slabel, set())
     if spec.stats()["prefill_chunks"] == 0:
         raise AssertionError(f"{slabel}: no prompt went through chunked prefill")
@@ -1648,7 +1813,8 @@ def main() -> int:
     b8_err, b8_rec = check_b8(dev, gen)
     torch.cuda.empty_cache()
     if "--kernels-only" in sys.argv[1:]:  # phases 1-2 alone: no main path, no result line
-        print(json.dumps({"phase2": dict(b1=b1, b4=b4, b4q=b4q, b5=b5, b6=b6, b7=b7, bwd=bwd)}))
+        print(json.dumps({"phase2": dict(b1=b1, b4=b4, b4q=b4q, b5=b5, b6=b6, b7=b7, bwd=bwd,
+                                         b8=b8_rec)}))
         return 0
 
     cfg = serve.load_config(SERVE_ARGS + ["quantize_base=false"])
@@ -1770,7 +1936,9 @@ def main() -> int:
              **{k: v for k, v in b8_rec["gate_up_m8"].items() if k != "library"},
              library_call=b8_rec["gate_up_m8"]["library"],
              speculative_launches=b8_spec_launches, rows_per_product=b8_rows_seen,
-             cases={k: v for k, v in b8_rec.items() if k != "gate_up_m8"}),
+             decode_step_ms=b8_rec["decode_step_ms"], host_us_per_call_m8=b8_rec["host_us_m8"],
+             cases={k: v for k, v in b8_rec.items()
+                    if k not in ("gate_up_m8", "decode_step_ms", "host_us_m8")}),
     ]
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

@@ -48,6 +48,16 @@ __device__ __forceinline__ void i8x8_to_float(const uint2& w, float* out) {
   for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(v[i]);
 }
 
+// atomicAdd with release and acquire semantics at device scope: called by one
+// thread after a block barrier, it publishes the block's earlier global
+// stores and sees those of every block that added before it (the counters of
+// the kernels whose last block of a tile folds the tile's split partials).
+__device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], %2;\n" : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
 // Raise a kernel's dynamic shared memory limit past the 48 KB default.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {

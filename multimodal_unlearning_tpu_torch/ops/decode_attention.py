@@ -9,6 +9,12 @@ per position and kv-head (position on the LAST axis).
 - ``decode_attention``: one query token per row.  On a CUDA tensor the
   kernel ``csrc/flash_decode.cu`` indexes the layer inside the stacked
   cache (no slab is copied out): B4 on a bf16 cache, B4q on an int8 one.
+  It cuts each row's columns into runs by ``decode_split_plan``, one block
+  each, and merges the runs' partials in the same launch (the same
+  arithmetic as ``chunk_attention_split_reference`` at C = 1).  The mask
+  may be narrower than the cache, [B, S] with S <= Smax (the serving engine
+  narrows it to the columns its slots can have reached): columns at and
+  past S are not attended, and the kernel never reads them.
 - ``chunk_decode_attention``: C query tokens per row at per-row cache
   columns ``offset[b]..offset[b]+C-1`` (the speculative verify round, and
   chunked-prefill / prefix-suffix passes).  On a CUDA tensor the kernel
@@ -44,13 +50,17 @@ from multimodal_unlearning_tpu_torch.ops import kernels
 from multimodal_unlearning_tpu_torch.ops.attention import IMPLS, NEG_INF, mha_reference
 
 __all__ = ["decode_attention", "chunk_decode_attention", "chunk_attention_reference",
-           "chunk_attention_split_reference", "chunk_split_plan", "dequant_layer"]
+           "chunk_attention_split_reference", "chunk_split_plan", "decode_split_plan",
+           "dequant_layer"]
 
 CHUNK_TILE = 64         # cache columns per tile of csrc/chunk_decode.cu
 CHUNK_SPLIT_ROWS = 32   # rows G*C up to which the kernel splits the columns
 CHUNK_SPLIT_WARPS = 4   # f32 partials per split there (the kernel's warps)
 _SPLIT_BLOCKS_PER_SM = 4
 _SPLIT_MIN_TILES = 4    # fewest tiles a split should hold
+DECODE_BLOCKS_PER_SM = 2   # the one-token kernel's split plan aims at this many blocks per SM
+DECODE_MIN_RUN = 512       # ... with runs of at least this many columns
+DECODE_RUN_ALIGN = 64      # ... in multiples of this many columns
 
 
 def _check_cache(cache):
@@ -79,6 +89,21 @@ def dequant_layer(cache, layer, dtype):
     return k.to(dtype), v.to(dtype)
 
 
+def valid_columns(q, kv_valid, Smax: int):
+    """The one-token kernels' view of a mask ``kv_valid`` [B, S] over the
+    first S <= Smax columns: (int32 mask with contiguous columns, S, its row
+    stride).  A narrowed view of an int32 [B, Smax] mask is taken in place."""
+    B = q.shape[0]
+    if kv_valid.ndim != 2 or kv_valid.shape[0] != B or not 0 < kv_valid.shape[1] <= Smax \
+            or kv_valid.device != q.device:
+        raise ValueError(f"kv_valid must be [B, S] with B = {B}, 0 < S <= {Smax}, on "
+                         f"{q.device}; got {tuple(kv_valid.shape)} on {kv_valid.device}")
+    valid = kv_valid.to(torch.int32)
+    if valid.stride(1) != 1:
+        valid = valid.contiguous()
+    return valid, valid.shape[1], valid.stride(0)
+
+
 def _launch_args(q, cache, layer):
     """Shared checks of the CUDA routes; returns (k, v, k_s, v_s) with the
     scales None for a bf16 cache."""
@@ -102,6 +127,42 @@ def _launch_args(q, cache, layer):
     return k, v, None, None
 
 
+@functools.lru_cache(maxsize=1024)
+def decode_split_plan(B: int, Hkv: int, G: int, Smax: int, sm_count: int) -> tuple[int, int]:
+    """(splits, per): how the one-token decode kernel (B4/B4q/B6/B6q) cuts
+    the logical columns [0, Smax) it looks at (the mask's width) of each
+    (batch row, kv-head) into ``splits`` runs of ``per`` columns, one block
+    each, the last run possibly shorter, none empty.
+
+    The engine's rows are ragged, so one block per row leaves the card idle
+    behind the longest row's blocks; the runs aim at B x Hkv x splits of
+    about ``DECODE_BLOCKS_PER_SM`` blocks per SM, each run at least
+    ``DECODE_MIN_RUN`` columns (the last block of a row merges the runs'
+    partials, about 2 us of latency on an NVIDIA H100 80GB HBM3 at 700 W,
+    ``PERF.md``, which a shorter run does not earn back), ``per`` a multiple
+    of ``DECODE_RUN_ALIGN``.  A pure function
+    of shapes -- no ``kv_valid`` is read, nothing waits on the device -- so a
+    dense and a paged call of one shape get one plan, in logical columns.
+    ``G`` (the GQA group) does not change the plan."""
+    want = -(-DECODE_BLOCKS_PER_SM * sm_count // (B * Hkv))
+    splits = max(1, min(want, Smax // DECODE_MIN_RUN))
+    per = -(-Smax // splits)
+    per = min(Smax, -(-per // DECODE_RUN_ALIGN) * DECODE_RUN_ALIGN)
+    return -(-Smax // per), per
+
+
+def decode_scratch(q, Hkv, S):
+    """The one-token kernel's plan for q [B, Hq, 1, D] against the first S
+    logical columns, with its f32 partials and per-(row, kv-head) counters
+    where it splits (None otherwise): (per, splits, ws, counters)."""
+    B, Hq, _, D = q.shape
+    splits, per = decode_split_plan(B, Hkv, Hq // Hkv, S, sm_count(q.device))
+    if splits == 1:
+        return per, 1, None, None
+    ws, counters = kernels.fold_buffers("decode", q.device, splits * B * Hq * (D + 2), B * Hkv)
+    return per, splits, ws, counters
+
+
 def _decode_cuda(q, cache, layer, kv_valid, sm_scale):
     k_cache, v_cache, k_s, v_s = _launch_args(q, cache, layer)
     B, Hq, _, D = q.shape
@@ -109,24 +170,19 @@ def _decode_cuda(q, cache, layer, kv_valid, sm_scale):
     if (Bc, Dc) != (B, D) or Hq % Hkv or Hq // Hkv not in (1, 2, 4, 8) or D not in (64, 128):
         raise ValueError(f"flash_decode: unsupported shapes q {tuple(q.shape)} "
                          f"cache {tuple(k_cache.shape)} (head dim 64 or 128, GQA group 1/2/4/8)")
-    if tuple(kv_valid.shape) != (B, Smax) or kv_valid.device != q.device:
-        raise ValueError(f"kv_valid must be [B, Smax] = {(B, Smax)} on {q.device}")
+    valid, S, vstride = valid_columns(q, kv_valid, Smax)
     tensors = (k_cache, v_cache) if k_s is None else (k_cache, v_cache, k_s, v_s)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_decode reads the stacked cache in place: it must be contiguous")
     q = q.contiguous()
-    valid = kv_valid.to(torch.int32).contiguous()
     o = torch.empty_like(q)
-    name = "flash_decode" if k_s is None else "flash_decode_q8"
-    fn = kernels.launcher(name)
+    per, splits, ws, counters = decode_scratch(q, Hkv, S)
     scales = () if k_s is None else (k_s.data_ptr(), v_s.data_ptr())
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *scales,
-                 valid.data_ptr(), o.data_ptr(), L, B, Hq, Hkv, Smax, D, int(layer),
-                 float(sm_scale), stream)
-    kernels.check(name, err)
-    kernels.LAUNCHES[name] += 1
+    kernels.run("flash_decode" if k_s is None else "flash_decode_q8", q.device, q.data_ptr(),
+                k_cache.data_ptr(), v_cache.data_ptr(), *scales, valid.data_ptr(), o.data_ptr(),
+                None if ws is None else ws.data_ptr(),
+                None if counters is None else counters.data_ptr(), L, B, Hq, Hkv, Smax, D,
+                int(layer), S, vstride, per, splits, float(sm_scale))
     return o
 
 
@@ -152,7 +208,8 @@ def decode_attention(q, cache, layer, kv_valid, *, sm_scale: float | None = None
         cache, the current token already written; an int8 cache carries f32
         scales [L, B, Hkv, 1, Smax].
       layer: int -- which layer's slab to attend against.
-      kv_valid: [B, Smax] validity mask (1 = attend).
+      kv_valid: [B, S] validity mask (1 = attend) over the first S <= Smax
+        columns; the columns past S are not attended.
       impl: "auto" (the kernel on CUDA, the plain version on the CPU) or
         "plain".
     Returns [B, Hq, 1, D] in q's dtype.
@@ -167,9 +224,18 @@ def decode_attention(q, cache, layer, kv_valid, *, sm_scale: float | None = None
         sm_scale = q.shape[-1] ** -0.5
     if _route(q, impl, "decode_attention"):
         _check_cache(cache)
-        k, v = dequant_layer(cache, layer, q.dtype)
+        S = kv_valid.shape[-1]
+        k, v = dequant_layer(_cols_of(cache, S), layer, q.dtype)
         return mha_reference(q, k, v, kv_valid, causal=False, sm_scale=sm_scale)
     return _decode_cuda(q, cache, layer, kv_valid, sm_scale)
+
+
+def _cols_of(cache, S: int) -> dict:
+    """The dense cache's first S columns (views; the scales keep their
+    position last)."""
+    if S == cache["k"].shape[3]:
+        return cache
+    return {n: t[..., :S] if n in ("k_s", "v_s") else t[:, :, :, :S] for n, t in cache.items()}
 
 
 def chunk_visibility(kv_valid, offset, C: int):

@@ -16,7 +16,8 @@ what the kernel loads.  Shape and values are the JAX leaf's.
 
 with f32 partials per group, the f32 scale row applied to the partial and
 never to a materialised weight, as the TPU kernel does.  On a CUDA tensor it
-launches B8 (``csrc/int4_matmul.cu``) or raises; on a CPU tensor it runs
+launches B8 (``csrc/int4_matmul.cu``: one launch per call, which folds the
+partials of groups split across blocks itself) or raises; on a CPU tensor it runs
 ``int4_matmul_reference``, the same arithmetic in plain torch.  The plain
 version also runs on the card while ``PLAIN`` is set (``use_plain``): a
 module global read at each call, for holding a whole model against it.
@@ -29,6 +30,8 @@ whose input needs a gradient raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from multimodal_unlearning_tpu_torch.ops import kernels
@@ -38,9 +41,13 @@ __all__ = ["grouped_int4_matmul", "int4_matmul_reference", "supported", "nibbles
 
 PLAIN = False  # set via use_plain(); the plain version on the card too
 
+_MAX_GROUP = 128   # the widest scale group the kernel takes
 _BN = 128          # output columns per block (csrc/int4_matmul.cu)
-_MAX_GROUP = 128   # the widest scale group a stage of the kernel holds
-_TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
+# csrc/int4_matmul.cu's tiles by rows M: (most rows, block rows, blocks the
+# split plan aims at).  The rows kernel (8, 16 or 32 rows, 33-64 rows as
+# two 32-row tiles; 2-3 blocks resident per SM) aims at two blocks per SM of
+# the H100's 132, the 128-row wgmma kernel (1 per SM) at one.
+TILES = ((8, 8, 264), (16, 16, 264), (64, 32, 264), (None, 128, 132))
 
 
 def use_plain(on: bool = True) -> bool:
@@ -96,39 +103,55 @@ def int4_matmul_reference(x, q4, s, out_dtype=None):
     return (parts[0] + parts[1]).sum(0).to(out_dtype)
 
 
+def tile_of(M: int) -> tuple[int, int]:
+    """(block rows, target blocks) of the kernel that takes M rows."""
+    for most, bm, target in TILES:
+        if most is None or M <= most:
+            return bm, target
+    raise AssertionError("TILES ends with an open row")
+
+
+@functools.lru_cache(maxsize=4096)
 def splits_for(M: int, N: int, gh: int) -> tuple[int, int]:
-    """(groups per split, splits): how B8 divides the scale groups among
-    blocks.  With fewer (N, M) tiles than the card has SMs, the groups are
-    split so that about ``_TARGET_BLOCKS`` blocks stream the weight, and a
-    second pass sums their f32 partials."""
-    bm = 16 if M <= 16 else 32 if M <= 32 else 64
+    """(groups per split, splits): how B8 divides the ``gh`` scale groups of
+    each half among blocks.  Where the (N, M) tiles are fewer than the
+    kernel's target blocks, the groups are split so that tiles x splits
+    comes near the target; the last block of each tile to finish sums the
+    splits' f32 partials in the same launch.  Every group falls in exactly
+    one split and none is empty."""
+    bm, target = tile_of(M)
     tiles = -(-N // _BN) * -(-M // bm)
-    if tiles >= 132:
-        return gh, 1
-    per = -(-gh // min(gh, -(-_TARGET_BLOCKS // tiles)))
+    splits = max(1, min(gh, round(target / tiles)))
+    per = -(-gh // splits)
     return per, -(-gh // per)
+
+
+def _check_leaf(q4, s):
+    if q4.dtype != torch.int8 or s.dtype != torch.float32:
+        raise TypeError(f"B8 takes int8 q4 and f32 scales, got {q4.dtype} and {s.dtype}")
+    if not supported(q4, s):
+        raise ValueError(f"B8 does not take q4 {tuple(q4.shape)} with scales {tuple(s.shape)}: "
+                         "groups must be a multiple of 16 rows and at most 128")
+    if s.device != q4.device:
+        raise ValueError("q4 and s must be on one device")
+    if q4.stride() != (1, q4.shape[0]) or q4.data_ptr() % 16:
+        raise ValueError("B8 reads q4 with its K/2 dimension contiguous (strides (1, K/2), "
+                         "16-byte aligned), as quantize_leaf_int4 stores it")
+    if not s.is_contiguous():
+        raise ValueError("the scales must be contiguous [K/G, N]")
 
 
 def _check(x, q4, s, out_dtype):
     if x.dtype != torch.bfloat16:
         raise TypeError(f"B8 takes bf16 activations, got {x.dtype} (int4 serving computes in "
                         "bf16; the plain version runs on the CPU)")
-    if q4.dtype != torch.int8 or s.dtype != torch.float32:
-        raise TypeError(f"B8 takes int8 q4 and f32 scales, got {q4.dtype} and {s.dtype}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"B8 writes bf16 or f32, not {out_dtype}")
     if x.ndim != 2 or x.shape[1] != 2 * q4.shape[0]:
         raise ValueError(f"x {tuple(x.shape)} must be [M, K] with K = 2 * {q4.shape[0]}")
-    if not supported(q4, s):
-        raise ValueError(f"B8 does not take q4 {tuple(q4.shape)} with scales {tuple(s.shape)}: "
-                         "groups must be a multiple of 16 rows and at most 128")
-    if q4.device != x.device or s.device != x.device:
+    _check_leaf(q4, s)
+    if q4.device != x.device:
         raise ValueError("x, q4 and s must be on one device")
-    if q4.stride() != (1, q4.shape[0]) or q4.data_ptr() % 16:
-        raise ValueError("B8 reads q4 with its K/2 dimension contiguous (strides (1, K/2), "
-                         "16-byte aligned), as quantize_leaf_int4 stores it")
-    if not s.is_contiguous():
-        raise ValueError("the scales must be contiguous [K/G, N]")
 
 
 def grouped_int4_matmul(x, q4, s, out_dtype=None):
@@ -153,15 +176,14 @@ def grouped_int4_matmul(x, q4, s, out_dtype=None):
         x = x.clone()
     gh = s.shape[0] // 2
     per, splits = splits_for(M, N, gh)
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device) if splits > 1
-          else None)
-    fn = kernels.launcher("int4_matmul")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), q4.data_ptr(), s.data_ptr(), out.data_ptr(),
-                 None if ws is None else ws.data_ptr(), M, K2, N, K2 // gh, per, splits,
-                 int(out_dtype == torch.float32), stream)
-    kernels.check("int4_matmul", err)
-    kernels.LAUNCHES["int4_matmul"] += 1
+    dev = x.device
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    ws = counters = None
+    if splits > 1:  # f32 partials and one counter per (N, M) tile
+        ws, counters = kernels.fold_buffers("int4_matmul", dev, splits * M * N,
+                                            -(-N // _BN) * -(-M // tile_of(M)[0]))
+    kernels.run("int4_matmul", dev, x.data_ptr(), q4.data_ptr(), s.data_ptr(), out.data_ptr(),
+                None if ws is None else ws.data_ptr(),
+                None if counters is None else counters.data_ptr(), M, K2, N, K2 // gh, per,
+                splits, int(out_dtype == torch.float32))
     return out

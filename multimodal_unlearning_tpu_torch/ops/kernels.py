@@ -18,8 +18,9 @@ every library's name.
 it launches, and nowhere else.  One C call may run more than one device
 kernel: ``chunk_decode.cu``'s launchers run, when the columns are split
 across blocks, a second kernel that merges the splits' partials, inside the
-same call; B8's launcher likewise sums its split-K partials.  Each such call
-counts once.
+same call.  Each such call counts once.  (B8 and the one-token decode
+kernel fold their split partials inside the one kernel: the last block of
+a tile to finish sums them.)
 """
 
 from __future__ import annotations
@@ -55,19 +56,20 @@ _PAGED_CHUNK_ARGS = [_P] * 10 + [_I] * 11 + [_F, _P]
 _SIGNATURES = {
     "flash_fwd": ("flash_fwd", "mmu_flash_fwd_bf16",
                   [_P] * 6 + [_I] * 6 + [_LL] * 12 + [_F, _I, _I, _P]),
-    "flash_decode": ("flash_decode", "mmu_flash_decode_bf16", [_P] * 5 + [_I] * 7 + [_F, _P]),
-    "flash_decode_q8": ("flash_decode", "mmu_flash_decode_q8", [_P] * 7 + [_I] * 7 + [_F, _P]),
+    "flash_decode": ("flash_decode", "mmu_flash_decode_bf16", [_P] * 7 + [_I] * 11 + [_F, _P]),
+    "flash_decode_q8": ("flash_decode", "mmu_flash_decode_q8", [_P] * 9 + [_I] * 11 + [_F, _P]),
     "flash_bwd_dq": ("flash_bwd_dq", "mmu_flash_bwd_dq_bf16",
                      [_P] * 8 + [_I] * 6 + [_LL] * 15 + [_F, _I, _I, _P]),
     "flash_bwd_dkv": ("flash_bwd_dkv", "mmu_flash_bwd_dkv_bf16",
                       [_P] * 9 + [_I] * 6 + [_LL] * 18 + [_F, _I, _I, _P]),
     "chunk_decode": ("chunk_decode", "mmu_chunk_decode_bf16", _CHUNK_ARGS),
     "chunk_decode_q8": ("chunk_decode", "mmu_chunk_decode_q8", _CHUNK_ARGS),
-    "paged_decode": ("flash_decode", "mmu_paged_decode_bf16", [_P] * 6 + [_I] * 9 + [_F, _P]),
-    "paged_decode_q8": ("flash_decode", "mmu_paged_decode_q8", [_P] * 8 + [_I] * 9 + [_F, _P]),
+    "paged_decode": ("flash_decode", "mmu_paged_decode_bf16", [_P] * 8 + [_I] * 13 + [_F, _P]),
+    "paged_decode_q8": ("flash_decode", "mmu_paged_decode_q8",
+                        [_P] * 10 + [_I] * 13 + [_F, _P]),
     "paged_chunk": ("chunk_decode", "mmu_paged_chunk_bf16", _PAGED_CHUNK_ARGS),
     "paged_chunk_q8": ("chunk_decode", "mmu_paged_chunk_q8", _PAGED_CHUNK_ARGS),
-    "int4_matmul": ("int4_matmul", "mmu_int4_matmul", [_P] * 5 + [_I] * 7 + [_P]),
+    "int4_matmul": ("int4_matmul", "mmu_int4_matmul", [_P] * 6 + [_I] * 7 + [_P]),
 }
 
 LAUNCHES = {name: 0 for name in _SIGNATURES}
@@ -162,6 +164,49 @@ def launcher(name: str):
                 _error_string.restype = ctypes.c_char_p
             _launchers[name] = fn
     return _launchers[name]
+
+
+_scratch: dict = {}
+
+
+def fold_buffers(kind: str, device, numel: int, counters: int):
+    """A persistent f32 workspace of at least ``numel`` elements and an
+    int32 buffer of at least ``counters`` zeros on CUDA ``device``, for the
+    kernels whose last block of a tile folds the tile's split partials
+    (``kind`` names the kernel family).  The kernels leave every counter at
+    0 and launches on one stream run in order, so one pair of buffers per
+    (kind, device, current stream) serves every call there; launches on
+    two streams never share one.  A larger request replaces the buffers."""
+    import torch
+
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    key = (kind, idx, torch._C._cuda_getCurrentRawStream(idx))
+    ws, cnt = _scratch.get(key, (None, None))
+    if ws is None or ws.numel() < numel:
+        ws = torch.empty(max(numel, 1 << 16), dtype=torch.float32, device=device)
+    if cnt is None or cnt.numel() < counters:
+        cnt = torch.zeros(max(counters, 1024), dtype=torch.int32, device=device)
+    _scratch[key] = (ws, cnt)
+    return ws, cnt
+
+
+def run(name: str, device, *args) -> None:
+    """Launch kernel ``name`` on the current stream of CUDA ``device`` with
+    ``args`` (its launcher's arguments but the stream), raise if the launch
+    failed, and count it.  The device is made current only for a launch
+    that needs it (a device context costs microseconds of host time on
+    every call)."""
+    import torch
+
+    fn = launcher(name)
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    check(name, err)
+    LAUNCHES[name] += 1
 
 
 def check(name: str, err: int) -> None:

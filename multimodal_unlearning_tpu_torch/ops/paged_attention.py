@@ -28,7 +28,7 @@ past a row's extent and all-invalid gap pages contribute nothing on every
 route; a row that sees no column gives 0.
 
 On an NVIDIA H100 80GB HBM3 at its 700 W power limit (``chip_smoke.py``,
-device time): B6 takes 0.022 ms on 8 rows with 1,909 valid columns of a
+device time): B6 takes 0.020 ms on 8 rows with 1,909 valid columns of a
 32-head pool (bound 0.0094 ms, bytes; B4 on the same columns the same), B7
 0.086 ms at the speculative verify round (B 8, C 5; bound 0.053 ms), each
 within ~10% of the dense kernel and equal to it bit for bit; the gather +
@@ -43,7 +43,7 @@ from multimodal_unlearning_tpu_torch.ops import kernels
 from multimodal_unlearning_tpu_torch.ops.attention import mha_reference
 from multimodal_unlearning_tpu_torch.ops.decode_attention import (
     _check_cache, _launch_args, _route, chunk_attention_reference, chunk_visibility,
-    split_scratch)
+    decode_scratch, split_scratch, valid_columns)
 
 __all__ = ["is_paged", "gather_layer_kv", "paged_decode_attention",
            "paged_chunk_decode_attention"]
@@ -81,9 +81,10 @@ def _page_counts(kv_valid, page: int):
     return torch.where(vpage, idx[None, :], 0).amax(dim=1).to(torch.int32)
 
 
-def _paged_launch_args(q, cache, layer, kv_valid):
+def _paged_launch_args(q, cache, layer, kv_valid=None):
     """Checks shared by the paged kernels; returns (k, v, k_s, v_s, table,
-    valid) with the scales None for a bf16 pool."""
+    valid) with the scales None for a bf16 pool (valid None when kv_valid
+    is: the one-token kernel takes a narrowed mask, ``valid_columns``)."""
     k, v, k_s, v_s = _launch_args(q, cache, layer)
     B, Hq, _, D = q.shape
     L, Hkv, NP, P, Dc = k.shape
@@ -95,33 +96,35 @@ def _paged_launch_args(q, cache, layer, kv_valid):
         raise ValueError(f"the block table must be int32 [B, MP] with B = {B}, got "
                          f"{table.dtype} {tuple(table.shape)}")
     MP = table.shape[1]
-    if tuple(kv_valid.shape) != (B, MP * P) or kv_valid.device != q.device:
+    if kv_valid is not None and (tuple(kv_valid.shape) != (B, MP * P)
+                                 or kv_valid.device != q.device):
         raise ValueError(f"kv_valid must be [B, MP*P] = {(B, MP * P)} on {q.device}")
     tensors = (k, v, table) if k_s is None else (k, v, k_s, v_s, table)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the paged kernels read the pool and the table in place: they must be "
                          "contiguous")
-    return k, v, k_s, v_s, table, kv_valid.to(torch.int32).contiguous()
+    return k, v, k_s, v_s, table, (None if kv_valid is None
+                                   else kv_valid.to(torch.int32).contiguous())
 
 
 def _decode_cuda(q, cache, layer, kv_valid, sm_scale):
-    k, v, k_s, v_s, table, valid = _paged_launch_args(q, cache, layer, kv_valid)
+    k, v, k_s, v_s, table, _ = _paged_launch_args(q, cache, layer)
     B, Hq, _, D = q.shape
     L, Hkv, NP, P, _ = k.shape
     if Hq // Hkv not in (1, 2, 4, 8):
         raise ValueError(f"paged_decode: GQA group {Hq // Hkv} (1, 2, 4 or 8)")
+    MP = table.shape[1]
+    valid, S, vstride = valid_columns(q, kv_valid, MP * P)
     q = q.contiguous()
     o = torch.empty_like(q)
-    name = "paged_decode" if k_s is None else "paged_decode_q8"
-    fn = kernels.launcher(name)
+    # the dense call's plan over the same logical columns
+    per, splits, ws, counters = decode_scratch(q, Hkv, S)
     scales = () if k_s is None else (k_s.data_ptr(), v_s.data_ptr())
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales, valid.data_ptr(),
-                 table.data_ptr(), o.data_ptr(), L, B, Hq, Hkv, NP, P, table.shape[1], D,
-                 int(layer), float(sm_scale), stream)
-    kernels.check(name, err)
-    kernels.LAUNCHES[name] += 1
+    kernels.run("paged_decode" if k_s is None else "paged_decode_q8", q.device, q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), *scales, valid.data_ptr(), table.data_ptr(),
+                o.data_ptr(), None if ws is None else ws.data_ptr(),
+                None if counters is None else counters.data_ptr(), L, B, Hq, Hkv, NP, P, MP, D,
+                int(layer), S, vstride, per, splits, float(sm_scale))
     return o
 
 
@@ -135,7 +138,8 @@ def paged_decode_attention(q, cache, layer, kv_valid, *, sm_scale: float | None 
         block table [B, MP] int32 (the current token already written
         through it).
       layer: int.
-      kv_valid: [B, MP*P] LOGICAL validity mask (1 = attend).
+      kv_valid: [B, S] LOGICAL validity mask (1 = attend) over the first
+        S <= MP*P columns; the columns past S are not attended.
       impl: "auto" (the kernel on CUDA, the plain version on the CPU) or
         "plain".
     Returns [B, Hq, 1, D] in q's dtype.
@@ -147,7 +151,9 @@ def paged_decode_attention(q, cache, layer, kv_valid, *, sm_scale: float | None 
     if _route(q, impl, "paged_decode_attention"):
         _check_cache(cache)
         k, v = gather_layer_kv(cache, layer, q.dtype)
-        return mha_reference(q, k, v, kv_valid, causal=False, sm_scale=sm_scale)
+        S = kv_valid.shape[-1]
+        return mha_reference(q, k[:, :, :S], v[:, :, :S], kv_valid, causal=False,
+                             sm_scale=sm_scale)
     return _decode_cuda(q, cache, layer, kv_valid, sm_scale)
 
 

@@ -11,7 +11,11 @@ position, refilled from the queue between decode chunks.
 - decode chunk: ``chunk`` single-token steps for ALL slots at once.  Every
   slot sits at its own cache column (per-row cache write) and reads the
   cache through its [B, Smax] validity row, so idle slots (all-zero rows)
-  decode too and their output is thrown away.
+  decode too and their output is thrown away.  The host knows, without
+  waiting on the device, the furthest column each slot can have reached
+  (its write column at insert plus its budget): the decode chunk hands
+  attention the validity rows narrowed to that extent, so the one-token
+  kernel never walks the columns past it.
 - the per-slot state (``kv_valid``, ``write_col``, ``pos_next``,
   ``token``, ``remaining``, ``live``) lives on the device and is updated in
   place; the host reads only each chunk's emitted tokens.  In pipelined
@@ -235,6 +239,9 @@ class ServingEngine:
         self.on_prefill = on_prefill
         self._queue: list[Request] = []
         self._slot_req: list[Request | None] = [None] * self.B
+        # per slot: a column past every valid column its kv_valid row can
+        # hold until it is armed again (set at insert)
+        self._col_cap = [0] * self.B
         self._free = list(range(self.B))
         self._uid = 0
         self._state = None
@@ -491,6 +498,9 @@ class ServingEngine:
         n = valid_row.shape[-1]
         st["kv_valid"][slot].zero_()
         st["kv_valid"][slot, :n] = valid_row
+        # decoding validates one column a live step from write_col on, at
+        # most max_new - 1 of them; a verify round at most K + 1 past it
+        self._col_cap[slot] = max(n, write_col + max_new + (self.K + 1 if self.K else 0))
         st["write_col"][slot] = write_col
         st["pos_next"][slot] = pos_next
         st["token"][slot] = first
@@ -742,6 +752,8 @@ class ServingEngine:
         emits = torch.empty((T, B), dtype=torch.long, device=dev)
         lives = torch.empty((T, B), dtype=torch.bool, device=dev)
         cache = self._pool(self._table_device()) if self.page else st["cache"]
+        # no row holds a valid column at or past `extent` in this chunk
+        extent = min(self.smax, _bucket(max(max(self._col_cap), 1), 128))
         for t in range(T):
             live = st["live"] & (st["remaining"] > 0)
             cols = st["write_col"]
@@ -749,7 +761,7 @@ class ServingEngine:
                 st["kv_valid"][rows, cols], live.to(torch.int32))
             out = self._forward(st["token"][:, None], attention_mask=ones,
                                 positions=st["pos_next"][:, None], kv_cache=cache,
-                                cache_offset=cols, kv_valid_mask=st["kv_valid"])
+                                cache_offset=cols, kv_valid_mask=st["kv_valid"][:, :extent])
             nxt = torch.argmax(out["logits"][:, -1, :], dim=-1)
             emits[t] = torch.where(live, nxt, self.pad_id)
             lives[t] = live

@@ -330,6 +330,15 @@ def int4_matmul(x, q4, s, out_dtype=None):
         y = grouped_int4_matmul(x.reshape(M, K), q4, s, out_dtype)
         return y.reshape(*x.shape[:-1], N)
     INT4_DEQUANT_CALLS[(M, K, N)] += 1
+    return int4_dequant_matmul(x, q4, s, out_dtype)
+
+
+def int4_dequant_matmul(x, q4, s, out_dtype=None):
+    """The dequant path of ``int4_matmul``: each half of the one weight
+    dequantized to x's dtype (f32 group scales applied first), then
+    ``torch.matmul``.  Not counted: ``int4_matmul`` counts its calls."""
+    out_dtype = out_dtype or x.dtype
+    N = q4.shape[-1]
     half = q4.shape[-2]
     gh = s.shape[-2] // 2
     g = half // gh

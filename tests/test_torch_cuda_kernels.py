@@ -24,7 +24,9 @@ logical columns they must equal the dense kernels bit for bit.  B8 and its
 plain version form the same exact products of bf16 activations and int4
 values; they differ in the f32 summation order and the final bf16 rounding
 of each output, one bf16 ulp being 2^-8 of it: max |err| <= 1e-2 of the
-largest plain output.
+largest plain output.  B8 folds its split-K partials in the launch (the last
+block of a tile sums them in split order), and the one-token decode kernel
+merges its column runs the same way: two calls give the same bits.
 """
 
 import numpy as np
@@ -421,3 +423,131 @@ def test_int4_matmul_dispatch_and_refusals(dev):
         grouped_int4_matmul(x, qt["q4"].contiguous(), qt["s"])  # row-major packed bytes
     assert grouped_int4_matmul(x[:0], qt["q4"], qt["s"]).shape == (0, 512)
     assert kernels.LAUNCHES["int4_matmul"] == before + 1
+
+
+@pytest.mark.parametrize("out_f32", [False, True], ids=["bf16_out", "f32_out"])
+@pytest.mark.parametrize("M", [1, 16, 17, 32, 33, 64, 127, 128, 129, 1000, 1024])
+@pytest.mark.parametrize(
+    "K,N,G",
+    [(11008, 4096, 128), (1024, 1000, 128), (4096, 4096, 64), (4096, 4096, 32),
+     (1024, 512, 16), (768, 640, 48)],
+    ids=["down", "ragged_n", "g64", "g32", "g16", "g48"],
+)
+def test_int4_matmul_tile_edges(dev, M, K, N, G, out_f32):
+    """B8 at the edges of its tile table (rows kernel at 16 and 32 rows and
+    at two 32-row tiles up to 64, wgmma kernel at 128-row tiles from 65),
+    with 43 groups per half (down), a ragged last column tile, and groups of
+    16-128 rows (stages of 16, 32 and 64)."""
+    rng = np.random.default_rng(M * 7 + N + G)
+    x, qt = _int4_case(rng, M, K, N, G, dev)
+    out_dtype = torch.float32 if out_f32 else torch.bfloat16
+    before = kernels.LAUNCHES["int4_matmul"]
+    y = grouped_int4_matmul(x, qt["q4"], qt["s"], out_dtype)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["int4_matmul"] == before + 1  # one launch, splits folded in it
+    assert y.dtype == out_dtype and y.shape == (M, N)
+    ref = int4_matmul_reference(x, qt["q4"], qt["s"], torch.float32)
+    tol = 1e-4 if out_f32 else 1e-2
+    assert (y.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("M", [8, 1024], ids=["split", "one_split"])
+def test_int4_matmul_deterministic(dev, M):
+    from multimodal_unlearning_tpu_torch.ops.int4_matmul import splits_for
+
+    rng = np.random.default_rng(11)
+    x, qt = _int4_case(rng, M, 4096, 4096, 128, dev)
+    assert (splits_for(M, 4096, 16)[1] > 1) == (M == 8)
+    a = grouped_int4_matmul(x, qt["q4"], qt["s"], torch.float32)
+    b = grouped_int4_matmul(x, qt["q4"], qt["s"], torch.float32)
+    c = grouped_int4_matmul(x, qt["q4"], qt["s"])
+    d = grouped_int4_matmul(x, qt["q4"], qt["s"])
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(c, d)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_flash_decode_split_runs(dev, G, D, int8):
+    """The column runs of the one-token kernel: a row longer than one run, a
+    row whose middle runs see nothing, an all-invalid row (0), Smax not a
+    multiple of the run; two calls give the same bits."""
+    from multimodal_unlearning_tpu_torch.ops.decode_attention import decode_split_plan, sm_count
+
+    rng = np.random.default_rng(20 + G + D)
+    L, B, Hkv, Smax, layer = 2, 3, 2, 2000, 1
+    splits, per = decode_split_plan(B, Hkv, G, Smax, sm_count(dev))
+    assert splits > 1 and Smax % per
+    cache = _cache(rng, (L, B, Hkv, Smax, D), dev, int8)
+    q = _randn(rng, (B, Hkv * G, 1, D), dev)
+    valid = torch.zeros((B, Smax), dtype=torch.int32, device=dev)
+    valid[0, 3:per + 50] = 1                 # longer than one run
+    valid[1, 10:20] = 1                      # the first run ...
+    valid[1, Smax - 30:] = 1                 # ... and the last; the runs between see nothing
+    name = "flash_decode_q8" if int8 else "flash_decode"
+    before = kernels.LAUNCHES[name]
+    o = decode_attention(q, cache, layer, valid)
+    o2 = decode_attention(q, cache, layer, valid)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 2
+    ref = decode_attention(q, cache, layer, valid, impl="plain")
+    torch.testing.assert_close(o.float(), ref.float(), atol=O_TOL, rtol=0)
+    assert torch.all(o[2] == 0)
+    assert torch.equal(o, o2)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("P", [16, 128])
+def test_decode_narrowed_mask(dev, int8, P):
+    """The mask narrowed to its first S columns, as the serving engine hands
+    it over (a view of the [B, Smax] mask): the columns past S are never
+    looked at, paged equals dense bit for bit, one run and two."""
+    from multimodal_unlearning_tpu_torch.ops.decode_attention import decode_split_plan, sm_count
+
+    rng = np.random.default_rng(40 + P)
+    L, B, Hkv, G, Smax, D, layer = 2, 8, 8, 1, 2048, 128, 1
+    dense = _cache(rng, (L, B, Hkv, Smax, D), dev, int8)
+    pool = _paged(dense, P, rng)
+    q = _randn(rng, (B, Hkv * G, 1, D), dev)
+    full = torch.zeros((B, Smax), dtype=torch.int32, device=dev)
+    for b in range(B):
+        if b != 3:                          # row 3 sees nothing before the cut
+            full[b, 10 * b:100 + 120 * b] = 1
+    full[:, 1100:] = 1                      # past every cut: never looked at
+    for S, runs in ((256, 1), (1100, 2)):
+        assert decode_split_plan(B, Hkv, G, S, sm_count(dev))[0] == runs
+        mask = full[:, :S]
+        o = decode_attention(q, dense, layer, mask)
+        op = paged_decode_attention(q, pool, layer, mask)
+        torch.cuda.synchronize()
+        assert torch.equal(o, op)           # bit for bit
+        assert torch.all(o[3] == 0)
+        cut = torch.zeros_like(full)
+        cut[:, :S] = mask
+        ref = decode_attention(q, dense, layer, cut, impl="plain")
+        torch.testing.assert_close(o.float(), ref.float(), atol=O_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("P", [16, 128])
+def test_paged_decode_splits_equal_dense(dev, int8, P):
+    from multimodal_unlearning_tpu_torch.ops.decode_attention import decode_split_plan, sm_count
+
+    rng = np.random.default_rng(30 + P)
+    L, B, Hkv, G, S, D, layer = 2, 4, 8, 1, 2048, 128, 1
+    assert decode_split_plan(B, Hkv, G, S, sm_count(dev))[0] > 1
+    dense = _cache(rng, (L, B, Hkv, S, D), dev, int8)
+    pool = _paged(dense, P, rng)
+    q = _randn(rng, (B, Hkv * G, 1, D), dev)
+    valid = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    valid[0, :1500] = 1
+    valid[1, 7:40] = 1
+    valid[1, 1900:1910] = 1
+    valid[3, 1024:] = 1                    # row 2 idle
+    o = paged_decode_attention(q, pool, layer, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(o, decode_attention(q, dense, layer, valid))  # bit for bit
+    assert torch.all(o[2] == 0)
+    ref = paged_decode_attention(q, pool, layer, valid, impl="plain")
+    torch.testing.assert_close(o.float(), ref.float(), atol=O_TOL, rtol=0)

@@ -217,6 +217,37 @@ def test_supported_shapes_and_splits():
     assert dict(tq.INT4_DEQUANT_CALLS) == {(4, 360, 256): 1}
 
 
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 32, 33, 40, 64, 65, 512, 1024])
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)],
+                         ids=["qkvo", "gate_up", "down", "lm_head"])
+def test_splits_follow_the_tile_table(K, N, M):
+    """B8's split plan at LLaVA-1.5-7B's products (groups of 128; ``down``
+    has 43 per half): every group in exactly one split, none empty, and
+    splits only while the (N, M) tiles are fewer than the kernel's target."""
+    gh = K // 2 // 128
+    per, splits = ti.splits_for(M, N, gh)
+    runs = [range(sp * per, min(gh, (sp + 1) * per)) for sp in range(splits)]
+    assert all(len(r) > 0 for r in runs)
+    assert [g for r in runs for g in r] == list(range(gh))
+    bm, target = ti.tile_of(M)
+    tiles = -(-N // 128) * -(-M // bm)
+    assert bm >= min(M, 32) and (bm == 128 or -(-M // bm) <= 2)  # rows: at most two tiles
+    assert splits == 1 or (tiles < target and tiles * splits <= 1.5 * target)
+
+
+def test_tile_table_mirrors_the_kernel():
+    """``TILES`` (ops/int4_matmul.py) states the block rows that
+    ``csrc/int4_matmul.cu``'s ``tile_rows`` picks."""
+    import re
+    from pathlib import Path
+
+    src = (Path(ti.__file__).parent / "csrc" / "int4_matmul.cu").read_text()
+    body = re.search(r"int tile_rows\(int M\) \{ return ([^;]*);", src).group(1)
+    picks = [(int(a), int(b)) for a, b in re.findall(r"M <= (\d+) \? (\d+)", body)]
+    last = int(body.rsplit(":", 1)[1])
+    assert picks + [(None, last)] == [(most, bm) for most, bm, _ in ti.TILES]
+
+
 def test_no_gradient_and_no_other_device():
     qt = tq.quantize_leaf_int4(torch.from_numpy(_w((512, 256))))
     x = torch.zeros((2, 512), requires_grad=True)
