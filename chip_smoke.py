@@ -90,7 +90,24 @@ a result line.)
    loss moving, B1/B2/B3 launched exactly as often as the step's structure
    gives, and the loss and LoRA gradients must agree with the same step on
    the plain attention versions.  Then one step under the profiler.
-5. Prints one ``{"kernels": [...]}`` line (twelve kernels), the card's name and power limit,
+5. Frees that model and runs the forget CLI as a user runs it:
+   ``cli.mm_forget.main`` on ``configs/mm/forget.yaml`` with ``FORGET_CLI_ARGS``
+   (LLaVA-1.5-7B at full width and depth from seed 42, synthetic CLEAR data:
+   16 forget rows, 8 with a 336-px image; phase 4's operating point; 2
+   accumulated micro-batches of 2; 6 steps, a train-state save at step 4;
+   the merged model saved in bf16 to a temporary directory, removed after).
+   Every logged loss finite and moving, B1/B2/B3 launched exactly as the
+   steps' structure gives, ``model.safetensors`` holding exactly
+   ``llava_to_hf``'s names in bf16; then ``cli.serve.build_engine`` with
+   ``model_path`` loads it, holding no more on the card during the load
+   than the file's size and half a GiB (one copy of the weights), and
+   serves four of phase 3's requests to their budgets, B1 and B4
+   launching, prefill logits within the tolerance of the same engine's
+   plain attention.  Prints the merge, save and load seconds and GB/s, the
+   free disk, the peak memory (the CLI's, the host's, the load's) and
+   whether the native host library is live (the CLI prints its steps/s,
+   tok/s and host time per step).
+6. Prints one ``{"kernels": [...]}`` line (twelve kernels), the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -101,8 +118,10 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -113,7 +132,8 @@ import torch
 import torch.nn.functional as F
 
 from multimodal_unlearning_tpu_torch import bench as forget_bench
-from multimodal_unlearning_tpu_torch.cli import serve
+from multimodal_unlearning_tpu_torch.cli import common, serve
+from multimodal_unlearning_tpu_torch.config import Config
 from multimodal_unlearning_tpu_torch.data import preprocess_image
 from multimodal_unlearning_tpu_torch.ops import kernels
 from multimodal_unlearning_tpu_torch.ops.attention import (
@@ -1407,7 +1427,7 @@ def run_int8_path(model, specs, bf16_logits, base=SERVE_ARGS):
           f"gate): {[round(x, 4) for x in d]}", flush=True)
     engine._state = None
 
-    spec_cfg = dict(cfg, speculative_k=4)
+    spec_cfg = Config(dict(cfg, speculative_k=4))
     spec, _, _, _ = serve.build_engine(spec_cfg, model=model)
     _serve(spec, [(ids, 2, pix, None, None) for ids, _, pix in (specs[0], specs[-2])],
            counted=False)
@@ -1534,7 +1554,7 @@ def _int4_path(bf16_model, specs, bf16_logits, base):
           f"to first differences at near-ties {ties} (tie margin {TIE_MARGIN})", flush=True)
     decode_window(engine, "int4 weights, bf16 cache", profile=True, ranges=("int4_matmul",))
 
-    scfg = dict(cfg, speculative_k=4, prefill_chunk=512)
+    scfg = Config(dict(cfg, speculative_k=4, prefill_chunk=512))
     spec, _, _, _ = serve.build_engine(scfg, model=model)
     sjobs = [(ids, n, pix, list(ids[-spec.R:]) if i % 2 == 0 else None, None)
              for i, (ids, n, pix) in enumerate(specs)]
@@ -1659,7 +1679,7 @@ def run_paged_int8_path(model, specs, dense8, spec8, base=SERVE_ARGS):
              dense8),
             ("paged60 int8 with speculation (K=4)", {"speculative_k": 4},
              ("paged_chunk_q8",), ("flash_decode_q8", "chunk_decode_q8"), spec8)):
-        engine, _, _, _ = serve.build_engine(dict(cfg, **extra), model=model)
+        engine, _, _, _ = serve.build_engine(Config(dict(cfg, **extra)), model=model)
         _serve(engine, [(ids, 2, pix, None, None) for ids, _, pix in (specs[0], specs[-2])],
                counted=False)  # warm-up
         reqs, wall, launches, peak = _serve(engine, jobs)
@@ -1787,6 +1807,171 @@ def _forget_path(model, timed_steps):
     return launches
 
 
+# ------------------------------------------------------------- phase 5
+# the forget CLI as a user runs it: LLaVA-1.5-7B at full width and depth from
+# the seed, synthetic CLEAR data (16 forget rows, half with a 336-px image),
+# bench.py's operating point (int8 base, W8A8 + int8 dx, LoRA r 8, remat
+# save_attn), 4 steps an epoch for 1.5 epochs (a train-state save at step 4),
+# then the merged model saved in bf16 and served again from the saved files
+FORGET_CLI_ARGS = [
+    "model_family=llava", "model_path=null",
+    "forget_data_path=synthetic:n_persons=20,qa_per_person=4",
+    "retain_data_path=synthetic:n_persons=20,qa_per_person=4",
+    "forget_split=forget10+tofu", "retain_split=retain90+tofu",
+    "forget_loss=grad_diff_forget_ce_retain_ce", "LoRA.r=8", "LoRA.alpha=32",
+    "quantize_base=true", "int8_compute=true", "int8_bwd=true", "remat=true",
+    "remat_policy=save_attn", "batch_size=2", "gradient_accumulation_steps=2",
+    "num_epochs=1.5", "merge_dtype=bfloat16", "save_model=true", "+save_adapters=true",
+]
+
+
+def _timed(owner, name, seconds):
+    """Wrap ``owner.name`` so that each call adds its wall time to
+    ``seconds[name]``; returns the original."""
+    fn = getattr(owner, name)
+
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+
+    setattr(owner, name, wrapper)
+    return fn
+
+
+def run_forget_cli_path(specs, args=FORGET_CLI_ARGS, serve_base=SERVE_ARGS, picks=(0, 3, 8, 9)):
+    """``cli.mm_forget.main`` on the card from config file to saved model,
+    then ``cli.serve.build_engine(model_path=...)`` on what it saved, serving
+    four of phase 3's requests (``picks``).  Returns the launch counts of the
+    forget run and of the served requests."""
+    import resource
+    import shutil
+    import tempfile
+
+    import safetensors
+    import yaml
+    from safetensors import safe_open
+
+    from multimodal_unlearning_tpu_torch.cli import mm_forget
+    from multimodal_unlearning_tpu_torch.config.registry import get_model_identifiers
+    from multimodal_unlearning_tpu_torch.models import hf_bridge, llava, lora
+    from multimodal_unlearning_tpu_torch.utils import native
+
+    save_dir = tempfile.mkdtemp(prefix="forget_cli_")
+    seconds: dict = {}
+    load_peak: dict = {}
+    load = serve.init_or_load_params
+
+    def load_and_peak(*a, **kw):
+        out = load(*a, **kw)
+        torch.cuda.synchronize()
+        load_peak["bytes"] = torch.cuda.max_memory_allocated()
+        return out
+
+    saved = [(common, "save_model", _timed(common, "save_model", seconds)),
+             (lora, "merge_model", _timed(lora, "merge_model", seconds)),
+             (serve, "init_or_load_params", load)]
+    serve.init_or_load_params = load_and_peak
+    try:
+        print(f"forget CLI: native host library live: {native.available()}; safetensors "
+              f"{safetensors.__version__}, PyYAML {yaml.__version__}; free disk at "
+              f"{save_dir}: {shutil.disk_usage(save_dir).free / 2**30:.1f} GiB", flush=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        history = mm_forget.main(args + [f"save_dir={save_dir}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [h["loss"] for h in history]
+        if not losses or not all(np.isfinite(losses)):
+            raise AssertionError(f"forget CLI: non-finite losses {losses}")
+        if losses[0] == losses[-1]:
+            raise AssertionError(f"forget CLI: the loss did not move: {losses}")
+        arg = lambda key: next(a.split("=", 1)[1] for a in args if a.startswith(key + "="))
+        mcfg = common.build_model_config(get_model_identifiers(arg("model_family")))
+        steps = len(history)
+        dec, vis = mcfg.decoder, mcfg.vision
+        accum = int(arg("gradient_accumulation_steps"))
+        # per step and micro-batch: two splits, each through the ViT (pixel
+        # rows of zeros for text samples) and the decoder; B1 forward only
+        # (save_attn keeps o and lse), B2 and B3 once per decoder layer
+        expect = dict.fromkeys(kernels.LAUNCHES, 0)
+        expect.update({"flash_fwd": steps * accum * 2 * (dec.num_layers + vis.num_layers),
+                       "flash_bwd_dq": steps * accum * 2 * dec.num_layers,
+                       "flash_bwd_dkv": steps * accum * 2 * dec.num_layers})
+        if launches != expect:
+            raise AssertionError(f"forget CLI launches {launches}, expected {expect}")
+        path = f"{save_dir}/model.safetensors"
+        meta = llava.Llava(mcfg, device="meta", dtype=torch.bfloat16)
+        names = set(hf_bridge.llava_to_hf(common.model_tree(meta), vis.patch_size))
+        with safe_open(path, framework="pt") as f:
+            got = set(f.keys())
+            dtypes = {f.get_tensor(k).dtype for k in got}
+        if got != names or dtypes != {torch.bfloat16}:
+            raise AssertionError(f"saved model: {len(got ^ names)} names differ from "
+                                 f"llava_to_hf's, dtypes {dtypes}")
+        size = os.path.getsize(path)
+        print(f"forget CLI: {steps} steps, losses {[round(x, 4) for x in losses]}; "
+              f"{wall:.1f} s in main() (init, quantize, steps, merge, save); merge "
+              f"{seconds['merge_model']:.1f} s, save {seconds['save_model']:.1f} s of "
+              f"{size / 1e9:.2f} GB ({size / 1e9 / seconds['save_model']:.2f} GB/s), "
+              f"{len(got)} tensors, bf16; max_memory_allocated {peak:.2f} GiB; launches "
+              f"{launches} ({launches['flash_fwd'] // steps} B1, "
+              f"{launches['flash_bwd_dq'] // steps} B2, {launches['flash_bwd_dkv'] // steps} "
+              f"B3 per step); host peak RSS so far "
+              f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB", flush=True)
+        del meta
+        torch.cuda.empty_cache()
+
+        # served again from the saved files; the load alone may hold the
+        # weights once, plus one tensor in flight
+        logits = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        engine, _, _, _ = serve.build_engine(
+            serve.load_config(serve_base + ["quantize_base=false", f"model_path={save_dir}"]),
+            on_prefill=lambda r, last: logits.__setitem__(r.uid, last.float().cpu()))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        held = load_peak["bytes"] - before
+        print(f"reload: build_engine(model_path=...) {load_s:.1f} s "
+              f"({size / 1e9 / load_s:.2f} GB/s); the load's device peak above what was "
+              f"allocated before it {held / 2**30:.2f} GiB for a {size / 2**30:.2f} GiB file",
+              flush=True)
+        if held > size + 2**29:
+            raise AssertionError(f"reload held {held / 2**30:.2f} GiB on the card for a "
+                                 f"{size / 2**30:.2f} GiB checkpoint: a second copy")
+        chosen = [specs[i] for i in picks]
+        reqs, swall, slaunch, speak = _serve(engine, [(ids, n, pix, None, None)
+                                                      for ids, n, pix in chosen])
+        for name in ("flash_fwd", "flash_decode"):
+            if slaunch[name] == 0:
+                raise AssertionError(f"reloaded model: kernel {name} never launched")
+        engine._state = None
+        plain = prefill_logits_of(engine, engine.params, "plain", engine.compute_dtype, chosen)
+        diffs = [(logits[r.uid] - p).abs().max().item() for r, p in zip(reqs, plain)]
+        if max(diffs) > LOGIT_TOL or not all(torch.isfinite(logits[r.uid]).all() for r in reqs):
+            raise AssertionError(f"reloaded model: prefill logits kernel-plain {diffs} "
+                                 f"(tol {LOGIT_TOL})")
+        _report("reloaded model, served", engine, reqs, swall, slaunch, speak)
+        print(f"reloaded model: prefill logits kernel-plain max|diff| "
+              f"{[round(x, 4) for x in diffs]} (tol {LOGIT_TOL})", flush=True)
+        del engine
+        return launches, slaunch
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+        shutil.rmtree(save_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1832,7 +2017,7 @@ def main() -> int:
     print(f"decode step, kernels vs plain attention: {kernel_step:.3f} vs {plain_step:.3f} ms",
           flush=True)
     model = engine.params
-    processor = serve.build_processor(serve.get_model_identifiers("llava"))
+    processor = common.build_processor(serve.get_model_identifiers("llava"))
     del engine, plain
     torch.cuda.empty_cache()
 
@@ -1862,6 +2047,12 @@ def main() -> int:
     # quantization passes it through), once the serving phases are done
     # and their caches freed
     step_launches = run_forget_path(model)
+    # the forget CLI from config to saved model and back into serving, on a
+    # model of its own: the served (int8) model goes first
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli_launches, reload_launches = run_forget_cli_path(specs)
 
     rows = [
         dict(name="flash_fwd (B1)", route="cuda",
@@ -1872,20 +2063,26 @@ def main() -> int:
              # numbers at that path's decoder and ViT shapes
              vit=b1["vit"],  # the serving ViT tower's shape
              forget_step=dict(launches=step_launches["flash_fwd"], decoder=b1["step"],
-                              vit=b1["step_vit"])),
+                              vit=b1["step_vit"]),
+             # the forget CLI (phase 5) and the serving of what it saved
+             forget_cli_launches=cli_launches["flash_fwd"],
+             reload_launches=reload_launches["flash_fwd"]),
         dict(name="flash_bwd_dq (B2)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_bwd_dq.cu",
              replaces="multimodal_unlearning_tpu/ops/attention.py:219",
-             launches=step_launches["flash_bwd_dq"], max_abs_err=bwd_err["dq"], **bwd["dq"]),
+             launches=step_launches["flash_bwd_dq"], max_abs_err=bwd_err["dq"], **bwd["dq"],
+             forget_cli_launches=cli_launches["flash_bwd_dq"]),
         dict(name="flash_bwd_dkv (B3)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
              replaces="multimodal_unlearning_tpu/ops/attention.py:268",
              launches=step_launches["flash_bwd_dkv"], max_abs_err=bwd_err["dkv"],
+             forget_cli_launches=cli_launches["flash_bwd_dkv"],
              **bwd["dkv"]),
         dict(name="flash_decode (B4)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/decode_attention.py:51",
-             launches=launches["flash_decode"], max_abs_err=b4_err, **b4),
+             launches=launches["flash_decode"], max_abs_err=b4_err, **b4,
+             reload_launches=reload_launches["flash_decode"]),
         dict(name="flash_decode_q8 (B4q)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/decode_attention.py:71",

@@ -1,12 +1,67 @@
 """Helpers shared by the port's entry points: the port's copy of
-``quantize_base_params`` from ``multimodal_unlearning_tpu/cli/common.py``."""
+``multimodal_unlearning_tpu/cli/common.py`` (model and processor
+construction, checkpoint I/O, dtype and quantization options).
+
+The mesh, tensor, expert and pipeline parallelism and the multi-host parts
+wait for multi-GPU.
+"""
 
 from __future__ import annotations
 
+from pathlib import Path
+
+import torch
 from torch import nn
 
-from multimodal_unlearning_tpu_torch.models import VLM_KINDS
-from multimodal_unlearning_tpu_torch.utils.quantize import is_qtensor, quantize_tree_inplace
+from multimodal_unlearning_tpu_torch.config import build_model_config, model_kind
+from multimodal_unlearning_tpu_torch.data import ByteTokenizer, MMProcessor
+from multimodal_unlearning_tpu_torch.device import resolve_device
+from multimodal_unlearning_tpu_torch.models import (
+    VLM_KINDS, convert, decoder_module, hf_bridge, vlm_module)
+from multimodal_unlearning_tpu_torch.train import checkpoints
+from multimodal_unlearning_tpu_torch.utils.quantize import (
+    QTensor, QTensor4, is_qtensor, quantize_tree_inplace)
+
+__all__ = ["max_grad_norm_of", "dtype_of", "parse_dtype", "model_kind", "is_vlm",
+           "build_model_config", "quantize_base_params", "init_or_load_params", "save_model",
+           "build_processor", "model_tree"]
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+
+
+def max_grad_norm_of(cfg, forget_loss: str | None = None) -> float | None:
+    """HF TrainingArguments' default max_grad_norm=1.0 applies to every
+    reference run; ``max_grad_norm: null`` (or 0) disables it.  The
+    gradient-projection trainer never effectively clips (its projection
+    overwrites the clipped gradient), so it gets None."""
+    if forget_loss and str(forget_loss).startswith("grad_proj"):
+        return None
+    v = cfg.get("max_grad_norm", 1.0)
+    return float(v) if v else None
+
+
+def dtype_of(cfg) -> torch.dtype:
+    """The model's dtype: ``dtype`` of the config (bfloat16 or float32)."""
+    name = str(cfg.get("dtype", "bfloat16"))
+    if name not in ("bfloat16", "float32"):
+        raise ValueError(f"dtype {name!r}: accepted values are bfloat16, float32")
+    return DTYPES[name]
+
+
+def parse_dtype(name):
+    """An optional dtype key (``merge_dtype``): None stays None; a name not
+    in bfloat16 / float16 / float32 raises ValueError.  Entry points call it
+    when they read the config, not when the value is first needed."""
+    if name is None:
+        return None
+    if not isinstance(name, str) or name not in DTYPES:
+        raise ValueError(f"unknown dtype {name!r}: accepted values are "
+                         f"{', '.join(sorted(DTYPES))} (or null)")
+    return DTYPES[name]
+
+
+def is_vlm(kind: str) -> bool:
+    return kind in VLM_KINDS
 
 
 def quantize_base_params(model: nn.Module, kind: str, spec) -> nn.Module:
@@ -27,6 +82,122 @@ def quantize_base_params(model: nn.Module, kind: str, spec) -> nn.Module:
     s = str(spec).strip().lower()
     bits = 4 if s.startswith("int4") else 8
     gs = int(s.split(":g", 1)[1]) if bits == 4 and ":g" in s else 128
-    quantize_tree_inplace(model.language_model if kind in VLM_KINDS else model, bits=bits,
+    quantize_tree_inplace(model.language_model if is_vlm(kind) else model, bits=bits,
                           group_size=gs)
     return model
+
+
+def model_tree(module: nn.Module) -> dict:
+    """A model's parameters as a nested dict at the JAX tree's paths
+    (int8 leaves as ``{"q", "s"}``, int4 as ``{"q4", "s"}``)."""
+    if isinstance(module, QTensor):
+        return {"q": module.q.detach(), "s": module.s.detach()}
+    if isinstance(module, QTensor4):
+        return {"q4": module.q4.detach(), "s": module.s.detach()}
+    out = {n: p.detach() for n, p in module.named_parameters(recurse=False)}
+    out.update({n: model_tree(c) for n, c in module.named_children()})
+    return out
+
+
+def _init_model(kind, mcfg, seed: int, dtype, device):
+    init = vlm_module(kind).init_params if is_vlm(kind) else decoder_module(mcfg).init_params
+    return init(mcfg, torch.Generator(device=device).manual_seed(int(seed)), device=device,
+                dtype=dtype)
+
+
+def init_or_load_params(model_cfg, model_path: str | None, seed: int = 0,
+                        dtype=torch.float32, device=None):
+    """(kind, mcfg, model) on ``device`` (the card unless the caller names
+    another): a quantized checkpoint under ``model_path`` if there is one,
+    else an HF-layout safetensors checkpoint there (three attempts), else a
+    random init from ``seed``.  A checkpoint is read tensor by tensor, each
+    copied once to the device in ``dtype``, and the model takes those
+    tensors as its parameters: the weights are on the device once."""
+    device = resolve_device(device)
+    kind = model_kind(model_cfg)
+    mcfg = build_model_config(model_cfg)
+    if model_path and checkpoints.quantized_checkpoint_exists(model_path):
+        tree, meta = checkpoints.load_quantized_checkpoint(model_path, dtype, device=device)
+        model = convert.from_jax(tree, mcfg, device=device, dtype=dtype)
+        print(f"Loaded quantized checkpoint ({meta.get('bits', 'int8')}) from {model_path}")
+        return kind, mcfg, model
+    if model_path and checkpoints.model_checkpoint_exists(model_path):
+        last_err = None
+        for attempt in range(3):
+            try:
+                sd = checkpoints.load_hf_checkpoint(model_path)
+                break
+            except OSError as e:  # a transient file-system error
+                last_err = e
+                print(f"checkpoint load attempt {attempt + 1} failed: {e}")
+        else:
+            raise last_err
+        try:
+            if kind == "llava":
+                tree = hf_bridge.llava_from_hf(sd, mcfg.decoder.num_layers,
+                                               mcfg.vision.num_layers, device=device, dtype=dtype)
+            elif kind == "llama":
+                tree = hf_bridge.llama_from_hf(sd, mcfg.num_layers, device=device, dtype=dtype)
+            else:
+                raise NotImplementedError(f"loading a {kind!r} checkpoint is not ported yet")
+        finally:
+            sd.close()
+        model = convert.from_jax(tree, mcfg, device=device, dtype=dtype)
+        print(f"Loaded checkpoint from {model_path}")
+        return kind, mcfg, model
+    model = _init_model(kind, mcfg, seed, dtype, device)
+    if model_path:
+        print(f"No checkpoint at {model_path}; using random init (zero-egress mode)")
+    return kind, mcfg, model
+
+
+def save_model(save_dir, model_cfg, params) -> None:
+    """``params`` (a model, or a dense dict tree such as ``merge_model``'s)
+    as ``model.safetensors`` in HF layout, plus ``config.json``."""
+    kind = model_kind(model_cfg)
+    mcfg = build_model_config(model_cfg)
+    tree = model_tree(params) if isinstance(params, nn.Module) else params
+    if kind == "llava":
+        sd = hf_bridge.llava_to_hf(tree, mcfg.vision.patch_size)
+    elif kind == "llama":
+        sd = hf_bridge.llama_to_hf(tree)
+    else:
+        raise NotImplementedError(f"saving a {kind!r} model is not ported yet")
+    arch = model_cfg["arch"]
+    checkpoints.save_hf_checkpoint(save_dir, sd, config={
+        "model_family_arch": arch.to_dict() if hasattr(arch, "to_dict") else dict(arch)})
+
+
+def build_processor(model_cfg, cfg=None, *, padding_side: str = "left") -> MMProcessor:
+    """The byte tokenizer and the family's chat template (llava) or tags
+    (text families).  Where the JAX package would load an HF tokenizer (a
+    ``processor_path`` or ``tokenizer_path`` directory holding
+    ``tokenizer*`` files, or any existing ``tokenizer_path`` of a text
+    family), that needs ``transformers``, which the port does not use: it
+    raises.  Any other path is ignored, as there."""
+    cfg = cfg or {}
+    vlm = is_vlm(model_kind(model_cfg))
+    tok_path = (cfg.get("processor_path") or cfg.get("tokenizer_path") if vlm
+                else cfg.get("tokenizer_path"))
+    if tok_path and Path(str(tok_path)).exists() and (
+            not vlm or any(Path(str(tok_path)).glob("tokenizer*"))):
+        raise NotImplementedError(
+            f"tokenizer at {tok_path}: loading an HF tokenizer needs `transformers`, which the "
+            "port does not use yet (byte tokenizer only)")
+    arch = model_cfg["arch"]
+    if vlm:
+        vision = arch["vision"]
+        tok = ByteTokenizer(vocab_size=int(arch["decoder"]["vocab_size"]),
+                            image_token=arch.get("image_token", "<image>"),
+                            image_token_id=int(arch["image_token_id"]))
+        return MMProcessor(tok, image_size=int(vision["image_size"]),
+                           num_image_tokens=(int(vision["image_size"])
+                                             // int(vision["patch_size"])) ** 2,
+                           chat_template=model_cfg.get("chat_template", "llava"),
+                           padding_side=padding_side)
+    tok = ByteTokenizer(vocab_size=int(arch["vocab_size"]),
+                        image_token_id=int(arch["vocab_size"]) - 1)
+    tags = {k: model_cfg.get(k, "") for k in
+            ("question_start_tag", "question_end_tag", "answer_tag")}
+    return MMProcessor(tok, chat_template="__tags__", tags=tags, padding_side=padding_side,
+                       image_size=32, num_image_tokens=0)

@@ -1,16 +1,47 @@
-"""MM unlearning entry point of the port: the model apply the train step
-differentiates.
+"""MM unlearning entry point of the port.
 
-Counterpart of ``multimodal_unlearning_tpu/cli/mm_forget.py``;
-``make_apply_fn`` only.  The run loop (config, data, checkpoints) is not
-ported yet.
+    python -m multimodal_unlearning_tpu_torch.cli.mm_forget model_family=llava \\
+        forget_data_path=synthetic retain_data_path=synthetic LoRA.r=8 ...
+
+Counterpart of ``multimodal_unlearning_tpu/cli/mm_forget.py``: reads
+``configs/mm/forget.yaml`` with ``key=value`` overrides (``--config-name``
+picks another file), builds the CLEAR forget/retain dataset and its
+collated loader, loads or initialises the model, takes forget steps through
+``train/trainer.py`` (on the card, kernels B1-B3 in the attention), writes
+train-state checkpoints (``resume_from_checkpoint=true`` resumes), and
+saves the merged model as an HF-layout ``model.safetensors`` that
+``cli/serve.py model_path=`` serves and the JAX package loads.  The card is
+the device unless ``+device=cpu`` is given.
+
+Ported: LoRA (``LoRA.r > 0``) over a dense or int8 (``quantize_base=true``)
+base, ``int8_compute``, ``int8_bwd``, ``quantize_teacher`` and the shared
+teacher, the losses ``train/losses.py`` has, ``merge_dtype``,
+``save_model``, ``save_adapters``, ``save_ckpts`` and resume.  Full-parameter
+forgetting (``LoRA.r=0``), an int4 base under LoRA, the other losses, L1/L0
+regularization, ``adamw_q8`` and mesh axes above 1 raise.
 """
 
 from __future__ import annotations
 
+import copy
+from functools import partial
+from pathlib import Path
+
 import torch
 
-from multimodal_unlearning_tpu_torch.models import VLM_KINDS
+from multimodal_unlearning_tpu_torch.cli import common
+from multimodal_unlearning_tpu_torch.config import main as config_main, save_config
+from multimodal_unlearning_tpu_torch.config.registry import config_dir, get_model_identifiers
+from multimodal_unlearning_tpu_torch.data import DataLoader, MMMixedForgetDataset
+from multimodal_unlearning_tpu_torch.data.prefetch import PrefetchLoader
+from multimodal_unlearning_tpu_torch.device import resolve_device
+from multimodal_unlearning_tpu_torch.models import VLM_KINDS, llama, vlm_module
+from multimodal_unlearning_tpu_torch.models import lora as lora_mod
+from multimodal_unlearning_tpu_torch.train import losses as L, optim, trainer
+from multimodal_unlearning_tpu_torch.train.checkpoints import save_adapter
+from multimodal_unlearning_tpu_torch.train.loop import compute_steps, train_loop
+from multimodal_unlearning_tpu_torch.utils.pytree import print_trainable_parameters
+from multimodal_unlearning_tpu_torch.utils.quantize import enable_int8_bwd
 
 
 def make_apply_fn(kind, mcfg, *, lora_cfg=None, remat=False, remat_policy=None,
@@ -51,3 +82,168 @@ def make_apply_fn(kind, mcfg, *, lora_cfg=None, remat=False, remat_policy=None,
         return {"logits": out["logits"], "captured": out["captured"]}
 
     return apply_fn
+
+
+def run(cfg):
+    try:
+        return _run(cfg)
+    finally:
+        # the int8 switches are module globals: never leak them into a later
+        # run in the same process
+        llama.enable_int8_compute(False)
+        enable_int8_bwd(False)
+
+
+def _qspec(v) -> str:
+    return "int4" if str(v).strip().lower().startswith("int4") else "int8"
+
+
+def _check_ported(cfg, use_lora: bool) -> None:
+    """Options of the JAX CLI that the port does not have yet raise before
+    any work is done."""
+    if not use_lora:
+        raise NotImplementedError(
+            "full-parameter forgetting (LoRA.r=0, or L1 regularization from zero) is not "
+            "ported yet: it needs partition_tree/merge_trees and AdamW over the dense tree")
+    if cfg.get("quantize_base") and _qspec(cfg.quantize_base) == "int4":
+        raise NotImplementedError("quantize_base=int4 under LoRA needs int4 training "
+                                  "(dx through the W4A16 product), which is not ported yet")
+    loss = str(cfg.forget_loss)
+    if loss.lower() in L.UNPORTED_LOSSES:
+        raise NotImplementedError(f"forget_loss={loss} is not ported yet (retain_ft, "
+                                  "grad_ascent and the grad_diff_* losses are)")
+    if cfg.get("l1_lambda", 0) or cfg.get("l0_lambda", 0):
+        raise NotImplementedError("l1_lambda / l0_lambda need l_regularization, which is not "
+                                  "ported yet")
+    if cfg.get("optimizer", "adamw") in ("adamw_q8", "adamw_bnb_8bit"):
+        raise NotImplementedError(f"optimizer={cfg.optimizer} (int8 blockwise moments) is not "
+                                  "ported yet")
+    mesh = cfg.get("mesh") or {}
+    big = {k: v for k, v in mesh.items() if v is not None and int(v) > 1}
+    if big:
+        raise NotImplementedError(f"mesh axes above 1 ({big}) need multi-GPU, which is not "
+                                  "ported yet")
+
+
+def _run(cfg):
+    device = resolve_device(cfg.get("device"))
+    model_cfg = get_model_identifiers(cfg.model_family)
+    dtype = common.dtype_of(cfg)
+    merge_dtype = common.parse_dtype(cfg.get("merge_dtype"))
+    # LoRA gating rule (mm/forget.py:126)
+    use_lora = cfg.LoRA.r != 0 and (cfg.get("l_norm_from") != "zero"
+                                   or cfg.get("l1_lambda", 0) == 0)
+    _check_ported(cfg, use_lora)
+    print(f"device: {device}")
+
+    save_dir = Path(cfg.save_dir)
+    if save_dir.exists() and not cfg.get("overwrite_dir", True):
+        print("Directory already exists")
+        return
+    save_dir.mkdir(parents=True, exist_ok=True)
+    save_config(cfg, save_dir / "config.yaml")
+
+    processor = common.build_processor(model_cfg, cfg)
+    dataset = MMMixedForgetDataset(
+        forget_data_path=cfg.forget_data_path, retain_data_path=cfg.retain_data_path,
+        retain_split=cfg.retain_split, forget_split=cfg.forget_split,
+        forget_loss=cfg.forget_loss, seed=cfg.seed, idk_fix=bool(cfg.get("idk_fix", False)))
+    collate = partial(processor.collate_forget, max_length=cfg.max_length)
+    loader = PrefetchLoader(DataLoader(dataset, cfg.batch_size * cfg.gradient_accumulation_steps,
+                                       collate, shuffle=True, seed=cfg.seed), depth=2)
+    steps_per_epoch, max_steps = compute_steps(
+        len(dataset), cfg.batch_size, cfg.gradient_accumulation_steps, 1, cfg.num_epochs)
+    max_steps = max(max_steps, 1)
+    print(f"max_steps: {max_steps}")
+
+    kind, mcfg, model = common.init_or_load_params(model_cfg, cfg.get("model_path"),
+                                                   seed=cfg.seed, dtype=dtype, device=device)
+    needs_teacher = L.loss_needs_teacher(cfg.forget_loss)
+    # under LoRA the base is frozen: when base and teacher want the same
+    # precision, the teacher IS the quantized base (no second copy)
+    share_teacher = bool(needs_teacher and cfg.get("quantize_base")
+                         and cfg.get("quantize_teacher")
+                         and _qspec(cfg.quantize_base) == _qspec(cfg.quantize_teacher))
+    teacher = None
+    if needs_teacher and not share_teacher:
+        teacher = copy.deepcopy(model)
+        if cfg.get("quantize_teacher"):
+            teacher = common.quantize_base_params(teacher, kind, cfg.quantize_teacher)
+
+    remat = str(model_cfg.get("gradient_checkpointing", "false")) == "true"
+    if cfg.get("remat") is not None:  # the config overrides the registry's flag
+        remat = bool(cfg.remat)
+    remat_policy = cfg.get("remat_policy") or None
+    attn_impl = "auto" if str(model_cfg.get("flash_attention2", "true")) == "true" else "plain"
+
+    # LLaVA reads the vision tower's hidden_states[vision_feature_layer]: the
+    # layers above it get no gradients and no weight decay
+    reach = (lambda p: vlm_module(kind).reachable_mask(p, mcfg)) if kind == "llava" else None
+    tx = optim.make_optimizer(
+        cfg.get("optimizer", "adamw"), float(cfg.lr),
+        weight_decay=float(cfg.get("weight_decay", 0.0)),
+        warmup_steps=max(1, steps_per_epoch), total_steps=max_steps,
+        max_grad_norm=common.max_grad_norm_of(cfg), reachable_mask=reach)
+
+    scale = lora_mod.lora_scale(cfg.LoRA.r, cfg.LoRA.alpha)
+    # projector adapters are on by default (every linear but lm_head);
+    # LoRA.projector=false opts out
+    adapters = lora_mod.init_model_lora(
+        model, cfg.LoRA.r, torch.Generator(device=device).manual_seed(int(cfg.seed)),
+        projector=bool(cfg.LoRA.get("projector", True)))
+    print_trainable_parameters(adapters, model)
+    if cfg.get("quantize_base"):
+        model = common.quantize_base_params(model, kind, cfg.quantize_base)
+        if cfg.get("int8_compute"):
+            llama.enable_int8_compute(True)  # W8A8 on the frozen matmuls
+        if cfg.get("int8_bwd"):
+            enable_int8_bwd(True)  # the dx backward as an int8 product too
+    if share_teacher:
+        teacher = model
+    apply_fn = make_apply_fn(kind, mcfg, lora_cfg=scale, remat=remat,
+                             remat_policy=remat_policy, attn_impl=attn_impl,
+                             compute_dtype=dtype)
+    step_fn = trainer.make_train_step(
+        apply_fn, tx, loss_type=cfg.forget_loss, beta=float(cfg.get("loss_beta", 1.0)),
+        grad_accum=cfg.gradient_accumulation_steps, combine=lambda tr, fr: (fr, tr))
+    state = trainer.create_train_state(adapters, tx)
+
+    def on_save(state_snapshot, step_i):
+        # model-only checkpoints once per epoch, in merge_dtype like the last
+        snap = lora_mod.merge_model(model, state_snapshot.trainable, scale,
+                                    out_dtype=merge_dtype)
+        common.save_model(save_dir / f"checkpoint-{step_i}", model_cfg, snap)
+
+    state, history = train_loop(
+        train_step=step_fn, state=state, frozen=model, teacher_params=teacher,
+        dataloader=loader, device=device, grad_accum=cfg.gradient_accumulation_steps,
+        max_steps=max_steps, logging_steps=max(1, int(0.01 * max_steps)),
+        on_save=on_save if cfg.get("save_ckpts") else None,
+        save_steps=max(1, steps_per_epoch),
+        state_ckpt_dir=str(save_dir / "train_state"),
+        ckpt_async=bool(cfg.get("ckpt_async", True)),
+        ckpt_keep=int(cfg.get("ckpt_keep", 0) or 0) or None,
+        resume=bool(cfg.get("resume_from_checkpoint")),
+        profile_dir=str(save_dir / "profile") if cfg.get("profile") else None)
+
+    if cfg.get("save_model", True):
+        # consume=True: merge leaf by leaf to the host, freeing the base (and
+        # the teacher sharing it) as it goes
+        del teacher
+        final = lora_mod.merge_model(model, state.trainable, scale, consume=True,
+                                     out_dtype=merge_dtype)
+        common.save_model(save_dir, model_cfg, final)
+        del final
+        print(f"Saved model to {save_dir}")
+    if cfg.get("save_adapters"):
+        # the raw adapters beside the merged model, for multi-LoRA serving
+        save_adapter(save_dir / "adapter", state.trainable, scale,
+                     meta={"forget_loss": str(cfg.forget_loss)})
+        print(f"Saved raw LoRA adapter to {save_dir / 'adapter'}")
+    return history
+
+
+main = config_main(config_dir() / "mm", "forget")(run)
+
+if __name__ == "__main__":
+    main()

@@ -23,16 +23,20 @@ only their own suffix against it).
 pool's peak pages and preemptions.
 
 Overrides are ``key=value`` (dotted keys reach nested ones, e.g.
-``generation.max_new_tokens=64``) onto the defaults of
-``configs/mm/serve.yaml``, copied below for the keys this port reads.
-Weights are random, drawn from ``seed`` (loading checkpoints is not
-ported yet), and the tokenizer is the byte tokenizer.  ``device`` picks
-the device: the card unless ``device=cpu``.
+``generation.max_new_tokens=64``) onto ``configs/mm/serve.yaml``, read as
+every entry point of the port reads its file (``config/loader.py``).
+``model_path`` names a checkpoint directory (an HF-layout
+``model.safetensors``, e.g. what ``cli/mm_forget.py`` saves, or a quantized
+checkpoint), loaded straight to the device in ``dtype`` and then quantized
+as ``quantize_base`` asks; without one the weights are random, drawn from
+``seed``.  The tokenizer is the byte tokenizer: as in the JAX package, a
+``processor_path`` (by default ``model_path``) is read only where it holds
+``tokenizer*`` files, and those need ``transformers``: that raises.
+``device`` picks the device: the card unless ``device=cpu``.
 """
 
 from __future__ import annotations
 
-import copy
 import json
 import sys
 import time
@@ -40,99 +44,25 @@ import time
 import numpy as np
 import torch
 
-from multimodal_unlearning_tpu_torch.cli.common import quantize_base_params
+from multimodal_unlearning_tpu_torch.cli.common import (
+    build_processor, dtype_of, init_or_load_params, quantize_base_params)
 from multimodal_unlearning_tpu_torch.config import (
-    build_model_config, get_model_identifiers, model_kind)
-from multimodal_unlearning_tpu_torch.data import ByteTokenizer, MMProcessor, preprocess_image
+    Config, build_model_config, config_dir, get_model_identifiers, loader, model_kind)
+from multimodal_unlearning_tpu_torch.data import preprocess_image
 from multimodal_unlearning_tpu_torch.device import resolve_device
-from multimodal_unlearning_tpu_torch.models import VLM_KINDS, decoder_module, vlm_module
+from multimodal_unlearning_tpu_torch.models import VLM_KINDS
 from multimodal_unlearning_tpu_torch.serve import ServingEngine
 from multimodal_unlearning_tpu_torch.utils.quantize import tree_nbytes
 
-# configs/mm/serve.yaml, the keys this port reads (plus ``device``)
-DEFAULTS = {
-    "model_family": "llava",
-    "model_path": None,
-    "processor_path": None,
-    "requests": "requests.jsonl",
-    "save_file": "completions.jsonl",
-    "num_slots": 8,
-    "max_length": 2048,
-    "chunk": 16,
-    "speculative_k": 0,
-    "spec_ref_len": 128,
-    "temperature": 0.0,
-    "top_k": 0,
-    "top_p": 1.0,
-    "prefill_chunk": 0,
-    "page_size": 0,
-    "kv_pool_pages": 0,
-    "logprobs": False,
-    "system_prompt": None,
-    "adapters": None,
-    "generation": {"max_new_tokens": 300},
-    "dtype": "bfloat16",
-    "quantize_base": True,
-    "kv_cache_dtype": None,
-    "seed": 42,
-    "host": "127.0.0.1",  # cli/serve_http.py bind address
-    "port": 8000,         # cli/serve_http.py port (0 = any free one)
-    "device": None,
-}
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def _parse_value(text: str):
-    low = text.strip().lower()
-    if low in ("null", "none", "~", ""):
-        return None
-    if low in ("true", "false"):
-        return low == "true"
-    for cast in (int, float):
-        try:
-            return cast(text)
-        except ValueError:
-            pass
-    return text.strip().strip("'\"")
-
-
-def load_config(argv=None) -> dict:
-    """DEFAULTS with ``key=value`` overrides applied; unknown keys raise."""
-    cfg = copy.deepcopy(DEFAULTS)
-    for arg in (sys.argv[1:] if argv is None else argv):
-        key, sep, val = arg.partition("=")
-        if not sep:
-            raise ValueError(f"override {arg!r} is not key=value")
-        *parents, leaf = key.split(".")
-        node = cfg
-        for p in parents:
-            if not isinstance(node.get(p), dict):
-                raise KeyError(f"unknown config key {key!r}")
-            node = node[p]
-        if leaf not in node:
-            raise KeyError(f"unknown config key {key!r}; known: {sorted(node)}")
-        node[leaf] = _parse_value(val)
-    return cfg
-
-
-def build_processor(model_cfg) -> MMProcessor:
-    arch = model_cfg["arch"]
-    if model_kind(model_cfg) in VLM_KINDS:
-        vision = arch["vision"]
-        tok = ByteTokenizer(vocab_size=int(arch["decoder"]["vocab_size"]),
-                            image_token=arch.get("image_token", "<image>"),
-                            image_token_id=int(arch["image_token_id"]))
-        return MMProcessor(tok, image_size=int(vision["image_size"]),
-                           num_image_tokens=(int(vision["image_size"])
-                                             // int(vision["patch_size"])) ** 2,
-                           chat_template=model_cfg.get("chat_template", "llava"))
-    tok = ByteTokenizer(vocab_size=int(arch["vocab_size"]),
-                        image_token_id=int(arch["vocab_size"]) - 1)
-    tags = {k: model_cfg.get(k, "") for k in
-            ("question_start_tag", "question_end_tag", "answer_tag")}
-    return MMProcessor(tok, chat_template="__tags__", tags=tags, image_size=32,
-                       num_image_tokens=0)
+def load_config(argv=None) -> Config:
+    """``configs/mm/serve.yaml`` with ``key=value`` overrides (``sys.argv``
+    unless ``argv`` is given), read as ``cli/mm_forget.py`` reads its file;
+    unknown keys raise.  ``device``, the port's own key, is there too,
+    null (the card) unless overridden."""
+    cfg = loader.load_config(config_dir() / "mm", "serve")
+    dict.setdefault(cfg, "device", None)
+    return loader.apply_overrides(cfg, list(sys.argv[1:] if argv is None else argv))
 
 
 def build_engine(cfg: dict, *, model=None, **engine_kw):
@@ -142,32 +72,21 @@ def build_engine(cfg: dict, *, model=None, **engine_kw):
     ``quantize_base`` it is quantized in place (a quantized one passes
     through).  ``engine_kw`` passes extra ServingEngine arguments
     (``attn_impl``, ``on_prefill``)."""
-    unported = {
-        "model_path": bool(cfg.get("model_path")),
-        "processor_path": bool(cfg.get("processor_path")),
-    }
-    asked = [k for k, v in unported.items() if v]
-    if asked:
-        raise NotImplementedError(
-            f"serve options not ported yet: {asked} (random weights from the seed, byte "
-            "tokenizer)")
-    dtype = DTYPES[str(cfg.get("dtype", "bfloat16"))]
+    dtype = dtype_of(cfg)
     device = resolve_device(cfg.get("device"))
     model_cfg = get_model_identifiers(cfg["model_family"])
-    kind = model_kind(model_cfg)
-    mcfg = build_model_config(model_cfg)
+    processor = build_processor(model_cfg, cfg)
     if model is None:
-        init = (vlm_module(kind).init_params if kind in VLM_KINDS
-                else decoder_module(mcfg).init_params)
-        seed = int(cfg.get("seed") or 0)
-        model = init(mcfg, torch.Generator(device=device).manual_seed(seed), device=device,
-                     dtype=dtype)
-    elif model.cfg != mcfg:
-        raise ValueError(f"the model given is not a {cfg['model_family']} model")
+        kind, mcfg, model = init_or_load_params(model_cfg, cfg.get("model_path"),
+                                                seed=int(cfg.get("seed") or 0), dtype=dtype,
+                                                device=device)
+    else:
+        kind, mcfg = model_kind(model_cfg), build_model_config(model_cfg)
+        if model.cfg != mcfg:
+            raise ValueError(f"the model given is not a {cfg['model_family']} model")
     if cfg.get("quantize_base"):
         model = quantize_base_params(model, kind, cfg["quantize_base"])
     cache_dtype = torch.int8 if str(cfg.get("kv_cache_dtype") or "") == "int8" else dtype
-    processor = build_processor(model_cfg)
     tok = processor.tokenizer
     engine = ServingEngine(
         model, mcfg, kind,

@@ -1,10 +1,5 @@
-"""Model configurations and the presets this port serves.
-
-The JAX package reads ``configs/model_config.yaml`` through PyYAML.  The
-port carries the entries it needs as Python data instead (the GPU machine
-has no PyYAML); ``tests/test_torch_rules.py`` holds each preset equal to
-the YAML registry.
-"""
+"""Model configurations, built from a registry entry
+(``config/registry.py``)."""
 
 from __future__ import annotations
 
@@ -95,100 +90,6 @@ class LlavaConfig:
             vision_feature_layer=int(arch.get("vision_feature_layer", -2)),
             vision_feature_select=str(arch.get("vision_feature_select", "patch")),
         )
-
-
-# configs/model_config.yaml entries, the keys this port reads
-PRESETS: dict[str, dict] = {
-    "llava": {
-        "chat_template": "llava",
-        "arch": {
-            "kind": "llava",
-            "image_token": "<image>",
-            "image_token_id": 32000,
-            "vision_feature_layer": -2,
-            "vision_feature_select": "patch",
-            "decoder": {
-                "decoder": "llama",
-                "vocab_size": 32064,
-                "hidden_size": 4096,
-                "intermediate_size": 11008,
-                "num_layers": 32,
-                "num_heads": 32,
-                "num_kv_heads": 32,
-                "rope_theta": 10000.0,
-                "max_position_embeddings": 4096,
-                "rms_norm_eps": 1.0e-5,
-            },
-            "vision": {
-                "hidden_size": 1024,
-                "intermediate_size": 4096,
-                "num_layers": 24,
-                "num_heads": 16,
-                "patch_size": 14,
-                "image_size": 336,
-                "layer_norm_eps": 1.0e-5,
-            },
-            "projector": {"type": "mlp2x_gelu"},
-        },
-    },
-    "tiny-llava-test": {
-        "chat_template": "llava",
-        "arch": {
-            "kind": "llava",
-            "image_token": "<image>",
-            "image_token_id": 250,
-            "vision_feature_layer": -2,
-            "vision_feature_select": "patch",
-            "decoder": {
-                "decoder": "llama",
-                "vocab_size": 256,
-                "hidden_size": 64,
-                "intermediate_size": 128,
-                "num_layers": 2,
-                "num_heads": 4,
-                "num_kv_heads": 2,
-                "rope_theta": 10000.0,
-                "max_position_embeddings": 512,
-                "rms_norm_eps": 1.0e-5,
-            },
-            "vision": {
-                "hidden_size": 32,
-                "intermediate_size": 64,
-                "num_layers": 2,
-                "num_heads": 2,
-                "patch_size": 8,
-                "image_size": 32,
-                "layer_norm_eps": 1.0e-5,
-            },
-            "projector": {"type": "mlp2x_gelu"},
-        },
-    },
-    "tiny-llama-test": {
-        "question_start_tag": "[INST] ",
-        "question_end_tag": " [/INST]",
-        "answer_tag": "",
-        "arch": {
-            "decoder": "llama",
-            "vocab_size": 256,
-            "hidden_size": 64,
-            "intermediate_size": 128,
-            "num_layers": 2,
-            "num_heads": 4,
-            "num_kv_heads": 2,
-            "rope_theta": 10000.0,
-            "max_position_embeddings": 256,
-            "rms_norm_eps": 1.0e-5,
-        },
-    },
-}
-
-
-def get_model_identifiers(model_family: str) -> dict:
-    if model_family not in PRESETS:
-        raise KeyError(
-            f"Unknown model family {model_family!r} for the PyTorch port; "
-            f"known: {sorted(PRESETS)}")
-    return PRESETS[model_family]
 
 
 def model_kind(model_cfg) -> str:

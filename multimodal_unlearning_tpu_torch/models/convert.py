@@ -4,8 +4,9 @@ The input is the nested dict that ``multimodal_unlearning_tpu``'s
 ``llama.init_params`` / ``vit.init_params`` / ``llava.init_params`` return,
 with numpy arrays as leaves (``jax.tree.map(np.asarray, params)``):
 ``[in, out]`` weight layouts, layers stacked on a leading L dimension.
-The port's modules keep exactly that layout, so conversion copies leaf by
-leaf and checks that every parameter is covered and every shape agrees.
+The port's modules keep exactly that layout, so conversion puts the leaves
+one by one into a model built without storage, and checks that every
+parameter is covered and every shape agrees.
 
 A quantized tree (``utils/quantize.py``: ``{"q": int8, "s": f32}`` or grouped
 int4 ``{"q4": int8, "s": f32}`` leaves) crosses with its int8 storage: the
@@ -26,17 +27,32 @@ from multimodal_unlearning_tpu_torch.utils.quantize import (
     QTensor, QTensor4, in_contiguous, is_qtensor)
 
 
+def _as_tensor(val, dtype=None):
+    """A leaf as a tensor: a tensor passes as it is (``copy_`` casts it), an
+    array-like (numpy, JAX) is copied into ``dtype`` (numpy views may be
+    read-only)."""
+    if isinstance(val, torch.Tensor):
+        return val
+    arr = np.array(val)
+    return torch.from_numpy(arr if dtype is None else arr.astype(
+        torch.empty((), dtype=dtype).numpy().dtype))
+
+
 @torch.no_grad()
-def load_tree(module: torch.nn.Module, tree: dict) -> None:
-    """Copy the leaves of ``tree`` into the same-named parameters of
-    ``module``; every parameter must be covered, with its own shape."""
+def load_tree(module: torch.nn.Module, tree: dict, *, device, dtype) -> None:
+    """Put the leaves of ``tree`` into the same-named parameters of
+    ``module``, a model built on the meta device (shapes, no storage): a
+    float leaf becomes the parameter, on ``device`` in ``dtype`` (a tensor
+    already there is taken as it is, so a loaded checkpoint is never copied
+    again), a quantized leaf a ``QTensor`` / ``QTensor4``.  Every parameter
+    must be covered, with its own shape."""
     seen = set()
 
     def walk(node, sub, prefix):
         for key, val in sub.items():
             path = prefix + key
             if is_qtensor(val):
-                _load_quantized(node, key, val, path)
+                _load_quantized(node, key, val, path, device)
                 seen.update(f"{path}.{k}" for k in val)
                 continue
             if isinstance(val, dict):
@@ -45,10 +61,11 @@ def load_tree(module: torch.nn.Module, tree: dict) -> None:
             target = getattr(node, key, None)
             if not isinstance(target, torch.nn.Parameter):
                 raise KeyError(f"{path}: the port's model has no such parameter")
-            arr = np.array(val, dtype=np.float32)  # a writable copy
+            arr = _as_tensor(val, torch.float32)
             if tuple(arr.shape) != tuple(target.shape):
-                raise ValueError(f"{path}: shape {arr.shape} != {tuple(target.shape)}")
-            target.copy_(torch.from_numpy(arr))
+                raise ValueError(f"{path}: shape {tuple(arr.shape)} != {tuple(target.shape)}")
+            setattr(node, key, torch.nn.Parameter(
+                arr.to(device=device, dtype=dtype).contiguous(), requires_grad=False))
             seen.add(path)
 
     walk(module, tree, "")
@@ -57,26 +74,24 @@ def load_tree(module: torch.nn.Module, tree: dict) -> None:
         raise KeyError(f"parameters missing from the JAX tree: {sorted(missing)}")
 
 
-def _load_quantized(node, key, leaf, path):
-    """Replace the float parameter ``node.<key>`` by a ``QTensor`` holding
-    the leaf's int8 values and f32 scales, or by a ``QTensor4`` holding a
+def _load_quantized(node, key, leaf, path, device):
+    """Replace the parameter ``node.<key>`` by a ``QTensor`` holding the
+    leaf's int8 values and f32 scales, or by a ``QTensor4`` holding a
     grouped-int4 leaf's packed bytes [.., in/2, out] and group scales."""
     target = getattr(node, key, None)
     if not isinstance(target, (torch.nn.Parameter, QTensor, QTensor4)):
         raise KeyError(f"{path}: the port's model has no such parameter")
     int4 = "q4" in leaf
-    q = np.array(leaf["q4"] if int4 else leaf["q"])
-    s = np.array(leaf["s"], dtype=np.float32)
+    q = _as_tensor(leaf["q4"] if int4 else leaf["q"])
+    s = _as_tensor(leaf["s"], torch.float32)
     shape = tuple(target.shape)
     if int4 and isinstance(target, torch.nn.Parameter):
         shape = shape[:-2] + (shape[-2] // 2, shape[-1])  # the packed [.., in/2, out]
-    if q.dtype != np.int8 or tuple(q.shape) != shape:
-        raise ValueError(f"{path}: quantized leaf {q.dtype}{q.shape} != int8{shape}")
-    device = (target if isinstance(target, torch.nn.Parameter) else target.s).device
+    if q.dtype != torch.int8 or tuple(q.shape) != shape:
+        raise ValueError(f"{path}: quantized leaf {q.dtype}{tuple(q.shape)} != int8{shape}")
     delattr(node, key)
     cls = QTensor4 if int4 else QTensor
-    setattr(node, key, cls(in_contiguous(torch.from_numpy(q).to(device)),
-                           torch.from_numpy(s).to(device)))
+    setattr(node, key, cls(in_contiguous(q.to(device)), s.to(device)))
 
 
 def adapters_from_jax(tree: dict, *, device=None, dtype=torch.float32) -> dict:
@@ -92,14 +107,22 @@ def adapters_from_jax(tree: dict, *, device=None, dtype=torch.float32) -> dict:
 
 def from_jax(tree: dict, cfg, *, device=None, dtype=torch.float32):
     """The port's model for ``cfg`` (LlamaConfig, VitConfig or LlavaConfig)
-    holding the weights of the JAX parameter tree ``tree``."""
+    holding the weights of the parameter tree ``tree``: a JAX tree as numpy
+    arrays, or a tree of tensors at the same paths (a loaded checkpoint,
+    whose tensors on ``device`` in ``dtype`` become the parameters as they
+    are).  The model is built without storage and takes its leaves one by
+    one, so only the tree's own copy of the weights is ever on the device."""
+    device = resolve_device(device)
     if isinstance(cfg, LlavaConfig):
-        model = llava.Llava(cfg, device=device, dtype=dtype)
+        model = llava.Llava(cfg, device="meta", dtype=dtype)
     elif isinstance(cfg, LlamaConfig):
-        model = llama.Llama(cfg, device=device, dtype=dtype)
+        model = llama.Llama(cfg, device="meta", dtype=dtype)
     elif isinstance(cfg, VitConfig):
-        model = vit.Vit(cfg, device=device, dtype=dtype)
+        model = vit.Vit(cfg, device="meta", dtype=dtype)
     else:
         raise NotImplementedError(f"no converter for {type(cfg).__name__}")
-    load_tree(model, tree)
+    load_tree(model, tree, device=device, dtype=dtype)
+    for m in model.modules():
+        if isinstance(m, llama.Llama):
+            m.make_rope_tables(device)
     return model

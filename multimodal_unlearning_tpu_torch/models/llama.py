@@ -279,7 +279,15 @@ class Llama(ParamTree):
             "lm_head": (h, cfg.vocab_size),
         }, device=dev, dtype=dtype)
         self.cfg = cfg
-        cos, sin = rope_table(cfg.max_position_embeddings, d, cfg.rope_theta, device=dev)
+        self.make_rope_tables(dev)
+
+    def make_rope_tables(self, device) -> None:
+        """The f32 rope tables (buffers ``rope_cos`` / ``rope_sin``) on
+        ``device``; a model built on the meta device makes them again on its
+        real one."""
+        cfg = self.cfg
+        cos, sin = rope_table(cfg.max_position_embeddings, cfg.head_dim, cfg.rope_theta,
+                              device=device)
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
 

@@ -17,9 +17,34 @@ from multimodal_unlearning_tpu_torch.config import LlavaConfig
 from multimodal_unlearning_tpu_torch.device import resolve_device
 from multimodal_unlearning_tpu_torch.models import llama, vit
 from multimodal_unlearning_tpu_torch.models.params import ParamTree
+from multimodal_unlearning_tpu_torch.utils.pytree import tree_map_with_path
 from multimodal_unlearning_tpu_torch.utils.quantize import embed_lookup, is_qtensor
 
-__all__ = ["LlavaConfig", "Llava", "init_params", "project", "splice_image_embeds"]
+__all__ = ["LlavaConfig", "Llava", "init_params", "project", "splice_image_embeds",
+           "reachable_mask"]
+
+
+def reachable_mask(params: dict, cfg: LlavaConfig) -> dict:
+    """Per-leaf factors (True / False, or [L, 1, ..] 1/0 tensors) marking
+    the leaves of a dict tree that the loss reaches.  LLaVA reads the vision
+    tower's ``hidden_states[vision_feature_layer]``, so the blocks at or
+    above it get no gradient, and torch's AdamW, which skips parameters with
+    no ``.grad``, never decays them; a functional optimizer sees zero
+    gradients and would.  For ``optim.make_optimizer(reachable_mask=...)``."""
+    L = cfg.vision.num_layers
+    cut = (L + 1 + cfg.vision_feature_layer) if cfg.vision_feature_layer < 0 \
+        else cfg.vision_feature_layer
+
+    def leaf_mask(path, leaf):
+        keys = [str(k) for k in path]
+        if keys[:2] == ["vision_tower", "layers"]:
+            used = (torch.arange(L, device=leaf.device) < cut).to(torch.float32)
+            return used.reshape((L,) + (1,) * (leaf.ndim - 1))
+        if keys[:2] == ["vision_tower", "post_ln"]:
+            return False  # CLIP's post_layernorm only feeds the pooled output
+        return True
+
+    return tree_map_with_path(leaf_mask, params)
 
 
 def project(params, feats, lora=None, lora_scale: float = 0.0):

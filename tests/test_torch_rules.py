@@ -59,7 +59,10 @@ def test_port_imports_with_jax_blocked():
     for name in ("serve.engine", "serve.http", "cli.serve_http", "ops.paged_attention",
                  "ops.int4_matmul",
                  "train.trainer", "train.losses", "train.optim", "utils.quantize",
-                 "utils.pytree", "models.lora", "cli.mm_forget", "bench"):
+                 "utils.pytree", "models.lora", "cli.mm_forget", "bench",
+                 "config.loader", "config.registry", "utils.native",
+                 "data.datasets", "data.loader", "data.prefetch",
+                 "train.checkpoints", "train.loop", "models.hf_bridge"):
         assert f"multimodal_unlearning_tpu_torch.{name}" in mods
 
 
@@ -90,6 +93,14 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.adapters_from_jax({"a": [[0.0]]})
+    from multimodal_unlearning_tpu_torch.cli import mm_forget
+    from multimodal_unlearning_tpu_torch.config import load_config
+    from multimodal_unlearning_tpu_torch.config.registry import config_dir
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mm_forget.run(load_config(config_dir() / "mm", "forget", [
+            "model_family=tiny-llava-test", "LoRA.r=4", "forget_data_path=synthetic",
+            "retain_data_path=synthetic", "save_dir=/nonexistent/never-created"]))
 
 
 @pytest.mark.parametrize("option", [
@@ -118,32 +129,38 @@ def test_ported_engine_options_construct(option):
     ServingEngine(model, cfg, "llava", device="cpu", **option)
 
 
-@pytest.mark.parametrize("override", ["model_path=/nonexistent", "processor_path=/nonexistent"])
-def test_unported_serve_options_raise(override):
+@pytest.mark.parametrize("key", ["processor_path"])
+def test_unported_serve_options_raise(key, tmp_path):
+    """A directory with HF tokenizer files, which the JAX package would load
+    with ``transformers``: the port raises.  (A path without them is ignored,
+    there as here: serve.yaml's ``processor_path`` is ``model_path``.)"""
     from multimodal_unlearning_tpu_torch.cli import serve
 
+    (tmp_path / "tokenizer.json").write_text("{}")
     cfg = serve.load_config(["model_family=tiny-llava-test", "device=cpu",
-                             "quantize_base=false", override])
+                             "quantize_base=false", f"{key}={tmp_path}"])
     with pytest.raises(NotImplementedError):
         serve.build_engine(cfg)
 
 
-@pytest.mark.parametrize("override", ["quantize_base=int4", "quantize_base=int4:g64"])
-def test_ported_serve_options_construct(override):
+@pytest.mark.parametrize("override", ["quantize_base=int4", "quantize_base=int4:g64",
+                                      "model_path=/nonexistent"])
+def test_ported_serve_options_construct(override, capsys):
+    """``model_path`` loads a checkpoint; where there is none the weights
+    come from the seed, with the JAX package's message."""
     from multimodal_unlearning_tpu_torch.cli import serve
 
     cfg = serve.load_config(["model_family=tiny-llava-test", "device=cpu", override])
     serve.build_engine(cfg)
+    if override.startswith("model_path"):
+        assert ("No checkpoint at /nonexistent; using random init (zero-egress mode)"
+                in capsys.readouterr().out)
 
 
 @pytest.mark.parametrize("name", sorted(tconfig.PRESETS))
 def test_presets_equal_the_registry(name):
-    entry = get_model_identifiers(name)
-    preset = tconfig.PRESETS[name]
-    assert preset["arch"] == entry.arch.to_dict()
-    for key, val in preset.items():
-        if key != "arch":
-            assert entry[key] == val, key
+    """The port's registry entry, fully resolved, is the JAX package's."""
+    assert tconfig.get_model_identifiers(name).to_dict() == get_model_identifiers(name).to_dict()
 
 
 def test_no_fallback_off_the_cpu():
