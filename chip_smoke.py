@@ -107,8 +107,24 @@ a result line.)
    free disk, the peak memory (the CLI's, the host's, the load's) and
    whether the native host library is live (the CLI prints its steps/s,
    tok/s and host time per step).
-6. Prints one ``{"kernels": [...]}`` line (twelve kernels), the card's name and power limit,
-   and as the last line ``{"ok": true, "device": {...}}``.
+6. CLEAR's recipe through the CLIs, LLaVA-1.5-7B at full width and depth from
+   seed 42, synthetic CLEAR data (``RECIPE_DATA``): 6a ``cli.mm_finetune.main``
+   (``FINETUNE_CLI_ARGS``: LoRA r 8 over the bf16 base, 3 steps, merged and saved
+   in bf16 to a temporary directory); 6b ``cli.mm_forget.main`` on that
+   checkpoint (``R0_FORGET_CLI_ARGS``: ``LoRA.r=0`` with the vision tower frozen,
+   NPO, ``adamw_q8``, a bf16 teacher, 3 steps, no save); 6c on the student,
+   teacher and state 6b leaves: NPO's first batch on the kernels and on plain
+   attention (loss within 0.05, cosine >= 0.95 on every gradient leaf),
+   ``adamw_q8``'s update and the teacher's forward timed alone, then one step
+   each of scrub, KL, llmu, rmu, dpo, sku, idk and eco_ft with their own splits
+   and of grad_ascent with L1 from the initial model under plain AdamW.  Every
+   loss and gradient norm finite, no step skipped, NPO's loss moving, the
+   trainable leaves moved and the vision tower equal bit for bit to the loaded
+   one, B1/B2/B3 launched exactly as each loss's splits give, peak memory under
+   ``PEAK_BOUND_GIB``; steps/s and tok/s per CLI step, ms and launches per loss.
+7. Prints one ``{"kernels": [...]}`` line (twelve kernels; B1-B3 with phase 6's
+   launches), the card's name and power limit, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; without a CUDA device it exits 1 before doing anything.
@@ -121,6 +137,7 @@ import contextlib
 import gc
 import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1972,6 +1989,383 @@ def run_forget_cli_path(specs, args=FORGET_CLI_ARGS, serve_base=SERVE_ARGS, pick
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------- phase 6
+# CLEAR's recipe through the CLIs a user calls, LLaVA-1.5-7B at full width and
+# depth from seed 42: finetune (LoRA r 8 over the bf16 base, merged bf16
+# save), then forget from that checkpoint at LoRA.r=0 (the model's own
+# parameters in place, the vision tower frozen) with NPO, adamw_q8 and a bf16
+# teacher, then one step of each other loss on what that run leaves on the card
+RECIPE_DATA = "synthetic:n_persons=20,qa_per_person=4"
+FINETUNE_CLI_ARGS = [
+    "model_family=llava", "+model_path=null", f"data_path={RECIPE_DATA}", "split=full+tofu",
+    "LoRA.r=8", "LoRA.alpha=32", "batch_size=2", "gradient_accumulation_steps=1",
+    "remat=true", "remat_policy=save_attn", "merge_dtype=bfloat16",
+    "num_epochs=0.04",  # 160 rows, 2 a step: 3 steps, no train-state save
+]
+R0_FORGET_CLI_ARGS = [
+    "model_family=llava", f"forget_data_path={RECIPE_DATA}", f"retain_data_path={RECIPE_DATA}",
+    "forget_split=forget10+tofu", "retain_split=retain90+tofu", "LoRA.r=0", "forget_loss=npo",
+    "optimizer=adamw_q8", "quantize_teacher=false", "batch_size=2",
+    "gradient_accumulation_steps=1", "remat=true", "remat_policy=save_attn",
+    "save_model=false",
+    # bf16 weights of std ~0.016 sit 6e-5 apart: the warmup's second step at
+    # the config's lr (1e-5 / 8) would round away on ~99% of the entries
+    "lr=1e-4",
+    "num_epochs=0.4",  # 16 forget rows, 2 a step: 3 steps, no train-state save
+]
+OTHER_LOSSES = ("scrub", "KL", "llmu", "rmu", "dpo", "sku", "idk", "eco_ft")
+# peak device memory per sub-phase (GiB): 6a the bf16 model (13.2), f32
+# adapters and activations; 6b the reckoning's 52-58 (student, teacher,
+# gradients, int8 moments, activations) with room; 6c 6b's resident ~45 GiB
+# plus a loss's gradients and activations (SKU: five student forwards), or
+# the student, its gradients, the initial copy and plain AdamW's bf16 moments
+# (63.6) once the teacher and the int8 state are gone
+PEAK_BOUND_GIB = {"6a finetune": 30.0, "6b forget r0": 64.0, "6c losses": 72.0}
+
+
+def _splits(loss: str, batch: dict) -> tuple[int, int, int]:
+    """(student forwards, teacher forwards, student backwards) of one step of
+    ``loss`` on ``batch``: which splits ``train/losses.py`` runs through the
+    student and the teacher (SKU: its K random sub-batches too)."""
+    k = batch["random"]["input_ids"].shape[1] if "random" in batch else 0
+    table = {"retain_ft": (1, 0), "grad_ascent": (1, 0), "npo": (1, 1), "scrub": (2, 2),
+             "kl": (2, 1), "llmu": (3, 1), "rmu": (2, 1), "dpo": (2, 2), "sku": (k + 2, 1),
+             "idk": (2, 0), "eco_ft": (2, 0)}
+    s, t = table[loss.lower()]
+    # DPO's loss as the reference leaves it (no dpo_fix) is -mean of the idk
+    # log-probs: the forget split's student forward takes no gradient
+    return s, t, 1 if loss.lower() == "dpo" else s
+
+
+def _expected_launches(loss, batch, dec, vis, steps=1):
+    """B1 in every decoder and ViT layer of every forward (save_attn keeps o
+    and lse: no second forward in the backward pass); B2 and B3 in every
+    decoder layer the student's backward reaches -- RMU reads layer 7's
+    output, so its backward stops there."""
+    from multimodal_unlearning_tpu_torch.train.losses import RMU_LAYER
+
+    s, t, b = _splits(loss, batch)
+    bwd_layers = RMU_LAYER + 1 if loss.lower() == "rmu" else dec.num_layers
+    expect = dict.fromkeys(kernels.LAUNCHES, 0)
+    expect.update({"flash_fwd": steps * (s + t) * (dec.num_layers + vis.num_layers),
+                   "flash_bwd_dq": steps * b * bwd_layers,
+                   "flash_bwd_dkv": steps * b * bwd_layers})
+    return expect
+
+
+class _CliRecorder:
+    """While active, records what a CLI run builds and does: the arguments
+    of ``make_apply_fn`` and ``make_train_step``, every step's metrics
+    (floats), wall time and tokens (every split, as the loop counts them),
+    and ``train_loop``'s frozen tree, teacher and final state."""
+
+    def __init__(self, cli):
+        from multimodal_unlearning_tpu_torch.cli import mm_forget
+        from multimodal_unlearning_tpu_torch.train import trainer
+
+        self.cli, self.mm_forget, self.trainer = cli, mm_forget, trainer
+        self.steps, self.loop, self.apply_kw, self.step_args = [], {}, None, None
+
+    def __enter__(self):
+        rec = self
+        make_step, make_apply, loop = (self.trainer.make_train_step,
+                                       self.mm_forget.make_apply_fn, self.cli.train_loop)
+        self._saved = [(self.trainer, "make_train_step", make_step),
+                       (self.mm_forget, "make_apply_fn", make_apply),
+                       (self.cli, "make_apply_fn", getattr(self.cli, "make_apply_fn")),
+                       (self.cli, "train_loop", loop)]
+
+        def apply_wrapper(*a, **kw):
+            rec.apply_kw = (a, kw)
+            return make_apply(*a, **kw)
+
+        def step_wrapper(*a, **kw):
+            rec.step_args = (a, kw)
+            step = make_step(*a, **kw)
+
+            def timed(state, frozen, teacher, batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, frozen, teacher, batch)
+                metrics = {k: float(v) for k, v in m.items()}
+                rec.steps.append(dict(metrics, wall=time.perf_counter() - t0,
+                                      tokens=sum(int(p["input_ids"].numel())
+                                                 for p in batch.values())))
+                return state, m
+
+            timed.grad_fn = step.grad_fn
+            return timed
+
+        def loop_wrapper(**kw):
+            rec.loop.update(frozen=kw["frozen"], teacher=kw["teacher_params"])
+            state, history = loop(**kw)
+            rec.loop["state"] = state
+            return state, history
+
+        self.trainer.make_train_step = step_wrapper
+        self.mm_forget.make_apply_fn = apply_wrapper
+        self.cli.make_apply_fn = apply_wrapper
+        self.cli.train_loop = loop_wrapper
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def _check_steps(label, steps):
+    for i, m in enumerate(steps):
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])) or m["skipped_nonfinite"]:
+            raise AssertionError(f"{label} step {i + 1}: non-finite or skipped: {m}")
+
+
+def _report_steps(label, steps, launches, peak):
+    per = [f"{m['wall'] * 1e3:.0f} ms ({1 / m['wall']:.3f} steps/s, "
+           f"{m['tokens'] / m['wall']:.0f} tok/s)" for m in steps]
+    n = len(steps)
+    print(f"{label}: {n} steps: {'; '.join(per)}; losses "
+          f"{[round(m['loss'], 5) for m in steps]}, grad norms "
+          f"{[round(m['grad_norm'], 4) for m in steps]}; launches per step "
+          f"{ {k: v // n for k, v in launches.items() if v} }; max_memory_allocated "
+          f"{peak:.2f} GiB (bound {PEAK_BOUND_GIB[label]})", flush=True)
+    if peak > PEAK_BOUND_GIB[label]:
+        raise AssertionError(f"{label}: peak device memory {peak:.2f} GiB above the bound "
+                             f"{PEAK_BOUND_GIB[label]} GiB")
+
+
+def _measured(fn):
+    """(result, peak GiB, launches) of ``fn()`` with fresh counts and peak."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2**30, dict(kernels.LAUNCHES)
+
+
+def _arg(args, key, default=None):
+    return next((a.split("=", 1)[1] for a in args if a.lstrip("+").startswith(key + "=")),
+                default)
+
+
+def _loss_batch(loss, processor, dev, max_length=2048):
+    """The first batch the forget CLI would draw for ``loss`` (its splits:
+    idk for DPO and LLMU, SKU's random K), on the device."""
+    from functools import partial
+
+    from multimodal_unlearning_tpu_torch.data import DataLoader, MMMixedForgetDataset
+    from multimodal_unlearning_tpu_torch.train.loop import to_device
+
+    ds = MMMixedForgetDataset(forget_data_path=RECIPE_DATA, retain_data_path=RECIPE_DATA,
+                              retain_split="retain90+tofu", forget_split="forget10+tofu",
+                              forget_loss=loss, seed=42)
+    loader = DataLoader(ds, 2, partial(processor.collate_forget, max_length=max_length),
+                        shuffle=True, seed=42)
+    return to_device(next(iter(loader)), dev)
+
+
+def run_recipe_path(finetune_args=FINETUNE_CLI_ARGS, forget_args=R0_FORGET_CLI_ARGS,
+                    device="cuda"):
+    """6a ``cli.mm_finetune.main``, 6b ``cli.mm_forget.main`` at LoRA.r=0 on
+    what 6a saved, 6c one step of each other loss on 6b's student and
+    teacher.  Returns the launch counts of each sub-phase."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from multimodal_unlearning_tpu_torch.cli import mm_finetune, mm_forget
+    from multimodal_unlearning_tpu_torch.models import llava
+    from multimodal_unlearning_tpu_torch.train import losses as L
+    from multimodal_unlearning_tpu_torch.train import optim, trainer
+    from multimodal_unlearning_tpu_torch.utils.pytree import param_tree
+
+    dev = torch.device(device)
+    ft_dir = tempfile.mkdtemp(prefix="recipe_finetune_")
+    fg_dir = tempfile.mkdtemp(prefix="recipe_forget_")
+    out = {}
+    try:
+        # 6a: finetune, LoRA r 8 over the bf16 base, merged and saved in bf16
+        with _CliRecorder(mm_finetune) as rec:
+            t0 = time.perf_counter()
+            history, peak, launches = _measured(
+                lambda: mm_finetune.main(finetune_args + [f"save_dir={ft_dir}"]))
+            wall = time.perf_counter() - t0
+        mcfg = rec.apply_kw[0][1]
+        dec, vis = mcfg.decoder, mcfg.vision
+        _check_steps("6a finetune", rec.steps)
+        want = _expected_launches("retain_ft", {}, dec, vis, steps=len(rec.steps))
+        if launches != want:
+            raise AssertionError(f"6a finetune launches {launches}, expected {want}")
+        size = os.path.getsize(f"{ft_dir}/model.safetensors")
+        print(f"6a finetune: main() {wall:.1f} s (init, steps, merge, save of "
+              f"{size / 1e9:.2f} GB)", flush=True)
+        _report_steps("6a finetune", rec.steps, launches, peak)
+        out["finetune"] = launches
+        del rec, history
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 6b: forget from 6a's checkpoint, LoRA.r=0, NPO, adamw_q8, bf16 teacher
+        rec = _CliRecorder(mm_forget)
+        with rec:
+            t0 = time.perf_counter()
+            history, peak, launches = _measured(lambda: mm_forget.main(
+                forget_args + [f"model_path={ft_dir}", f"save_dir={fg_dir}"]))
+            wall = time.perf_counter() - t0
+        state, frozen, teacher = rec.loop["state"], rec.loop["frozen"], rec.loop["teacher"]
+        (apply_fn, tx), step_kw = rec.step_args[0][:2], rec.step_args[1]
+        _check_steps("6b forget r0", rec.steps)
+        losses = [m["loss"] for m in rec.steps]
+        if len(set(losses)) < 2:
+            raise AssertionError(f"6b: NPO's loss did not move: {losses}")
+        processor = common.build_processor(serve.get_model_identifiers(
+            _arg(forget_args, "model_family")))
+        max_length = int(_arg(forget_args, "max_length", 2048))
+        npo_batch = _loss_batch("npo", processor, dev, max_length)
+        want = _expected_launches("npo", npo_batch, dec, vis, steps=len(rec.steps))
+        if launches != want:
+            raise AssertionError(f"6b forget launches {launches}, expected {want}")
+        # the teacher is the model as loaded: the trainable leaves moved away
+        # from it, the frozen vision tower did not move at all
+        tparams = param_tree(teacher)
+
+        def at(tree, path):
+            for key in path:
+                tree = tree[key]
+            return tree
+
+        with torch.no_grad():
+            moved = math.sqrt(sum(float((p.float() - at(tparams, path).float()).pow(2).sum())
+                                  for path, p in tree_leaves_with_path(state.trainable)))
+            same = all(torch.equal(p, at(tparams, path))
+                       for path, p in tree_leaves_with_path(frozen))
+        n_vis = len(tree_leaves_with_path(frozen))
+        if not moved > 0 or not same or not n_vis:
+            raise AssertionError(f"6b: trainable change norm {moved}, vision tower unchanged "
+                                 f"{same} ({n_vis} leaves)")
+        print(f"6b forget r0: main() {wall:.1f} s (load, teacher copy, steps); trainable "
+              f"change norm {moved:.4e}; the {n_vis} vision-tower leaves equal to the loaded "
+              f"ones bit for bit", flush=True)
+        _report_steps("6b forget r0", rec.steps, launches, peak)
+        out["forget_r0"] = launches
+        npo_ms = statistics.median(m["wall"] for m in rec.steps[1:] or rec.steps) * 1e3
+
+        # 6c.1: the kernel path against plain attention on NPO's first batch
+        plain_kw = dict(rec.apply_kw[1], attn_impl="plain", remat_policy=None)
+        plain_fn = mm_forget.make_apply_fn(*rec.apply_kw[0], **plain_kw)
+        del rec
+        grad_of = lambda fn: trainer.make_train_step(fn, tx, **step_kw).grad_fn(
+            state.trainable, frozen, teacher, npo_batch)
+        torch.cuda.reset_peak_memory_stats()
+        (lk, _), gk = grad_of(apply_fn)
+        # the kernel path's gradients wait on the host: two 12.6 GiB trees
+        # beside 6b's 57 GiB would leave the card ~4 GiB
+        gk = [(p, g.to("cpu")) for p, g in tree_leaves_with_path(gk)]
+        (lp, _), gp = grad_of(plain_fn)
+        cos = {"/".join(p): _cos(g.to(dev), w) for (p, g), (_, w) in
+               zip(gk, tree_leaves_with_path(gp))}
+        del gk
+        worst = min(cos, key=cos.get)
+        print(f"6c kernel vs plain attention, NPO's first batch: loss {float(lk):.5f} vs "
+              f"{float(lp):.5f} (tol {STEP_LOSS_TOL}); gradient cosine min {cos[worst]:.5f} at "
+              f"{worst}, median {statistics.median(cos.values()):.5f} over {len(cos)} leaves "
+              f"(tol {STEP_GRAD_COS})", flush=True)
+        if abs(float(lk) - float(lp)) > STEP_LOSS_TOL or cos[worst] < STEP_GRAD_COS:
+            raise AssertionError(f"6c: kernel vs plain attention: loss {float(lk)} vs "
+                                 f"{float(lp)}, cosine {cos[worst]} at {worst}")
+        gate_peak = torch.cuda.max_memory_allocated() / 2**30
+        # adamw_q8 alone: one update over the 6.76 B trainable entries with
+        # ok false (the same work, nothing written)
+        never = torch.zeros((), dtype=torch.bool, device=dev)
+        q8_ms = []
+        for _ in range(2):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            tx.step_(gp, state.opt_state, state.trainable, ok=never)
+            e1.record()
+            torch.cuda.synchronize()
+            q8_ms.append(e0.elapsed_time(e1))
+        del gp
+        # the teacher's forward on the same batch, alone
+        with torch.no_grad():
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            apply_fn(teacher, npo_batch["forget"])
+            e0.record()
+            apply_fn(teacher, npo_batch["forget"])
+            e1.record()
+            torch.cuda.synchronize()
+            teacher_ms = e0.elapsed_time(e1)
+        print(f"6c: adamw_q8 update {q8_ms[-1]:.1f} ms of device time (first call "
+              f"{q8_ms[0]:.1f}) = {q8_ms[-1] / npo_ms:.3f} of a 6b step ({npo_ms:.0f} ms); the "
+              f"teacher's forward {teacher_ms:.1f} ms = {teacher_ms / npo_ms:.3f} of it; peak "
+              f"{gate_peak:.2f} GiB through the two gradients", flush=True)
+
+        # 6c.2: one step of each other loss, with its own splits, on 6b's
+        # student, teacher and adamw_q8 state
+        per_loss, total = {}, dict.fromkeys(kernels.LAUNCHES, 0)
+        peak_c = gate_peak
+        for loss in OTHER_LOSSES:
+            batch = _loss_batch(loss, processor, dev, max_length)
+            st = state
+            if loss == "rmu":
+                st = dataclasses.replace(state, control_vec=L.make_control_vec(
+                    torch.Generator(device=dev).manual_seed(42), 2, dec.hidden_size))
+            step = trainer.make_train_step(apply_fn, tx, **dict(step_kw, loss_type=loss))
+            t0 = time.perf_counter()
+            (st, m), peak, launches = _measured(lambda: step(st, frozen, teacher, batch))
+            ms = (time.perf_counter() - t0) * 1e3
+            state = dataclasses.replace(st, control_vec=None)
+            m = {k: float(v) for k, v in m.items()}
+            _check_steps(f"6c {loss}", [m])
+            want = _expected_launches(loss, batch, dec, vis)
+            if launches != want:
+                raise AssertionError(f"6c {loss} launches {launches}, expected {want}")
+            per_loss[loss] = dict(ms=round(ms, 1), loss=round(m["loss"], 5),
+                                  grad_norm=round(m["grad_norm"], 4), peak_gib=round(peak, 2),
+                                  launches={k: v for k, v in launches.items() if v})
+            peak_c = max(peak_c, peak)
+            for k, v in launches.items():
+                total[k] += v
+            del batch, step, st
+        # grad_ascent with L1 from the initial model and plain AdamW (bf16
+        # moments, 25.2 GiB): the q8 state and the teacher go first
+        trainable = state.trainable
+        del state, teacher, tparams
+        gc.collect()
+        torch.cuda.empty_cache()
+        adamw = optim.make_optimizer(
+            "adamw", 1e-5, weight_decay=0.01, warmup_steps=8, total_steps=3, max_grad_norm=1.0,
+            reachable_mask=lambda p: llava.reachable_mask(p, mcfg))
+        st = trainer.create_train_state(trainable, adamw, keep_init=True)
+        batch = _loss_batch("grad_ascent", processor, dev, max_length)
+        step = trainer.make_train_step(apply_fn, adamw, loss_type="grad_ascent",
+                                       l1_lambda=1e-4, l_norm_from="init")
+        t0 = time.perf_counter()
+        (st, m), peak, launches = _measured(lambda: step(st, frozen, None, batch))
+        ms = (time.perf_counter() - t0) * 1e3
+        m = {k: float(v) for k, v in m.items()}
+        _check_steps("6c grad_ascent+l1", [m])
+        want = _expected_launches("grad_ascent", batch, dec, vis)
+        if launches != want:
+            raise AssertionError(f"6c grad_ascent launches {launches}, expected {want}")
+        per_loss["grad_ascent+l1_init+adamw"] = dict(
+            ms=round(ms, 1), loss=round(m["loss"], 5), grad_norm=round(m["grad_norm"], 4),
+            peak_gib=round(peak, 2), launches={k: v for k, v in launches.items() if v})
+        peak_c = max(peak_c, peak)
+        for k, v in launches.items():
+            total[k] += v
+        print(f"6c losses, one step each on 6b's student: {json.dumps(per_loss)}", flush=True)
+        if peak_c > PEAK_BOUND_GIB["6c losses"]:
+            raise AssertionError(f"6c: peak {peak_c:.2f} GiB above the bound")
+        out["losses"] = total
+        return out
+    finally:
+        shutil.rmtree(ft_dir, ignore_errors=True)
+        shutil.rmtree(fg_dir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2053,6 +2447,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     cli_launches, reload_launches = run_forget_cli_path(specs)
+    # CLEAR's recipe: finetune -> forget at LoRA.r=0 -> the other losses
+    recipe_launches = run_recipe_path()
 
     rows = [
         dict(name="flash_fwd (B1)", route="cuda",
@@ -2066,17 +2462,21 @@ def main() -> int:
                               vit=b1["step_vit"]),
              # the forget CLI (phase 5) and the serving of what it saved
              forget_cli_launches=cli_launches["flash_fwd"],
-             reload_launches=reload_launches["flash_fwd"]),
+             reload_launches=reload_launches["flash_fwd"],
+             # CLEAR's recipe (phase 6): finetune, forget at r=0, the other losses
+             recipe_launches={k: v["flash_fwd"] for k, v in recipe_launches.items()}),
         dict(name="flash_bwd_dq (B2)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_bwd_dq.cu",
              replaces="multimodal_unlearning_tpu/ops/attention.py:219",
              launches=step_launches["flash_bwd_dq"], max_abs_err=bwd_err["dq"], **bwd["dq"],
-             forget_cli_launches=cli_launches["flash_bwd_dq"]),
+             forget_cli_launches=cli_launches["flash_bwd_dq"],
+             recipe_launches={k: v["flash_bwd_dq"] for k, v in recipe_launches.items()}),
         dict(name="flash_bwd_dkv (B3)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
              replaces="multimodal_unlearning_tpu/ops/attention.py:268",
              launches=step_launches["flash_bwd_dkv"], max_abs_err=bwd_err["dkv"],
              forget_cli_launches=cli_launches["flash_bwd_dkv"],
+             recipe_launches={k: v["flash_bwd_dkv"] for k, v in recipe_launches.items()},
              **bwd["dkv"]),
         dict(name="flash_decode (B4)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_decode.cu",

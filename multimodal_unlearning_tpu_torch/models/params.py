@@ -27,3 +27,17 @@ class ParamTree(nn.Module):
             else:
                 setattr(self, name, nn.Parameter(
                     torch.empty(shape, device=device, dtype=dtype), requires_grad=False))
+
+
+def check_tree_of(module: nn.Module, tree: dict) -> nn.Module:
+    """``module``, after checking that every leaf of ``tree`` (a nested dict
+    at its parameter paths, ``None`` slots skipped) is one of its own
+    parameters: a dense trainable tree is the model's parameters
+    themselves, never a second copy, so applying the tree is applying the
+    module."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            check_tree_of(getattr(module, key), val)
+        elif val is not None and module._parameters.get(key) is not val:
+            raise ValueError(f"{key}: the tree's leaf is not the model's own parameter")
+    return module

@@ -17,7 +17,9 @@ the other writes:
 The train state is the port's own format (the JAX package writes Orbax,
 which is JAX-only): ``<dir>/step_<n>/train_state.safetensors`` holding
 every tensor of the ``TrainState`` under its '/'-joined path (trainable
-tree, optimizer moments and count, step), written under a temporary name
+tree, dense or LoRA; optimizer count and moments, ``adamw_q8``'s int8 / uint8
+blocks and f32 scales included; the RMU control vector; the initial model
+of ``l_norm_from: init``; step), written under a temporary name
 and renamed when complete, so a directory named ``step_<n>`` is always a
 finished one.  Every file is read and written by the ``safetensors``
 package.
@@ -299,9 +301,10 @@ def latest_train_state_step(ckpt_dir) -> int | None:
 
 
 def restore_train_state(ckpt_dir, step: int, template):
-    """The state saved at ``step``, in the structure, devices and dtypes of
-    ``template`` (a ``TrainState`` built the same way); trainable leaves are
-    returned ready for autograd."""
+    """The state saved at ``step``, copied into the tensors of ``template``
+    (a ``TrainState`` built the same way), which is returned: a dense
+    trainable tree is the model's own parameters, so the model takes the
+    saved values too, bit for bit."""
     flat = load_file(str(Path(ckpt_dir) / f"step_{step}" / _STATE_FILE))
     want = _state_flat(template)
     if set(flat) != set(want):
@@ -311,10 +314,11 @@ def restore_train_state(ckpt_dir, step: int, template):
     def rebuild(prefix, node):
         if isinstance(node, dict):
             return {k: rebuild(f"{prefix}/{k}", v) for k, v in node.items()}
-        if node is None:
-            return None
-        t = flat[prefix].to(device=node.device, dtype=node.dtype)
-        return t.requires_grad_() if node.requires_grad else t
+        if node is not None:
+            with torch.no_grad():
+                node.copy_(flat[prefix])
+        return node
 
-    return dataclasses.replace(template, **{
-        f.name: rebuild(f.name, getattr(template, f.name)) for f in dataclasses.fields(template)})
+    for f in dataclasses.fields(template):
+        rebuild(f.name, getattr(template, f.name))
+    return template
