@@ -13,7 +13,9 @@ a result line.)
    shapes the main paths give it -- B4q (int8 flash decode) on the int8
    cache [32, 8, 32, 2048, 128]; B5 and B5q (verify chunk, bf16 and int8
    cache) at the verify round (B 8, C 5), a chunked-prefill pass (B 1, C 512
-   over a 1,536-column slab view) and GQA; B1 (flash forward): the ViT tower,
+   over a 1,536-column slab view), GQA and phase 7b's verify round (B 8, C 5
+   over the engine's 4,480-column slot view at offsets 128..427);
+   B1 (flash forward): the ViT tower,
    a left-padded causal prefill, GQA, q_offset > 0, and the forget step's
    two shapes (decoder (2, 32, 768, 128) causal, ViT (2, 16, 577, 64)); B4 (flash decode): a
    stacked [4, 8, 32, 2048, 128] cache at layer 3 with ragged validity and
@@ -122,9 +124,29 @@ a result line.)
    trainable leaves moved and the vision tower equal bit for bit to the loaded
    one, B1/B2/B3 launched exactly as each loss's splits give, peak memory under
    ``PEAK_BOUND_GIB``; steps/s and tok/s per CLI step, ms and launches per loss.
-7. Prints one ``{"kernels": [...]}`` line (twelve kernels; B1-B3 with phase 6's
-   launches), the card's name and power limit, and as the last line
-   ``{"ok": true, "device": {...}}``.
+7. CLEAR's evaluation of phase 6a's checkpoint through the CLIs (kept until
+   this phase ends): 7a ``cli.mm_eval.main`` on ``configs/mm/eval.yaml`` as
+   it ships (bf16, the plain ``greedy_generate`` route, 300 new tokens, batch
+   8) with ``EVAL_CLI_ARGS`` (the family, ``synthetic:`` data for all six
+   tasks and ``ds_size`` 8: one batch of 8 rows a task); 7b the same with
+   ``engine_generate=true speculative_k=4`` (the serving engine, drafts from
+   the ground-truth answers); 7c ``cli.mm_calculate_metrics.main`` on 7a's
+   aggregate as the checkpoint and 7b's as retain; 7d the first task again
+   with ``speculative_k=4`` on ``greedy_generate``'s own speculative route.
+   Each task's JSON holds the JAX schema's keys, one entry per row, finite
+   numbers; 7a's and 7b's teacher-forced numbers equal (``EVAL_TF_TOL``);
+   7b's and 7d's streams equal 7a's up to a first difference at a near-tie;
+   every token of every stream of 7a, 7b and 7d is the argmax of a
+   teacher-forced forward over its prompt and the stream before it, or
+   within ``TIE_MARGIN`` of it; B1, B4 (7a) and B1, B5 (7b, 7d) launched
+   exactly as the structure gives; 7c's keys those of the JAX CLI, all
+   finite.  Prints seconds per task (teacher-forced and generation),
+   generated tok/s, ms per decode step (per verify round in 7b and 7d),
+   tokens per verify round and peak memory.
+8. Prints one ``{"eval": ...}`` line (phase 7's numbers), one
+   ``{"kernels": [...]}`` line (twelve kernels; B1-B3 with phase 6's
+   launches, B1, B4 and B5 with phase 7's), the card's name and power limit,
+   and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; without a CUDA device it exits 1 before doing anything.
@@ -489,13 +511,17 @@ def check_b4q(dev, gen):
 def check_b5(dev, gen):
     """B5 and B5q: the verify round of speculation (B 8, C 5, per-row
     offsets, stale columns past each chunk), a chunked-prefill pass (B 1,
-    C 512 over a 1,536-column slab view) and a GQA case, on a bf16 and an
-    int8 cache.  Returns per kernel (max error, {case: numbers})."""
+    C 512 over a 1,536-column slab view), a GQA case and phase 7b's verify
+    round, on a bf16 and an int8 cache.  Returns per kernel (max error,
+    {case: numbers})."""
     cases = [
         # name, B, Hq, Hkv, C, Smax (columns the cache holds), slab columns read
         ("verify", 8, 32, 32, 5, 2048, 2048),
         ("prefill_chunk", 1, 32, 32, 512, 2048, 1536),
         ("gqa", 4, 32, 8, 5, 2048, 2048),
+        # 7b's engine: eval.yaml's max_length 4096 + 300 new tokens + slack
+        # 10, bucketed to 4,480 columns a slot, all of them in the mask
+        ("eval_verify", 8, 32, 32, 5, 4480, 4480),
     ]
     L, D, layer = 4, 128, 3
     rng = np.random.default_rng(2)
@@ -507,6 +533,11 @@ def check_b5(dev, gen):
         for b in range(B):
             if name == "prefill_chunk":
                 off, start = S - C, 0  # 1,024 prefix columns, then the chunk
+            elif name == "eval_verify":
+                # a question left-padded to 128 columns, then up to 300
+                # generated tokens
+                off = 128 + int(rng.integers(0, 300))
+                start = 128 - int(rng.integers(16, 128))
             else:
                 off = int(rng.integers(200, S - 64))
                 start = int(rng.integers(0, 128))  # left padding below the prefix
@@ -2164,11 +2195,13 @@ def _loss_batch(loss, processor, dev, max_length=2048):
     return to_device(next(iter(loader)), dev)
 
 
-def run_recipe_path(finetune_args=FINETUNE_CLI_ARGS, forget_args=R0_FORGET_CLI_ARGS,
+def run_recipe_path(ft_dir, finetune_args=FINETUNE_CLI_ARGS, forget_args=R0_FORGET_CLI_ARGS,
                     device="cuda"):
-    """6a ``cli.mm_finetune.main``, 6b ``cli.mm_forget.main`` at LoRA.r=0 on
-    what 6a saved, 6c one step of each other loss on 6b's student and
-    teacher.  Returns the launch counts of each sub-phase."""
+    """6a ``cli.mm_finetune.main`` saving into ``ft_dir`` (the caller's
+    directory: phase 7 evaluates what is saved there, and the caller removes
+    it), 6b ``cli.mm_forget.main`` at LoRA.r=0 on what 6a saved, 6c one step
+    of each other loss on 6b's student and teacher.  Returns the launch
+    counts of each sub-phase."""
     import dataclasses
     import shutil
     import tempfile
@@ -2180,7 +2213,6 @@ def run_recipe_path(finetune_args=FINETUNE_CLI_ARGS, forget_args=R0_FORGET_CLI_A
     from multimodal_unlearning_tpu_torch.utils.pytree import param_tree
 
     dev = torch.device(device)
-    ft_dir = tempfile.mkdtemp(prefix="recipe_finetune_")
     fg_dir = tempfile.mkdtemp(prefix="recipe_forget_")
     out = {}
     try:
@@ -2360,10 +2392,351 @@ def run_recipe_path(finetune_args=FINETUNE_CLI_ARGS, forget_args=R0_FORGET_CLI_A
         out["losses"] = total
         return out
     finally:
-        shutil.rmtree(ft_dir, ignore_errors=True)
         shutil.rmtree(fg_dir, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------- phase 7
+# CLEAR's evaluation through the CLIs on phase 6a's checkpoint: configs/mm/
+# eval.yaml as it ships (bf16, the plain greedy route, 300 new tokens, batch
+# 8, all six tasks) but for the family, the data and ds_size 8, so that each
+# task is one batch of 8 rows.  "synthetic:n_persons=20" is RECIPE_DATA (4 QA
+# a person by default) written without a comma, so that the list override
+# parses as six entries.
+EVAL_DATA = "synthetic:n_persons=20"
+EVAL_CLI_ARGS = ["model_family=llava", "ds_size=8", f"data_path=[{','.join([EVAL_DATA] * 6)}]"]
+SPEC_EVAL_ARGS = ["engine_generate=true", "speculative_k=4"]
+# 7d: greedy_generate's own speculative route, on the first task
+GREEDY_SPEC_EVAL_ARGS = ["speculative_k=4", "eval_task_ids=[0]"]
+EVAL_RUNS = {"7a eval": [], "7b eval, engine + speculation": SPEC_EVAL_ARGS,
+             "7d eval, greedy speculation": GREEDY_SPEC_EVAL_ARGS}
+EVAL_KEYS = {"average_perturb_loss", "avg_paraphrased_loss", "truth_ratio", "paraphrased_loss",
+             "perturb_loss", "num_token_paraphrased", "num_token_perturb", "avg_gt_loss",
+             "gt_loss", "num_token_gt", "generated_text", "rouge1_recall", "rougeL_recall"}
+# 7a's and 7b's teacher-forced numbers come from the same code on the same
+# batches, and the kernels and cuBLAS are deterministic at a fixed shape, so
+# they are expected equal bit for bit; 1e-5 relative leaves room only for a
+# library that picks another algorithm when the engine's cache changes the
+# free memory, which moves the last bits and nothing more
+EVAL_TF_TOL = 1e-5
+
+
+class _EvalRecorder:
+    """While active, records what ``cli.mm_eval.run`` does: the model it
+    loads, the tokens a stream may end at (eos, pad), and per task its wall
+    time, its teacher-forced forwards (count and seconds) and its generation
+    (seconds, decode forwards, each row's token stream and prompt; the
+    engine's counters under ``engine_generate``)."""
+
+    def __init__(self, sync, max_new):
+        from multimodal_unlearning_tpu_torch.cli import mm_eval
+        from multimodal_unlearning_tpu_torch.evaluation import evaluator
+
+        self.mm_eval, self.evaluator, self.sync = mm_eval, evaluator, sync
+        self.model, self.tasks, self.max_new, self.ends = None, [], max_new, ()
+
+    def __enter__(self):
+        rec, ev, sync = self, self.evaluator, self.sync
+        load, get_all, losses = (common.init_or_load_params, ev.get_all_evals,
+                                 ev._model_losses)
+        greedy, pregen = self.mm_eval.greedy_generate, ev._pregenerate
+        self._saved = [(common, "init_or_load_params", load), (ev, "get_all_evals", get_all),
+                       (ev, "_model_losses", losses), (self.mm_eval, "greedy_generate", greedy),
+                       (ev, "_pregenerate", pregen)]
+
+        def load_wrapper(*a, **kw):
+            out = load(*a, **kw)
+            rec.model = out[2]
+            return out
+
+        def get_all_wrapper(task, *a, **kw):
+            cur = dict(task=task, tf_forwards=0, tf_s=0.0, gen_s=0.0, forwards=0, prefills=0,
+                       streams=[], prompts=[], engine=None)
+            rec.tasks.append(cur)
+            sync()
+            t0 = time.perf_counter()
+            logs = get_all(task, *a, **kw)
+            sync()
+            cur["wall"] = time.perf_counter() - t0
+            return logs
+
+        def losses_wrapper(apply_fn, batch):
+            sync()
+            t0 = time.perf_counter()
+            out = losses(apply_fn, batch)  # numpy: waits for the forward
+            rec.tasks[-1]["tf_s"] += time.perf_counter() - t0
+            rec.tasks[-1]["tf_forwards"] += 1
+            return out
+
+        def greedy_wrapper(model, mcfg, ids, mask, **kw):
+            sync()
+            t0 = time.perf_counter()
+            tokens, stats = greedy(model, mcfg, ids, mask, return_stats=True, **kw)
+            rows = tokens.cpu().numpy()
+            cur = rec.tasks[-1]
+            cur["gen_s"] += time.perf_counter() - t0
+            cur["forwards"] += stats["forwards"]
+            cur["spec"] = bool(kw.get("speculate_k"))
+            cur["prefills"] += 1
+            pad = kw["pad_token_id"]
+            rec.ends = (kw["eos_token_id"], pad)
+            for r in range(len(rows)):
+                row = rows[r].tolist()
+                while row and row[-1] == pad:  # a finished row emits pad
+                    row.pop()
+                cur["streams"].append(row)
+                cur["prompts"].append((np.asarray(ids)[r][np.asarray(mask)[r] > 0].tolist(),
+                                       None))
+            return tokens
+
+        def pregen_wrapper(engine, *a, **kw):
+            reqs, drain = [], engine.drain
+
+            def drain_wrapper(requests):
+                reqs.extend(requests)
+                return drain(requests)
+
+            s0 = engine.stats()
+            rec.ends = (engine.eos, engine.pad_id)
+            engine.drain = drain_wrapper
+            sync()
+            t0 = time.perf_counter()
+            try:
+                texts = pregen(engine, *a, **kw)
+            finally:
+                engine.drain = drain
+            sync()
+            s1 = engine.stats()
+            cur = rec.tasks[-1]
+            cur["gen_s"] += time.perf_counter() - t0
+            cur["engine"] = {k: s1[k] - s0[k] for k in ("dispatches", "prefills", "live_rounds",
+                                                       "emitted")}
+            cur["forwards"] += cur["engine"]["dispatches"] * engine.chunk
+            cur["prefills"] += cur["engine"]["prefills"]
+            cur["streams"] += [list(r.tokens) for r in reqs]
+            cur["prompts"] += [(list(r.prompt_ids), r.pixel_values) for r in reqs]
+            return texts
+
+        common.init_or_load_params = load_wrapper
+        ev.get_all_evals = get_all_wrapper
+        ev._model_losses = losses_wrapper
+        self.mm_eval.greedy_generate = greedy_wrapper
+        ev._pregenerate = pregen_wrapper
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def _check_eval_files(label, save_dir, agg, rows, tasks):
+    """Every task's JSON holds the schema's keys (``normalized_gt_loss``
+    where the task's name lacks ``eval_log``), one entry per row under each,
+    finite numbers; the aggregate holds the same logs, ``tasks`` of them."""
+    on_disk = json.loads(open(os.path.join(save_dir, "eval_log_aggregated.json")).read())
+    if list(on_disk) != list(agg) or len(agg) != tasks:
+        raise AssertionError(f"{label}: aggregate holds {list(on_disk)}")
+    for name in agg:
+        log = json.loads(open(os.path.join(save_dir, name)).read())
+        want = EVAL_KEYS | ({"normalized_gt_loss"} if "eval_log" not in name else set())
+        if set(log) != want or log != on_disk[name]:
+            raise AssertionError(f"{label} {name}: keys {sorted(log)}, expected {sorted(want)}")
+        for key, per_row in log.items():
+            if len(per_row) != rows:
+                raise AssertionError(f"{label} {name}: {key} has {len(per_row)} rows, not {rows}")
+            if key == "generated_text":
+                continue
+            vals = np.asarray(list(per_row.values()), dtype=np.float64)
+            if not np.isfinite(vals).all():
+                raise AssertionError(f"{label} {name}: {key} holds non-finite values")
+
+
+def _eval_launches(rec, dec, vis, speculative: bool) -> dict:
+    """B1 in every decoder and ViT layer of each teacher-forced forward (the
+    eval rows carry pixels) and in every decoder layer of each prefill (the
+    questions are re-tokenized without their images); one B4 per decoder
+    layer and decode step, or one B5 per decoder layer and verify round."""
+    expect = dict.fromkeys(kernels.LAUNCHES, 0)
+    tf = sum(t["tf_forwards"] for t in rec.tasks)
+    pre = sum(t["prefills"] for t in rec.tasks)
+    fwd = sum(t["forwards"] for t in rec.tasks)
+    expect["flash_fwd"] = tf * (dec.num_layers + vis.num_layers) + pre * dec.num_layers
+    expect["chunk_decode" if speculative else "flash_decode"] = fwd * dec.num_layers
+    return expect
+
+
+def _report_eval(label, rec, wall, peak):
+    n_tok = n_fwd = 0
+    for t in rec.tasks:
+        toks = sum(len(s) for s in t["streams"])
+        n_tok, n_fwd = n_tok + toks, n_fwd + t["forwards"]
+        extra = ""
+        # greedy_generate's speculative route: the tokens after each row's
+        # first (the prefill's) per row and forward; the forwards include the
+        # rounds run before the host saw that every row had finished
+        if t.get("spec"):
+            rows = len(t["streams"])
+            extra = (f"; tokens per row and verify forward "
+                     f"{(toks - rows) / max(t['forwards'] * rows, 1):.3f}")
+        if t["engine"] is not None:
+            e = t["engine"]
+            extra = (f"; {e['dispatches']} dispatches, tokens per verify round "
+                     f"{e['emitted'] / max(e['live_rounds'], 1):.3f}")
+        print(f"{label} {t['task']}: {t['wall']:.2f} s = teacher-forced {t['tf_s']:.2f} s "
+              f"({t['tf_forwards']} forwards) + generation {t['gen_s']:.2f} s ({len(t['streams'])} "
+              f"rows, {toks} tokens, {toks / t['gen_s']:.1f} tok/s, {t['forwards']} decode "
+              f"forwards, {t['gen_s'] / max(t['forwards'], 1) * 1e3:.2f} ms each{extra})",
+              flush=True)
+    gen_s = sum(t["gen_s"] for t in rec.tasks)
+    print(f"{label}: main() {wall:.1f} s; {len(rec.tasks)} tasks in "
+          f"{sum(t['wall'] for t in rec.tasks):.1f} s; generated {n_tok} tokens in {gen_s:.1f} s "
+          f"= {n_tok / gen_s:.1f} tok/s, {gen_s / max(n_fwd, 1) * 1e3:.2f} ms per decode forward "
+          f"({n_fwd}); max_memory_allocated {peak:.2f} GiB", flush=True)
+    return dict(wall_s=round(wall, 2), gen_s=round(gen_s, 2), tokens=n_tok,
+                tok_s=round(n_tok / gen_s, 2), forwards=n_fwd,
+                ms_per_forward=round(gen_s / max(n_fwd, 1) * 1e3, 3), peak_gib=round(peak, 2))
+
+
+def hold_streams(model, label, streams, prompts, max_new, ends, dtype=torch.bfloat16):
+    """Every token of every stream against one teacher-forced forward of
+    ``model`` over the stream's prompt and the stream: each token must be
+    the argmax after what precedes it, or within TIE_MARGIN of it, and so
+    must the better of ``ends`` (the eos, or the pad a greedy row emits)
+    where a stream shorter than ``max_new`` stopped.  Returns (largest gap, tokens
+    checked, tokens that were not the argmax)."""
+    dev = next(model.parameters()).device
+    worst, n, off = 0.0, 0, 0
+    for i, (s, (ids, pix)) in enumerate(zip(streams, prompts)):
+        seq = torch.tensor([list(ids) + list(s)], device=dev)
+        pv = None if pix is None else torch.from_numpy(np.asarray(pix)[None]).to(dev, dtype)
+        with torch.inference_mode():
+            logits = model(seq, pixel_values=pv, compute_dtype=dtype)["logits"][0].float()
+        lg = logits[len(ids) - 1:]  # lg[j] predicts token j of the stream
+        top = lg.max(dim=-1).values
+        gaps = top[:len(s)] - lg[torch.arange(len(s), device=dev),
+                                  torch.tensor(s, dtype=torch.long, device=dev)]
+        if len(s) < max_new:  # the row stopped: at the best of its end tokens
+            end = [e for e in ends if e is not None and e >= 0]
+            gaps = torch.cat([gaps, (top[len(s)] - lg[len(s), end].max())[None]])
+        j = int(torch.argmax(gaps))
+        gap = float(gaps[j])
+        if gap > TIE_MARGIN:
+            raise AssertionError(f"{label}: stream {i} token {j} of {len(s)} lies {gap:.4f} below "
+                                 f"the teacher-forced argmax (tie margin {TIE_MARGIN})")
+        worst, n, off = max(worst, gap), n + len(gaps), off + int((gaps > 0).sum())
+    return worst, n, off
+
+
+def _eval_run(label, argv, sync, tasks):
+    """One ``cli.mm_eval.main`` run under the recorder, its files and its
+    launches checked.  Returns (aggregate, save dir, recorder, numbers)."""
+    from multimodal_unlearning_tpu_torch.cli import mm_eval
+    from multimodal_unlearning_tpu_torch.config import load_config
+    from multimodal_unlearning_tpu_torch.config.registry import config_dir
+
+    cfg = load_config(config_dir() / "mm", "eval", argv)
+    rows = int(cfg.ds_size)
+    with _EvalRecorder(sync, int(cfg.generation.max_new_tokens)) as rec:
+        t0 = time.perf_counter()
+        agg, peak, launches = _measured(lambda: mm_eval.main(argv))
+        wall = time.perf_counter() - t0
+    mcfg = rec.model.cfg
+    _check_eval_files(label, cfg.save_dir, agg, rows, tasks)
+    print(f"{label}: {len(agg)} tasks of {rows} rows each "
+          f"({', '.join(t['task'] for t in rec.tasks)})", flush=True)
+    want = _eval_launches(rec, mcfg.decoder, mcfg.vision, speculative=bool(cfg.speculative_k))
+    if launches != want:
+        raise AssertionError(f"{label} launches {launches}, expected {want}")
+    return agg, cfg.save_dir, rec, dict(_report_eval(label, rec, wall, peak),
+                                        launches={k: v for k, v in launches.items() if v})
+
+
+def run_eval_path(ft_dir, args=EVAL_CLI_ARGS, runs=EVAL_RUNS, sync=torch.cuda.synchronize):
+    """7a ``cli.mm_eval.main`` on ``ft_dir`` as eval.yaml ships it; 7b the
+    same with the serving engine and speculation (drafts from the
+    ground-truth answers); 7c ``cli.mm_calculate_metrics.main`` on the two
+    aggregates; 7d the first task on greedy_generate's speculative route.
+    Then every stream of 7a, 7b and 7d against teacher-forced forwards of
+    7d's model.  Returns the launch counts and numbers of 7a, 7b and 7d."""
+    from multimodal_unlearning_tpu_torch.cli import mm_calculate_metrics
+
+    (la, xa), (lb, xb), (ld, xd) = runs.items()
+    out = {}
+
+    def run(label, extra, subdir, tasks):
+        argv = args + [f"model_path={ft_dir}"] + extra + (
+            [f"save_dir={os.path.join(ft_dir, subdir)}"] if subdir else [])
+        agg, save_dir, rec, out[label] = _eval_run(label, argv, sync, tasks)
+        return agg, save_dir, rec
+
+    agg_a, dir_a, rec_a = run(la, xa, None, 6)  # eval.yaml's own ${model_path}/eval_results/
+    rec_a.model = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    agg_b, dir_b, rec_b = run(lb, xb, "eval_spec", 6)
+    rec_b.model = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same teacher-forced numbers
+    worst = 0.0
+    for name in agg_a:
+        for key in ("avg_gt_loss", "gt_loss", "paraphrased_loss", "perturb_loss", "truth_ratio"):
+            a = np.asarray(list(agg_a[name][key].values()), np.float64)
+            b = np.asarray(list(agg_b[name][key].values()), np.float64)
+            worst = max(worst, float(np.max(np.abs(a - b) / np.maximum(np.abs(a), 1e-30))))
+    print(f"7a vs 7b teacher-forced losses and ratios: max relative difference {worst:.3e} "
+          f"({'bit for bit equal' if worst == 0 else 'not bit for bit'}; tol {EVAL_TF_TOL})",
+          flush=True)
+    if worst > EVAL_TF_TOL:
+        raise AssertionError(f"7a and 7b teacher-forced numbers differ by {worst:.3e}")
+
+    # 7c: the metrics CLI, 7a's aggregate as the checkpoint, 7b's as retain
+    metrics_file = os.path.join(ft_dir, "metrics.json")
+    res = mm_calculate_metrics.main([f"ckpt_result={dir_a}/eval_log_aggregated.json",
+                                     f"retain_result={dir_b}/eval_log_aggregated.json",
+                                     f"save_file={metrics_file}"])
+    from multimodal_unlearning_tpu_torch.evaluation.metrics import FILE_TO_TASK
+
+    want_keys = (["method", "submitted_by"]
+                 + [f"{m} {FILE_TO_TASK[n]}" for n in agg_a for m in ("Prob.", "ROUGE",
+                                                                      "Truth Ratio")]
+                 + ["Model Utility", "KS test p-value", "JS metric"])
+    saved = json.loads(open(metrics_file).read())
+    nums = [v for k, v in saved.items() if k not in ("method", "submitted_by")]
+    if list(res) != want_keys or list(saved) != want_keys or not np.isfinite(nums).all():
+        raise AssertionError(f"7c metrics: {saved}")
+    print(f"7c mm_calculate_metrics: {json.dumps(saved)}", flush=True)
+
+    # 7d: greedy_generate's speculative route on the first task; its model
+    # serves the stream checks
+    _, _, rec_d = run(ld, xd, "eval_greedy_spec", 1)
+    model = rec_d.model
+    want = [s for t in rec_a.tasks for s in t["streams"]]
+    prompts = [p for t in rec_a.tasks for p in t["prompts"]]
+    for label, rec in ((lb, rec_b), (ld, rec_d)):
+        got = [s for t in rec.tasks for s in t["streams"]]
+        if [p for t in rec.tasks for p in t["prompts"]] != prompts[:len(got)]:
+            raise AssertionError(f"{label} and 7a generated from different prompts")
+        # equal to 7a's up to a first difference at a near-tie
+        ties = first_difference(model, f"{label} vs 7a streams", got, want, prompts)
+        same = sum(g == w for g, w in zip(got, want))
+        print(f"{label[:2]} vs 7a: {same} of {len(got)} streams identical; first differences "
+              f"at near-ties (row, token, top-2 gap): {ties}", flush=True)
+    # every token of every stream against a teacher-forced forward
+    for label, rec in ((la, rec_a), (lb, rec_b), (ld, rec_d)):
+        t0 = time.perf_counter()
+        gap, n, off = hold_streams(model, label, [s for t in rec.tasks for s in t["streams"]],
+                                   [p for t in rec.tasks for p in t["prompts"]], rec.max_new,
+                                   rec.ends)
+        out[label]["teacher_forced"] = dict(tokens=n, not_argmax=off, max_gap=round(gap, 4))
+        print(f"{label[:2]} streams vs teacher-forced forwards: {n} tokens, {off} not the argmax, "
+              f"largest gap {gap:.4f} (tie margin {TIE_MARGIN}; "
+              f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    del model, rec_d.model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -2447,8 +2820,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     cli_launches, reload_launches = run_forget_cli_path(specs)
-    # CLEAR's recipe: finetune -> forget at LoRA.r=0 -> the other losses
-    recipe_launches = run_recipe_path()
+    # CLEAR's recipe: finetune -> forget at LoRA.r=0 -> the other losses,
+    # then the evaluation of the finetuned checkpoint
+    import shutil
+    import tempfile
+
+    ft_dir = tempfile.mkdtemp(prefix="recipe_finetune_")
+    try:
+        recipe_launches = run_recipe_path(ft_dir)
+        evals = run_eval_path(ft_dir)
+    finally:
+        shutil.rmtree(ft_dir, ignore_errors=True)
+    ev_a, ev_b, ev_d = (evals[k] for k in EVAL_RUNS)
 
     rows = [
         dict(name="flash_fwd (B1)", route="cuda",
@@ -2464,7 +2847,11 @@ def main() -> int:
              forget_cli_launches=cli_launches["flash_fwd"],
              reload_launches=reload_launches["flash_fwd"],
              # CLEAR's recipe (phase 6): finetune, forget at r=0, the other losses
-             recipe_launches={k: v["flash_fwd"] for k, v in recipe_launches.items()}),
+             recipe_launches={k: v["flash_fwd"] for k, v in recipe_launches.items()},
+             # CLEAR's evaluation (phase 7): teacher-forced forwards and prefills
+             eval_launches={"7a": ev_a["launches"]["flash_fwd"],
+                            "7b": ev_b["launches"]["flash_fwd"],
+                            "7d": ev_d["launches"]["flash_fwd"]}),
         dict(name="flash_bwd_dq (B2)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_bwd_dq.cu",
              replaces="multimodal_unlearning_tpu/ops/attention.py:219",
@@ -2482,7 +2869,8 @@ def main() -> int:
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/decode_attention.py:51",
              launches=launches["flash_decode"], max_abs_err=b4_err, **b4,
-             reload_launches=reload_launches["flash_decode"]),
+             reload_launches=reload_launches["flash_decode"],
+             eval_launches={"7a": ev_a["launches"]["flash_decode"]}),
         dict(name="flash_decode_q8 (B4q)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/decode_attention.py:71",
@@ -2493,14 +2881,17 @@ def main() -> int:
              launches=spec_launches["chunk_decode"], max_abs_err=b5_err["chunk_decode"],
              **b5["chunk_decode"]["verify"],
              # the chunked-prefill / prefix-suffix regime and the GQA case
-             prefill_chunk=b5["chunk_decode"]["prefill_chunk"], gqa=b5["chunk_decode"]["gqa"]),
+             prefill_chunk=b5["chunk_decode"]["prefill_chunk"], gqa=b5["chunk_decode"]["gqa"],
+             eval_verify=b5["chunk_decode"]["eval_verify"],
+             eval_launches={"7b": ev_b["launches"]["chunk_decode"],
+                            "7d": ev_d["launches"]["chunk_decode"]}),
         dict(name="chunk_decode_q8 (B5q)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/chunk_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/decode_attention.py:267",
              launches=spec8_launches["chunk_decode_q8"], max_abs_err=b5_err["chunk_decode_q8"],
              **b5["chunk_decode_q8"]["verify"],
              prefill_chunk=b5["chunk_decode_q8"]["prefill_chunk"],
-             gqa=b5["chunk_decode_q8"]["gqa"]),
+             gqa=b5["chunk_decode_q8"]["gqa"], eval_verify=b5["chunk_decode_q8"]["eval_verify"]),
         dict(name="paged_decode (B6)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/paged_attention.py:105",
@@ -2537,6 +2928,7 @@ def main() -> int:
              cases={k: v for k, v in b8_rec.items()
                     if k not in ("gate_up_m8", "decode_step_ms", "host_us_m8")}),
     ]
+    print(json.dumps({"eval": evals}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

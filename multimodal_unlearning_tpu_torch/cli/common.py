@@ -24,9 +24,19 @@ from multimodal_unlearning_tpu_torch.utils.quantize import (
 
 __all__ = ["max_grad_norm_of", "dtype_of", "parse_dtype", "model_kind", "is_vlm",
            "build_model_config", "quantize_base_params", "init_or_load_params", "save_model",
-           "build_processor", "model_tree"]
+           "build_processor", "model_tree", "rank_suffix", "make_tail_padder", "pad_width"]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+
+
+def rank_suffix() -> str:
+    """Per-rank artifact suffix: ``_rank<r>`` when ``torch.distributed`` is
+    initialised with more than one rank, else ``""``."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        return f"_rank{dist.get_rank()}"
+    return ""
 
 
 def max_grad_norm_of(cfg, forget_loss: str | None = None) -> float | None:
@@ -201,3 +211,49 @@ def build_processor(model_cfg, cfg=None, *, padding_side: str = "left") -> MMPro
             ("question_start_tag", "question_end_tag", "answer_tag")}
     return MMProcessor(tok, chat_template="__tags__", tags=tags, padding_side=padding_side,
                        image_size=32, num_image_tokens=0)
+
+
+def make_tail_padder(batch_size: int):
+    """Tail-batch padding shared by the eval CLIs, as the JAX package pads
+    (there, to keep the set of compiled shapes small; here, so that both
+    packages run the same rows and shapes).
+
+    A short tail batch is padded (its last row repeated) up to the loader's
+    batch size, or to the perturbed loader's ``batch_size // 4`` when the
+    tail is at least that small.  A batch LARGER than ``batch_size`` (the
+    flattened perturbed batch, ``(batch_size // 4) x num_perturbed`` rows)
+    rounds up to the next multiple of the small batch.  Callers slice
+    outputs back to the true row count.
+
+    Returns ``(pad_rows, target)``: ``pad_rows(a, to)`` pads array ``a``
+    (None passes through) and ``target(B)`` is the padded size for ``B``
+    rows."""
+    import numpy as np
+
+    small = max(batch_size // 4, 1)
+
+    def pad_rows(a, to):
+        if a is None or len(a) == to:
+            return a
+        return np.concatenate([a, np.repeat(a[-1:], to - len(a), axis=0)])
+
+    def target(B):
+        if B <= small:
+            return small
+        if B <= batch_size:
+            return batch_size
+        return -(-B // small) * small
+
+    return pad_rows, target
+
+
+def pad_width(a, multiple: int, fill):
+    """Pad a [B, W] array's width up to a multiple of ``multiple`` with
+    ``fill`` (per-batch side inputs such as ``draft_ref``)."""
+    import numpy as np
+
+    W = a.shape[1]
+    Wp = -(-W // multiple) * multiple
+    if Wp == W:
+        return a
+    return np.concatenate([a, np.full((a.shape[0], Wp - W), fill, a.dtype)], axis=1)

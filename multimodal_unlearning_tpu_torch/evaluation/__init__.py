@@ -1,0 +1,3 @@
+from multimodal_unlearning_tpu_torch.evaluation import evaluator, generate, metrics, rouge
+
+__all__ = ["evaluator", "generate", "metrics", "rouge"]

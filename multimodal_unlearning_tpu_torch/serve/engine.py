@@ -72,6 +72,7 @@ import torch
 
 from multimodal_unlearning_tpu_torch.device import resolve_device
 from multimodal_unlearning_tpu_torch.models import decoder_module
+from multimodal_unlearning_tpu_torch.speculative import accept_round, propose_drafts
 
 
 @dataclass
@@ -777,33 +778,6 @@ class ServingEngine:
             st["live"] = still
         return emits, lives
 
-    def _propose(self, token, cur):
-        """The K tokens that followed the most recent 2-gram match of
-        (previous token, ``token``) in [draft corpus | separator | history]
-        (the JAX engine's ``propose``): a match whose K followers are all
-        known wins over a later partial one; unknown followers are -4,
-        which never equals an argmax.  [B, K]."""
-        st, B, K, R = self._state, self.B, self.K, self.R
-        dev = self.device
-        rows = torch.arange(B, device=dev)
-        buf = torch.cat([st["draft_ref"], torch.full((B, 1), -5, dtype=torch.long, device=dev),
-                         st["ids_buf"]], dim=1)
-        W = buf.shape[1]
-        prev = st["ids_buf"][rows, torch.clamp(cur - 1, min=0)]
-        nxt = torch.cat([buf[:, 1:], torch.full((B, 1), -3, dtype=torch.long, device=dev)], 1)
-        m = (buf == prev[:, None]) & (nxt == token[:, None])
-        pcol = torch.arange(W, device=dev)[None, :]
-        limit = torch.where(pcol < R, R, R + 1 + cur[:, None])
-        none = torch.tensor(-1, device=dev)
-        p_full = torch.where(m & (pcol + 2 + K <= limit), pcol, none).amax(dim=1)
-        p_any = torch.where(m & (pcol + 2 < limit), pcol, none).amax(dim=1)
-        p = torch.where(p_full >= 0, p_full, p_any)
-        cols = p[:, None] + 2 + torch.arange(K, device=dev)[None, :]
-        vals = buf[rows[:, None], torch.clamp(cols, 0, W - 1)]
-        p_limit = torch.where(p < R, R, R + 1 + cur)
-        known = (p[:, None] >= 0) & (cols < p_limit[:, None])
-        return torch.where(known, vals, -4)
-
     def _spec_decode_chunk(self):
         """``chunk`` verify rounds for every slot (the JAX engine's
         ``_make_spec_decode``): propose K tokens, verify [token, draft] with
@@ -823,7 +797,7 @@ class ServingEngine:
         for t in range(T):
             live = st["live"] & (st["remaining"] > 0)
             cur, pos, token = st["write_col"], st["pos_next"], st["token"]
-            draft = self._propose(token, cur)
+            draft = propose_drafts(st["draft_ref"], st["ids_buf"], token, cur, K)
             chunk = torch.cat([token[:, None], draft], dim=1)
             # retired slots still run the forward: clamp their stale write
             # columns so the K+1-wide per-row write stays in bounds (live rows
@@ -834,24 +808,10 @@ class ServingEngine:
                                 cache_offset=cur_w, kv_valid_mask=st["kv_valid"],
                                 chunk_decode=True)
             preds = torch.argmax(out["logits"], dim=-1)  # [B, K+1]
-            a = torch.cumprod((draft == preds[:, :K]).long(), dim=1).sum(dim=1)  # accepted 0..K
-            n_emit = a + 1
-            if self.eos >= 0:
-                eos_idx = torch.where(preds == self.eos, ar[None, :], K + 1).amin(dim=1)
-                n_emit = torch.minimum(n_emit, eos_idx)  # eos is not emitted
-                hit_eos = eos_idx <= a
-            else:
-                hit_eos = torch.zeros_like(live)
-            n_emit = torch.where(live, torch.minimum(n_emit, st["remaining"]), 0)
+            a, n_emit, hit_eos = accept_round(chunk, preds, live, st["remaining"], st["ids_buf"],
+                                              st["kv_valid"], cur_w, self.eos)
             emits[t] = torch.where(ar[None, :] < n_emit[:, None], preds, self.pad_id)
             n_emits[t] = n_emit
-            # the accepted context tokens chunk[0..a] extend history and validity
-            acc = (ar[None, :] <= a[:, None]) & live[:, None]
-            cols = torch.where(acc, cur_w[:, None] + ar[None, :], self.smax - 1)
-            st["ids_buf"][rows[:, None], cols] = torch.where(
-                acc, chunk, st["ids_buf"][rows[:, None], cols])
-            st["kv_valid"][rows[:, None], cols] = torch.maximum(
-                st["kv_valid"][rows[:, None], cols], acc.to(torch.int32))
             remaining = st["remaining"] - n_emit
             done = live & (hit_eos | (remaining <= 0))
             dones[t] = done

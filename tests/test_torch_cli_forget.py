@@ -112,16 +112,26 @@ def _q8_uint8_v(monkeypatch):
     monkeypatch.setattr(joptim, "adamw_q8", adamw_q8)
 
 
-def _parity(tmp_path, monkeypatch, extra, wide=False):
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    """The base checkpoint of each width, drawn and written once per module
+    and read by every case's JAX and port runs."""
+    return {"dir": tmp_path_factory.mktemp("bases"), "bases": {}}
+
+
+def _parity(tmp_path, monkeypatch, extra, reference, wide=False):
     _registry(tmp_path, monkeypatch, wide=wide)
     _q8_uint8_v(monkeypatch)
     # the JAX package writes the base checkpoint; its weights are drawn by the
     # port (a JAX init would cost a compile per leaf)
-    _, _, model = tcommon.init_or_load_params(tregistry.get_model_identifiers("tiny-llava-test"),
-                                              None, seed=0, device="cpu")
-    jparams = jax.tree.map(lambda t: t.numpy(), tcommon.model_tree(model))
-    jcommon.save_model(tmp_path / "base", jregistry.get_model_identifiers("tiny-llava-test"),
-                       jparams)
+    base = reference["dir"] / ("wide" if wide else "narrow")
+    if base not in reference["bases"]:
+        _, _, model = tcommon.init_or_load_params(
+            tregistry.get_model_identifiers("tiny-llava-test"), None, seed=0, device="cpu")
+        reference["bases"][base] = jax.tree.map(lambda t: t.numpy(), tcommon.model_tree(model))
+        jcommon.save_model(base, jregistry.get_model_identifiers("tiny-llava-test"),
+                           reference["bases"][base])
+    jparams = reference["bases"][base]
 
     def jax_adapters(model, r, generator, projector=True):
         del model, generator
@@ -129,7 +139,7 @@ def _parity(tmp_path, monkeypatch, extra, wide=False):
         return convert.adapters_from_jax(jax.tree.map(np.asarray, tree), device="cpu")
 
     monkeypatch.setattr(tlora, "init_model_lora", jax_adapters)
-    args = BASE + [f"model_path={tmp_path / 'base'}"] + extra
+    args = BASE + [f"model_path={base}"] + extra
     # batch_size is per device: the JAX side runs on the 8 CPU devices of
     # tests/conftest.py (mesh data=-1), the port on one, with the same
     # global batch of 2 micro-batches of 8 rows
@@ -158,9 +168,9 @@ CASES = {
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_forget_cli_matches_jax(tmp_path, monkeypatch, flags_off, case):
+def test_forget_cli_matches_jax(tmp_path, monkeypatch, flags_off, reference, case):
     extra = CASES[case]
-    jhist, thist = _parity(tmp_path, monkeypatch, extra, wide=case == "w8a8")
+    jhist, thist = _parity(tmp_path, monkeypatch, extra, reference, wide=case == "w8a8")
     assert [h["step"] for h in thist] == [h["step"] for h in jhist] == [1, 2, 3]
     jl, tl = [h["loss"] for h in jhist], [h["loss"] for h in thist]
     if case != "w8a8":

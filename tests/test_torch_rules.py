@@ -5,11 +5,13 @@ caller asks for the CPU; options it has not ported raise; its presets equal
 the YAML registry."""
 
 import ast
+import json
 import pkgutil
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -62,11 +64,13 @@ def test_port_imports_with_jax_blocked():
                  "utils.pytree", "models.lora", "cli.mm_forget", "bench",
                  "config.loader", "config.registry", "utils.native",
                  "data.datasets", "data.loader", "data.prefetch",
-                 "train.checkpoints", "train.loop", "models.hf_bridge"):
+                 "train.checkpoints", "train.loop", "models.hf_bridge",
+                 "evaluation", "evaluation.rouge", "evaluation.metrics", "evaluation.generate",
+                 "evaluation.evaluator", "cli.mm_eval", "cli.mm_calculate_metrics"):
         assert f"multimodal_unlearning_tpu_torch.{name}" in mods
 
 
-def test_entry_points_need_a_card_unless_cpu_is_asked():
+def test_entry_points_need_a_card_unless_cpu_is_asked(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the default device works")
     from multimodal_unlearning_tpu_torch.cli import serve
@@ -101,6 +105,26 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
         mm_forget.run(load_config(config_dir() / "mm", "forget", [
             "model_family=tiny-llava-test", "LoRA.r=4", "forget_data_path=synthetic",
             "retain_data_path=synthetic", "save_dir=/nonexistent/never-created"]))
+    from multimodal_unlearning_tpu_torch.cli import mm_calculate_metrics, mm_eval
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mm_eval.run(load_config(config_dir() / "mm", "eval", [
+            "model_family=tiny-llava-test", "data_path=[synthetic]", "split_list=[full]",
+            "eval_task=[eval_log]", "question_key=[question]", "answer_key=[caption]",
+            "base_answer_key=[caption]", "perturbed_answer_key=[perturbed_captions]",
+            "save_dir=/nonexistent/never-created"]))
+    # the metrics CLI reads two eval aggregates and computes on the host: it
+    # has no device to ask for, and runs here
+    from multimodal_unlearning_tpu_torch.evaluation.metrics import FILE_TO_TASK
+
+    log = {"avg_gt_loss": {"0": 1.0, "3": 2.0}, "avg_paraphrased_loss": {"0": 1.5, "3": 0.5},
+           "average_perturb_loss": {"0": [2.0, 2.5], "3": [1.0, 3.0]},
+           "rougeL_recall": {"0": 0.5, "3": 1.0}}
+    agg = tmp_path / "agg.json"
+    agg.write_text(json.dumps({name: log for name in FILE_TO_TASK}))
+    out = mm_calculate_metrics.run(load_config(config_dir() / "mm", "calculate_metrics", [
+        f"ckpt_result={agg}", f"retain_result={agg}", f"save_file={tmp_path / 'm.json'}"]))
+    assert np.isfinite(out["Model Utility"])
 
 
 @pytest.mark.parametrize("option", [
