@@ -42,7 +42,12 @@ a result line.)
    B8 also: the bound by bytes and by operations at every case, the port's
    own route above 1024 rows (per-weight dequant + ``torch.matmul``,
    dequant included) at M 40, 512 and 1024, and its host time per call at
-   M 8.  The one-token decode kernels print their split plan.
+   M 8.  The one-token decode kernels print their split plan.  Then every
+   kernel at phase 8's Qwen shapes (``check_qwen``): B1 at head dim 80,
+   (8, 16, 576, 80) without a mask and (8 x 9, 16, 64, 80) with ragged
+   window padding; B4, B4q, B6, B6q at B 8, 12 q-heads on 2 kv-heads (GQA
+   group 6), D 128; B5, B5q, B7, B7q at the verify round at group 6; B2 and
+   B3 at (2, 12/2, 512, 128) causal with left padding.
 3. Serves LLaVA-1.5-7B at full width (random weights from a seed, bf16)
    through ``cli.serve.build_engine`` + ``ServingEngine``: ten requests of
    mixed prompt lengths, two with synthetic 336x336 pixels, 32..64 new
@@ -92,9 +97,12 @@ a result line.)
    loss moving, B1/B2/B3 launched exactly as often as the step's structure
    gives, and the loss and LoRA gradients must agree with the same step on
    the plain attention versions.  Then one step under the profiler.
+Phases 5-7 run LLaVA-1.5-7B at full width with its decoder cut to
+``LLAVA_CLI_DEPTH`` (16) of its 32 layers, so that the script with phase 8
+stays within its time limit.
 5. Frees that model and runs the forget CLI as a user runs it:
    ``cli.mm_forget.main`` on ``configs/mm/forget.yaml`` with ``FORGET_CLI_ARGS``
-   (LLaVA-1.5-7B at full width and depth from seed 42, synthetic CLEAR data:
+   (LLaVA-1.5-7B at full width from seed 42, synthetic CLEAR data:
    16 forget rows, 8 with a 336-px image; phase 4's operating point; 2
    accumulated micro-batches of 2; 6 steps, a train-state save at step 4;
    the merged model saved in bf16 to a temporary directory, removed after).
@@ -109,7 +117,7 @@ a result line.)
    free disk, the peak memory (the CLI's, the host's, the load's) and
    whether the native host library is live (the CLI prints its steps/s,
    tok/s and host time per step).
-6. CLEAR's recipe through the CLIs, LLaVA-1.5-7B at full width and depth from
+6. CLEAR's recipe through the CLIs, LLaVA-1.5-7B at full width from
    seed 42, synthetic CLEAR data (``RECIPE_DATA``): 6a ``cli.mm_finetune.main``
    (``FINETUNE_CLI_ARGS``: LoRA r 8 over the bf16 base, 3 steps, merged and saved
    in bf16 to a temporary directory); 6b ``cli.mm_forget.main`` on that
@@ -123,7 +131,7 @@ a result line.)
    loss and gradient norm finite, no step skipped, NPO's loss moving, the
    trainable leaves moved and the vision tower equal bit for bit to the loaded
    one, B1/B2/B3 launched exactly as each loss's splits give, peak memory under
-   ``PEAK_BOUND_GIB``; steps/s and tok/s per CLI step, ms and launches per loss.
+   ``PEAK_BOUND_GIB`` (set for the cut depth) and printed; steps/s and tok/s per CLI step, ms and launches per loss.
 7. CLEAR's evaluation of phase 6a's checkpoint through the CLIs (kept until
    this phase ends): 7a ``cli.mm_eval.main`` on ``configs/mm/eval.yaml`` as
    it ships (bf16, the plain ``greedy_generate`` route, 300 new tokens, batch
@@ -143,10 +151,35 @@ a result line.)
    finite.  Prints seconds per task (teacher-forced and generation),
    generated tok/s, ms per decode step (per verify round in 7b and 7d),
    tokens per verify round and peak memory.
-8. Prints one ``{"eval": ...}`` line (phase 7's numbers), one
+8. Qwen2-VL, the family every shipped mm config names (``run_qwen_path``):
+   8a ``cli.mm_finetune.main`` on ``configs/mm/finetune.yaml`` as it ships
+   (qwen-vl2-2b at full width and depth from seed 42, bf16, LoRA r 8 with
+   the merger's adapters, batch 4, accumulation 2; ``QWEN_DATA``, 3 steps,
+   merged save); 8b ``cli.mm_forget.main`` on ``configs/mm/forget.yaml`` as
+   it ships from 8a's checkpoint (``LoRA.r=0``, batch 2, accumulation 4,
+   grad_diff_forget_ce_retain_ce, AdamW at lr 1e-5; 3 steps, saved), its
+   peak device memory printed; 8c ``cli.mm_eval.main`` on
+   ``configs/mm/eval.yaml`` with 8b's checkpoint (``ds_size`` 8) and
+   ``cli.mm_calculate_metrics.main``, every stream held against
+   teacher-forced forwards; 8d ``cli.serve.main`` on ``configs/mm/serve.yaml``
+   as it ships (the int8 W8A16 decoder) with ``model_path`` at 8b's
+   checkpoint, six requests (three with a 200x300 image) to 160 tokens,
+   held against teacher-forced forwards; then on the same model the int8
+   cache dense (B4q), paged on a 17-page pool (B6q; a preemption asserted)
+   and paged with speculation (B7q), held against the dense run up to
+   near-ties; 8e Qwen2.5-VL-3B (qwen-vl-3b, the windowed tower) from its
+   seed in bf16: prefill logits against plain attention and four image
+   requests served, streams held against teacher-forced forwards.  Every
+   run's launches asserted from its structure (training steps and
+   micro-batches, teacher-forced forwards, the engine's prompt, image,
+   decode and chunk forwards).  ``--qwen-only`` runs phases 1, 2 and 8 and
+   prints their numbers instead of a result line.
+9. Prints one ``{"eval": ...}`` line (phase 7's numbers and 8c's), one
    ``{"kernels": [...]}`` line (twelve kernels; B1-B3 with phase 6's
-   launches, B1, B4 and B5 with phase 7's), the card's name and power limit,
-   and as the last line ``{"ok": true, "device": {...}}``.
+   launches, B1, B4 and B5 with phase 7's, each with a ``qwen2vl`` entry:
+   phase 2's numbers at the Qwen shapes and phase 8's launches), the card's
+   name and power limit, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; without a CUDA device it exits 1 before doing anything.
@@ -1104,6 +1137,238 @@ def check_bwd(dev, gen):
     return worst, record
 
 
+# ------------------------------------------------------------- phase 2, Qwen2-VL
+# The shapes phase 8 gives the kernels: B1 at head dim 80 (Qwen2-VL-2B's
+# tower: 576 patches, 16 heads, no mask; Qwen2.5-VL-3B's windowed blocks: 9
+# windows of 64 patches a row folded into the batch, here with ragged right
+# padding); the decoder's GQA group 6 (12 q-heads on 2 kv-heads) on the
+# one-token kernels (B4, B4q, B6, B6q), the chunk kernels at the verify
+# round (B5, B5q, B7, B7q; B 8, C 5) and the backward kernels (B2, B3;
+# batch 2 of 512 tokens, causal, left padding).
+QWEN_CACHE = (4, 8, 2, 2048, 128)  # L, B, Hkv, Smax, D of the decode cases
+QWEN_HQ = 12
+
+
+def _timed_case(label, kernel_fns, plain_fn, lib_fns, nbytes, flops, extra=""):
+    """Device time of the kernel cycled over ``kernel_fns`` (inputs cycled
+    past the L2), of its plain version and of one PyTorch call, beside the
+    bound; prints one line and returns the numbers."""
+    b_ms, b_by = bound(nbytes, flops)
+    ms = device_ms_cycle(kernel_fns)
+    plain_ms = device_ms_cycle([plain_fn], iters=4)
+    lib_ms = device_ms_cycle(lib_fns)
+    print(f"{label}: device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+          f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.3f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB){extra}", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def _qwen_b1(dev, gen, worst, record):
+    rng = np.random.default_rng(5)
+    # name, B (windows folded in), heads, S, ragged right padding
+    for name, B, H, S, ragged in (("qwen_tower", 8, 16, 576, False),
+                                  ("qwen25_windows", 8 * 9, 16, 64, True)):
+        D = 80
+        q, k, v = (randn(gen, (B, H, S, D), dev) for _ in range(3))
+        mask = None
+        if ragged:
+            lens = rng.integers(16, S + 1, B)
+            lens[::9] = S  # the first window of each row is full
+            mask = (torch.arange(S)[None, :] < torch.from_numpy(lens)[:, None]).to(
+                dev, torch.int32)
+        o = flash_attention_lse(q, k, v, mask)[0]
+        torch.cuda.synchronize()
+        ref = flash_attention_lse(q, k, v, mask, impl="plain")[0]
+        err = (o.float() - ref.float()).abs().max().item()
+        if err > KERNEL_TOL:
+            raise AssertionError(f"B1 {name}: max |err| {err} (tol {KERNEL_TOL})")
+        worst["flash_fwd"] = max(worst["flash_fwd"], err)
+        # every query row (the padding rows too) against the valid keys of its row
+        pairs = H * S * (B * S if mask is None else int(mask.sum().item()))
+        nbytes = 2 * 4 * q.numel() + 4 * B * H * S + (0 if mask is None else 4 * mask.numel())
+        copies = [(q, k, v)] + [tuple(t.clone() for t in (q, k, v))
+                                for _ in range(n_cold(nbytes) - 1)]
+        bool_mask = None if mask is None else mask.bool()[:, None, None, :]
+        record["flash_fwd"][name] = dict(max_abs_err=err, **_timed_case(
+            f"B1 {name} B{B} H{H} S{S} D{D}{' ragged mask' if ragged else ''}: max|err| "
+            f"{err:.3e}", [lambda c=c: flash_attention_lse(*c, mask) for c in copies],
+            lambda: flash_attention_lse(q, k, v, mask, impl="plain"),
+            [lambda c=c: F.scaled_dot_product_attention(*c, attn_mask=bool_mask)
+             for c in copies], nbytes, 4.0 * D * pairs))
+        del q, k, v, o, ref, copies
+
+
+def _bf16_views(cache, L):
+    """Each layer's K and V as bf16 [B, Hkv, S, D] (an int8 cache
+    dequantized, a paged one gathered): what the SDPA yardstick reads."""
+    if "table" in cache:
+        return [gather_layer_kv(cache, l, torch.bfloat16) for l in range(L)]
+    return [dec_ops.dequant_layer(cache, l, torch.bfloat16) for l in range(L)]
+
+
+def _qwen_rows(B, S, rng, idle):
+    """Ragged decode rows as the engine leaves them (a left-padded prompt
+    bucket, then decoded columns); row ``idle`` all invalid."""
+    valid = torch.zeros((B, S), dtype=torch.int32)
+    for b in range(B):
+        if b != idle:
+            bucket = int(rng.integers(1, 12)) * 128
+            plen = int(rng.integers(1, bucket + 1))
+            valid[b, bucket - plen:bucket + int(rng.integers(0, 64))] = 1
+    return valid
+
+
+def _qwen_decode(dev, gen, worst, record):
+    L, B, Hkv, S, D = QWEN_CACHE
+    Hq, layer, idle = QWEN_HQ, 3, 5
+    rng = np.random.default_rng(6)
+    valid = _qwen_rows(B, S, rng, idle).to(dev)
+    q = randn(gen, (B, Hq, 1, D), dev)
+    n_valid = int(valid.sum().item())
+    bool_mask = valid.bool()[:, None, None, :]
+    for int8 in (False, True):
+        dense, pool = _dense_and_paged(dev, gen, rng, L, B, Hkv, S, 128, D, int8)
+        per_col = 2 * D + 8 if int8 else 4 * D
+        for kname, cache in ((("flash_decode_q8", dense) if int8 else ("flash_decode", dense)),
+                             (("paged_decode_q8", pool) if int8 else ("paged_decode", pool))):
+            o = decode_attention(q, cache, layer, valid)
+            torch.cuda.synchronize()
+            ref = decode_attention(q, cache, layer, valid, impl="plain")
+            err = (o.float() - ref.float()).abs().max().item()
+            if err > KERNEL_TOL or not torch.all(o[idle] == 0):
+                raise AssertionError(f"{kname} group 6: max |err| {err} (tol {KERNEL_TOL}) or "
+                                     "the idle row not 0")
+            if "table" in cache and not torch.equal(o, decode_attention(q, dense, layer, valid)):
+                raise AssertionError(f"{kname} group 6: not the dense kernel's output bit for bit")
+            worst[kname] = max(worst[kname], err)
+            nbytes = (n_valid * Hkv * per_col + 2 * (q.numel() + o.numel()) + 4 * valid.numel()
+                      + (4 * pool["table"].numel() if "table" in cache else 0))
+            views = _bf16_views(cache, L)
+            record[kname]["qwen_group6"] = dict(max_abs_err=err, **_timed_case(
+                f"{kname} group 6 (B{B} Hq{Hq} Hkv{Hkv} D{D}, {n_valid} valid columns of "
+                f"{B * S}, {decode_plan(B, Hkv, Hq // Hkv, S)}): max|err| {err:.3e}",
+                [lambda l=l: decode_attention(q, cache, l, valid) for l in range(L)],
+                lambda: decode_attention(q, cache, layer, valid, impl="plain"),
+                [lambda c=c: F.scaled_dot_product_attention(q, *c, attn_mask=bool_mask,
+                                                            enable_gqa=True) for c in views],
+                nbytes, 4.0 * D * n_valid * Hq))
+            del views
+        del dense, pool
+
+
+def _qwen_chunk(dev, gen, worst, record):
+    L, B, Hkv, S, D = QWEN_CACHE
+    Hq, C, layer = QWEN_HQ, 5, 3
+    rng = np.random.default_rng(7)
+    valid = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    offset = torch.zeros((B,), dtype=torch.int32, device=dev)
+    for b in range(B):
+        off = int(rng.integers(200, S - 64))
+        valid[b, int(rng.integers(0, 128)):off] = 1
+        offset[b] = off
+    q = randn(gen, (B, Hq, C, D), dev)
+    ar = torch.arange(S, device=dev)[None, None, :]
+    vis = valid.bool()[:, None, :] | ((ar >= offset[:, None, None].long()) & (
+        ar <= offset[:, None, None].long() + torch.arange(C, device=dev)[None, :, None]))
+    pairs = Hq * int(vis.sum().item())
+    cols = Hkv * int(vis.any(dim=1).sum().item())
+    for int8 in (False, True):
+        dense, pool = _dense_and_paged(dev, gen, rng, L, B, Hkv, S, 128, D, int8)
+        per_col = 2 * D + 8 if int8 else 4 * D
+        for kname, cache in ((("chunk_decode_q8", dense) if int8 else ("chunk_decode", dense)),
+                             (("paged_chunk_q8", pool) if int8 else ("paged_chunk", pool))):
+            o = chunk_decode_attention(q, cache, layer, valid, offset)
+            torch.cuda.synchronize()
+            ref = chunk_decode_attention(q, cache, layer, valid, offset, impl="plain")
+            err = (o.float() - ref.float()).abs().max().item()
+            if err > KERNEL_TOL:
+                raise AssertionError(f"{kname} group 6: max |err| {err} (tol {KERNEL_TOL})")
+            if "table" in cache and not torch.equal(
+                    o, chunk_decode_attention(q, dense, layer, valid, offset)):
+                raise AssertionError(f"{kname} group 6: not the dense kernel's output bit for bit")
+            worst[kname] = max(worst[kname], err)
+            nbytes = (cols * per_col + 2 * (q.numel() + o.numel()) + 4 * (valid.numel() + B)
+                      + (4 * pool["table"].numel() if "table" in cache else 0))
+            views = _bf16_views(cache, L)
+            record[kname]["qwen_group6"] = dict(max_abs_err=err, **_timed_case(
+                f"{kname} group 6 verify round (B{B} Hq{Hq} Hkv{Hkv} C{C} D{D})"
+                f": max|err| {err:.3e}",
+                [lambda l=l: chunk_decode_attention(q, cache, l, valid, offset)
+                 for l in range(L)],
+                lambda: chunk_decode_attention(q, cache, layer, valid, offset, impl="plain"),
+                [lambda c=c: F.scaled_dot_product_attention(q, *c, attn_mask=vis[:, None],
+                                                            enable_gqa=True) for c in views],
+                nbytes, 4.0 * D * pairs))
+            del views
+        del dense, pool
+
+
+def _qwen_bwd(dev, gen, worst, record):
+    B, Hq, Hkv, S, D, pad = 2, QWEN_HQ, 2, 512, 128, 37
+    q, do = randn(gen, (B, Hq, S, D), dev), randn(gen, (B, S, Hq, D), dev).transpose(1, 2)
+    k, v = randn(gen, (B, Hkv, S, D), dev), randn(gen, (B, Hkv, S, D), dev)
+    mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+    mask[:, :pad] = 0
+    o, lse = flash_attention_lse(q, k, v, mask, causal=True)
+    delta = (do.float() * o.float()).sum(-1)
+    got = (flash_bwd_dq(q, k, v, mask, do, lse, delta, causal=True),
+           *flash_bwd_dkv(q, k, v, mask, do, lse, delta, causal=True))
+    torch.cuda.synchronize()
+    want = (flash_bwd_dq(q, k, v, mask, do, lse, delta, causal=True, impl="plain"),
+            *flash_bwd_dkv(q, k, v, mask, do, lse, delta, causal=True, impl="plain"))
+    errs = {}
+    for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        err = (g - w).abs()
+        if not torch.isfinite(g).all() or torch.any(err > BWD_REL_TOL * w.abs().max()
+                                                    + BWD_ULP * w.abs()):
+            raise AssertionError(f"B2/B3 group 6: {gname} max |err| {err.max().item():.4e}")
+        errs[gname] = err.max().item()
+    worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs["dq"])
+    worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], errs["dk"], errs["dv"])
+    vis = mask.bool()[:, None, :] & (torch.arange(S, device=dev)[:, None]
+                                     >= torch.arange(S, device=dev)[None, :])
+    pairs = Hq * int(vis.sum().item())
+    small = 4 * (lse.numel() + delta.numel() + mask.numel())
+    copies = [(q, k, v, do)] + [tuple(t.clone() for t in (q, k, v, do))
+                                for _ in range(n_cold(2 * 4 * q.numel()) - 1)]
+    graphs = []
+    for c in copies:
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in c[:3])
+        ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=vis[:, None], enable_gqa=True)
+        graphs.append((ol, (ql, kl, vl), c[3]))
+    lib = [lambda g=g: torch.autograd.grad(g[0], g[1], g[2], retain_graph=True) for g in graphs]
+    for kname, fn, nbytes, flops, err in (
+            ("flash_bwd_dq", flash_bwd_dq,
+             2 * (2 * q.numel() + do.numel() + k.numel() + v.numel()) + small, 6.0 * D * pairs,
+             errs["dq"]),
+            ("flash_bwd_dkv", flash_bwd_dkv,
+             2 * (q.numel() + do.numel() + 2 * (k.numel() + v.numel())) + small,
+             8.0 * D * pairs, max(errs["dk"], errs["dv"]))):
+        record[kname]["qwen_group6"] = dict(max_abs_err=err, **_timed_case(
+            f"{kname} group 6 (B{B} Hq{Hq} Hkv{Hkv} S{S} D{D} causal, left pad {pad}): max|err| "
+            f"{err:.3e}; sdpa is the whole backward (dq, dk and dv)",
+            [lambda c=c, fn=fn: fn(*c[:3], mask, c[3], lse, delta, causal=True)
+             for c in copies],
+            lambda fn=fn: fn(q, k, v, mask, do, lse, delta, causal=True, impl="plain"),
+            lib, nbytes, flops))
+    del copies, graphs
+
+
+def check_qwen(dev, gen):
+    """Every kernel at the shapes phase 8 (Qwen2-VL-2B, Qwen2.5-VL-3B) gives
+    it; returns ({kernel: max error}, {kernel: {case: numbers}})."""
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_decode", "flash_decode_q8",
+             "paged_decode", "paged_decode_q8", "chunk_decode", "chunk_decode_q8",
+             "paged_chunk", "paged_chunk_q8")
+    worst, record = dict.fromkeys(names, 0.0), {n: {} for n in names}
+    _qwen_b1(dev, gen, worst, record)
+    _qwen_decode(dev, gen, worst, record)
+    _qwen_chunk(dev, gen, worst, record)
+    _qwen_bwd(dev, gen, worst, record)
+    return worst, record
+
+
 # ------------------------------------------------------------- phase 3
 def make_requests(processor, image_size):
     rng = np.random.default_rng(0)
@@ -1855,9 +2120,32 @@ def _forget_path(model, timed_steps):
     return launches
 
 
+# ------------------------------------------------------------- phases 5-7
+# Phases 5-7 drive LLaVA-1.5-7B through the CLIs at full width with its
+# decoder cut to LLAVA_CLI_DEPTH of its 32 layers (the vision tower whole),
+# so that the whole script, phase 8 included, stays within its time limit
+LLAVA_CLI_DEPTH = 16
+
+
+@contextlib.contextmanager
+def cut_depth(family, layers):
+    """While active, the registry's ``family`` has ``layers`` decoder layers
+    (every CLI reads the registry when it builds its model)."""
+    from multimodal_unlearning_tpu_torch.config import registry
+
+    dec = dict.__getitem__(dict.__getitem__(dict.__getitem__(registry.PRESETS, family), "arch"),
+                           "decoder")
+    full = dec["num_layers"]
+    dec["num_layers"] = layers
+    try:
+        yield full
+    finally:
+        dec["num_layers"] = full
+
+
 # ------------------------------------------------------------- phase 5
-# the forget CLI as a user runs it: LLaVA-1.5-7B at full width and depth from
-# the seed, synthetic CLEAR data (16 forget rows, half with a 336-px image),
+# the forget CLI as a user runs it: LLaVA-1.5-7B at full width (decoder cut
+# to LLAVA_CLI_DEPTH layers) from the seed, synthetic CLEAR data (16 forget rows, half with a 336-px image),
 # bench.py's operating point (int8 base, W8A8 + int8 dx, LoRA r 8, remat
 # save_attn), 4 steps an epoch for 1.5 epochs (a train-state save at step 4),
 # then the merged model saved in bf16 and served again from the saved files
@@ -2021,8 +2309,8 @@ def run_forget_cli_path(specs, args=FORGET_CLI_ARGS, serve_base=SERVE_ARGS, pick
 
 
 # ------------------------------------------------------------- phase 6
-# CLEAR's recipe through the CLIs a user calls, LLaVA-1.5-7B at full width and
-# depth from seed 42: finetune (LoRA r 8 over the bf16 base, merged bf16
+# CLEAR's recipe through the CLIs a user calls, LLaVA-1.5-7B at full width
+# (decoder cut to LLAVA_CLI_DEPTH layers) from seed 42: finetune (LoRA r 8 over the bf16 base, merged bf16
 # save), then forget from that checkpoint at LoRA.r=0 (the model's own
 # parameters in place, the vision tower frozen) with NPO, adamw_q8 and a bf16
 # teacher, then one step of each other loss on what that run leaves on the card
@@ -2045,13 +2333,16 @@ R0_FORGET_CLI_ARGS = [
     "num_epochs=0.4",  # 16 forget rows, 2 a step: 3 steps, no train-state save
 ]
 OTHER_LOSSES = ("scrub", "KL", "llmu", "rmu", "dpo", "sku", "idk", "eco_ft")
-# peak device memory per sub-phase (GiB): 6a the bf16 model (13.2), f32
-# adapters and activations; 6b the reckoning's 52-58 (student, teacher,
-# gradients, int8 moments, activations) with room; 6c 6b's resident ~45 GiB
-# plus a loss's gradients and activations (SKU: five student forwards), or
-# the student, its gradients, the initial copy and plain AdamW's bf16 moments
-# (63.6) once the teacher and the int8 state are gone
-PEAK_BOUND_GIB = {"6a finetune": 30.0, "6b forget r0": 64.0, "6c losses": 72.0}
+# peak device memory per sub-phase (GiB) at LLAVA_CLI_DEPTH (16) decoder
+# layers: 6a the bf16 model, f32 adapters and activations (read 9.36 on an
+# H100 80GB HBM3 at 700 W); 6b the student, a bf16 teacher, gradients,
+# adamw_q8's moments and activations (read 33.33); 6c a loss's gradients and
+# activations on 6b's resident state (SKU: five student forwards), or the
+# student, its gradients, the initial copy and plain AdamW's bf16 moments
+# once the teacher and the int8 state are gone (read 36.39).  Each bound is
+# its reading with ~15% room.  At 32 layers 6b read 57.54: that r=0 fits
+# one card at full depth is shown by r0_memory.py, not here
+PEAK_BOUND_GIB = {"6a finetune": 11.0, "6b forget r0": 38.5, "6c losses": 42.0}
 
 
 def _splits(loss: str, batch: dict) -> tuple[int, int, int]:
@@ -2059,6 +2350,8 @@ def _splits(loss: str, batch: dict) -> tuple[int, int, int]:
     ``loss`` on ``batch``: which splits ``train/losses.py`` runs through the
     student and the teacher (SKU: its K random sub-batches too)."""
     k = batch["random"]["input_ids"].shape[1] if "random" in batch else 0
+    if loss.startswith("grad_diff"):  # forget and retain splits, a teacher for each KL part
+        return 2, loss.count("KL"), 2
     table = {"retain_ft": (1, 0), "grad_ascent": (1, 0), "npo": (1, 1), "scrub": (2, 2),
              "kl": (2, 1), "llmu": (3, 1), "rmu": (2, 1), "dpo": (2, 2), "sku": (k + 2, 1),
              "idk": (2, 0), "eco_ft": (2, 0)}
@@ -2066,6 +2359,13 @@ def _splits(loss: str, batch: dict) -> tuple[int, int, int]:
     # DPO's loss as the reference leaves it (no dpo_fix) is -mean of the idk
     # log-probs: the forget split's student forward takes no gradient
     return s, t, 1 if loss.lower() == "dpo" else s
+
+
+def vision_launches(vis) -> int:
+    """B1 launches of one image forward of a vision tower: one a layer
+    (LLaVA's ViT), one a block (Qwen2-VL's tower; Qwen2.5-VL's windowed
+    blocks fold their windows into one launch)."""
+    return vis.num_layers if hasattr(vis, "num_layers") else vis.depth
 
 
 def _expected_launches(loss, batch, dec, vis, steps=1):
@@ -2078,7 +2378,7 @@ def _expected_launches(loss, batch, dec, vis, steps=1):
     s, t, b = _splits(loss, batch)
     bwd_layers = RMU_LAYER + 1 if loss.lower() == "rmu" else dec.num_layers
     expect = dict.fromkeys(kernels.LAUNCHES, 0)
-    expect.update({"flash_fwd": steps * (s + t) * (dec.num_layers + vis.num_layers),
+    expect.update({"flash_fwd": steps * (s + t) * (dec.num_layers + vision_launches(vis)),
                    "flash_bwd_dq": steps * b * bwd_layers,
                    "flash_bwd_dkv": steps * b * bwd_layers})
     return expect
@@ -2150,7 +2450,7 @@ def _check_steps(label, steps):
             raise AssertionError(f"{label} step {i + 1}: non-finite or skipped: {m}")
 
 
-def _report_steps(label, steps, launches, peak):
+def _report_steps(label, steps, launches, peak, bounds=PEAK_BOUND_GIB):
     per = [f"{m['wall'] * 1e3:.0f} ms ({1 / m['wall']:.3f} steps/s, "
            f"{m['tokens'] / m['wall']:.0f} tok/s)" for m in steps]
     n = len(steps)
@@ -2158,10 +2458,10 @@ def _report_steps(label, steps, launches, peak):
           f"{[round(m['loss'], 5) for m in steps]}, grad norms "
           f"{[round(m['grad_norm'], 4) for m in steps]}; launches per step "
           f"{ {k: v // n for k, v in launches.items() if v} }; max_memory_allocated "
-          f"{peak:.2f} GiB (bound {PEAK_BOUND_GIB[label]})", flush=True)
-    if peak > PEAK_BOUND_GIB[label]:
+          f"{peak:.2f} GiB (bound {bounds[label]})", flush=True)
+    if peak > bounds[label]:
         raise AssertionError(f"{label}: peak device memory {peak:.2f} GiB above the bound "
-                             f"{PEAK_BOUND_GIB[label]} GiB")
+                             f"{bounds[label]} GiB")
 
 
 def _measured(fn):
@@ -2386,7 +2686,8 @@ def run_recipe_path(ft_dir, finetune_args=FINETUNE_CLI_ARGS, forget_args=R0_FORG
         peak_c = max(peak_c, peak)
         for k, v in launches.items():
             total[k] += v
-        print(f"6c losses, one step each on 6b's student: {json.dumps(per_loss)}", flush=True)
+        print(f"6c losses, one step each on 6b's student: {json.dumps(per_loss)}; peak "
+              f"{peak_c:.2f} GiB (bound {PEAK_BOUND_GIB['6c losses']})", flush=True)
         if peak_c > PEAK_BOUND_GIB["6c losses"]:
             raise AssertionError(f"6c: peak {peak_c:.2f} GiB above the bound")
         out["losses"] = total
@@ -2561,7 +2862,7 @@ def _eval_launches(rec, dec, vis, speculative: bool) -> dict:
     tf = sum(t["tf_forwards"] for t in rec.tasks)
     pre = sum(t["prefills"] for t in rec.tasks)
     fwd = sum(t["forwards"] for t in rec.tasks)
-    expect["flash_fwd"] = tf * (dec.num_layers + vis.num_layers) + pre * dec.num_layers
+    expect["flash_fwd"] = tf * (dec.num_layers + vision_launches(vis)) + pre * dec.num_layers
     expect["chunk_decode" if speculative else "flash_decode"] = fwd * dec.num_layers
     return expect
 
@@ -2739,6 +3040,335 @@ def run_eval_path(ft_dir, args=EVAL_CLI_ARGS, runs=EVAL_RUNS, sync=torch.cuda.sy
     return out
 
 
+# ------------------------------------------------------------- phase 8
+# Qwen2-VL, the default family of every shipped mm config: configs/mm/
+# {finetune,forget,eval}.yaml run as they ship (qwen-vl2-2b in bf16 from seed
+# 42: finetune LoRA r 8 with the merger's adapters, batch 4, accumulation 2;
+# forget at LoRA.r=0 with grad_diff_forget_ce_retain_ce, batch 2,
+# accumulation 4, AdamW at lr 1e-5; eval as phase 7 runs it) but for the
+# data, the step counts, ds_size and save_dir; then serve.yaml as it ships
+# (the int8 W8A16 decoder) on what 8b saved, and the int8 cache dense, paged
+# on a pool that forces growth, and paged with speculation; then
+# Qwen2.5-VL-3B (qwen-vl-3b, the windowed tower) from its seed in bf16.
+QWEN_DATA = "synthetic:n_persons=40,qa_per_person=4"
+QWEN_FINETUNE_ARGS = [f"data_path={QWEN_DATA}",
+                      "num_epochs=0.075"]  # 320 rows, 8 a step: 3 steps, no state save
+QWEN_FORGET_ARGS = [f"forget_data_path={QWEN_DATA}", f"retain_data_path={QWEN_DATA}",
+                    "num_epochs=0.75"]  # 32 forget rows, 8 a step: 3 steps, no state save
+QWEN_EVAL_ARGS = ["model_family=qwen-vl2-2b", "ds_size=8",
+                  f"data_path=[{','.join([EVAL_DATA] * 6)}]"]
+# 8a: the bf16 model (4.9 GB), f32 adapters, activations of 4 rows; 8b: the
+# model, its bf16 gradients, the f32 accumulator, AdamW's bf16 moments
+# (~24 GB) and activations of 2 rows
+QWEN_PEAK_BOUND_GIB = {"8a finetune": 24.0, "8b forget r0": 40.0}
+QWEN_TIGHT_POOL = 17  # pages of 128: six requests that grow to 3-4 pages each
+QWEN_NEW = 160  # tokens a served request asks for: past its first pages
+
+
+class _ForwardCounts:
+    """While active, counts the serving engine's forwards by kind: prompt
+    forwards (``prefill``; those with an image also as ``image``), one-token
+    decode steps (``decode``) and chunk passes (``chunk``: verify rounds,
+    prefill chunks and prefix suffixes); the kernels' launches follow from
+    them (``expected``)."""
+
+    def __enter__(self):
+        counts = self.counts = collections.Counter()
+        self._orig = orig = ServingEngine._forward
+
+        def forward(engine, ids, **kw):
+            if kw.get("chunk_decode"):
+                counts["chunk"] += 1
+            elif ids.shape[1] == 1:
+                counts["decode"] += 1
+            else:
+                counts["prefill"] += 1
+            counts["image"] += kw.get("pixel_values") is not None
+            return orig(engine, ids, **kw)
+
+        ServingEngine._forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        ServingEngine._forward = self._orig
+
+    def expected(self, mcfg, decode_kernel, chunk_kernel=None):
+        L = mcfg.decoder.num_layers
+        want = dict.fromkeys(kernels.LAUNCHES, 0)
+        want["flash_fwd"] = self.counts["prefill"] * L + self.counts["image"] * vision_launches(
+            mcfg.vision)
+        want[decode_kernel] += self.counts["decode"] * L
+        if chunk_kernel:
+            want[chunk_kernel] += self.counts["chunk"] * L
+        return want
+
+
+def _qwen_requests(processor, n, seed):
+    """``n`` requests as cli/serve.py forms them: every other one with an
+    image (uint8, 200x300: resized to the tower's 336 px), questions of
+    mixed length.  (ids, max_new, patches or None, image or None)."""
+    rng = np.random.default_rng(seed)
+    words = "who is shown here and what is the name of the person in this photo".split()
+    out = []
+    for i in range(n):
+        img = rng.integers(0, 256, (200, 300, 3), dtype=np.uint8) if i % 2 == 0 else None
+        q = " ".join(rng.choice(words, size=6 + 9 * i)) + "?"
+        ids = processor._encode_expand(processor.format(q, None, img is not None))
+        pix = None if img is None else serve.load_image(img, processor)
+        out.append((ids, QWEN_NEW, pix, img, q))
+    return out
+
+
+def _check_launches(label, launches, want):
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
+
+
+def _qwen_serve(ckpt_dir, tmp, serve_base=()):
+    """8d: cli/serve.py's ``main`` on configs/mm/serve.yaml as it ships with
+    model_family=qwen-vl2-2b and ``model_path`` (the int8 W8A16 decoder,
+    the bf16 cache), every stream held against teacher-forced forwards;
+    then on the same quantized model the int8 cache dense (B4q), paged on
+    a tight pool (B6q; growth and preemption asserted) and paged with
+    speculation (B7q), the last two held against the dense int8 run.
+    Returns ({run: launches}, the model)."""
+    from PIL import Image
+
+    model_cfg = serve.get_model_identifiers("qwen-vl2-2b")
+    processor = common.build_processor(model_cfg)
+    specs = _qwen_requests(processor, 6, 8)
+    req_file, out_file = os.path.join(tmp, "requests.jsonl"), os.path.join(tmp, "out.jsonl")
+    with open(req_file, "w") as f:
+        for i, (_, n, _, img, q) in enumerate(specs):
+            path = None
+            if img is not None:
+                path = os.path.join(tmp, f"image{i}.png")
+                Image.fromarray(img).save(path)
+            f.write(json.dumps({"question": q, "image": path, "max_new_tokens": n}) + "\n")
+    base = ["model_family=qwen-vl2-2b", f"model_path={ckpt_dir}", f"requests={req_file}",
+            f"save_file={out_file}", *serve_base]
+    seen = {}
+    build, submit = serve.build_engine, ServingEngine.submit
+
+    def build_wrapper(*a, **kw):
+        out = build(*a, **kw)
+        seen["engine"] = out[0]
+        return out
+
+    def submit_wrapper(engine, *a, **kw):
+        req = submit(engine, *a, **kw)
+        seen.setdefault("reqs", []).append(req)
+        return req
+
+    serve.build_engine, ServingEngine.submit = build_wrapper, submit_wrapper
+    try:
+        with _ForwardCounts() as fc:
+            t0 = time.perf_counter()
+            results, peak, launches = _measured(lambda: serve.main(base))
+            wall = time.perf_counter() - t0
+    finally:
+        serve.build_engine, ServingEngine.submit = build, submit
+    engine, reqs = seen["engine"], seen["reqs"]
+    model, mcfg = engine.params, engine.model_cfg
+    label = "8d serve.yaml as it ships (int8 W8A16, bf16 cache)"
+    if not isinstance(model.language_model.layers.q_proj, quantize.QTensor):
+        raise AssertionError(f"{label}: the decoder is not int8")
+    _check_launches(label, launches, fc.expected(mcfg, "flash_decode"))
+    for r, res in zip(reqs, results):
+        if not r.done or res["tokens"] != len(r.tokens) or not (
+                len(r.tokens) == QWEN_NEW or r.finish_reason == "eos"):
+            raise AssertionError(f"{label}: request {r.uid} ended with {len(r.tokens)} tokens "
+                                 f"({r.finish_reason!r})")
+    prompts = [(ids, pix) for ids, _, pix, *_ in specs]
+    if [list(r.prompt_ids) for r in reqs] != [p[0] for p in prompts] or any(
+            (r.pixel_values is None) != (p[1] is None) or (
+                p[1] is not None and not np.array_equal(r.pixel_values, p[1]))
+            for r, p in zip(reqs, prompts)):
+        raise AssertionError(f"{label}: the CLI formed other prompts or patches than expected")
+    gap, n, off = hold_streams(model, label, [r.tokens for r in reqs], prompts, QWEN_NEW,
+                               (engine.eos, engine.pad_id), engine.compute_dtype)
+    n_tok = sum(len(r.tokens) for r in reqs)
+    print(f"{label}: main() {wall:.1f} s (load, quantize, serve); {len(reqs)} requests, {n_tok} "
+          f"tokens; forwards {dict(fc.counts)}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; streams vs teacher-forced forwards: "
+          f"{n} tokens, {off} not the argmax, largest gap {gap:.4f} (tie margin {TIE_MARGIN}); "
+          f"max_memory_allocated {peak:.2f} GiB", flush=True)
+    out = {"d_shipped": launches}
+    engine._state = None
+    del engine
+    cfg = serve.load_config(base + ["kv_cache_dtype=int8"])
+    jobs = [(ids, n, pix, None, None) for ids, n, pix, *_ in specs]
+    ref = None
+    for key, extra, dkern, ckern in (
+            ("d_int8_cache", {}, "flash_decode_q8", None),
+            ("d_int8_paged", {"page_size": 128, "kv_pool_pages": QWEN_TIGHT_POOL},
+             "paged_decode_q8", None),
+            ("d_int8_paged_spec", {"page_size": 128, "kv_pool_pages": QWEN_TIGHT_POOL,
+                                    "speculative_k": 4}, "paged_decode_q8", "paged_chunk_q8")):
+        engine, _, _, _ = serve.build_engine(Config(dict(cfg, **extra)), model=model)
+        with _ForwardCounts() as fc:
+            reqs, wall, launches, peak = _serve(engine, jobs)
+        label = f"8d {key} ({', '.join(f'{k}={v}' for k, v in extra.items()) or 'dense'})"
+        _check_launches(label, launches, fc.expected(mcfg, dkern, ckern))
+        if launches[ckern or dkern] == 0:
+            raise AssertionError(f"{label}: {ckern or dkern} never launched")
+        st = engine.stats()
+        if key == "d_int8_paged" and st["preemptions"] < 1:
+            raise AssertionError(f"{label}: the pool preempted no slot")
+        _report(label, engine, reqs, wall, launches, peak)
+        if ref is None:
+            ref = [r.tokens for r in reqs]
+        else:
+            ties = first_difference(model, label, [r.tokens for r in reqs], ref, prompts,
+                                    engine.compute_dtype)
+            print(f"{label} vs the dense int8-cache run: streams agree up to first differences "
+                  f"at near-ties {ties}; pool peak {st.get('pool_pages_peak')} pages, "
+                  f"{st.get('preemptions')} preemptions (tie margin {TIE_MARGIN})", flush=True)
+        out[key] = launches
+        engine._state = None
+        del engine
+        torch.cuda.empty_cache()
+    return out, model
+
+
+def _qwen25_serve(serve_base=()):
+    """8e: Qwen2.5-VL-3B (the windowed tower; 16 q-heads on 2 kv-heads)
+    from its seed in bf16 through build_engine: prefill logits of the
+    kernels against plain attention, then four requests with images served
+    to their budgets, streams held against teacher-forced forwards."""
+    logits = {}
+    cfg = serve.load_config(["model_family=qwen-vl-3b", "quantize_base=false", "seed=0",
+                             *serve_base])
+    engine, processor, _, mcfg = serve.build_engine(
+        cfg, on_prefill=lambda r, last: logits.__setitem__(r.uid, last.float().cpu()))
+    specs = [s for s in _qwen_requests(processor, 8, 9) if s[2] is not None][:4]
+    jobs = [(ids, n, pix, None, None) for ids, n, pix, *_ in specs]
+    with _ForwardCounts() as fc:
+        reqs, wall, launches, peak = _serve(engine, jobs)
+    label = "8e qwen-vl-3b (bf16, windowed tower)"
+    _check_launches(label, launches, fc.expected(mcfg, "flash_decode"))
+    _report(label, engine, reqs, wall, launches, peak)
+    model = engine.params
+    plain = prefill_logits_of(engine, model, "plain", engine.compute_dtype,
+                              [(ids, n, pix) for ids, n, pix, *_ in specs])
+    d = [(logits[r.uid] - p).abs().max().item() for r, p in zip(reqs, plain)]
+    if max(d) > LOGIT_TOL or not all(torch.isfinite(logits[r.uid]).all() for r in reqs):
+        raise AssertionError(f"{label}: prefill logits vs plain attention {d} (tol {LOGIT_TOL})")
+    prompts = [(ids, pix) for ids, _, pix, *_ in specs]
+    gap, n, off = hold_streams(model, label, [r.tokens for r in reqs], prompts, QWEN_NEW,
+                               (engine.eos, engine.pad_id), engine.compute_dtype)
+    print(f"{label}: prefill logits vs plain attention max|diff| {[round(x, 4) for x in d]} "
+          f"(tol {LOGIT_TOL}); streams vs teacher-forced forwards: {n} tokens, {off} not the "
+          f"argmax, largest gap {gap:.4f}; B1 launches per image forward "
+          f"{vision_launches(mcfg.vision)} (windowed blocks "
+          f"{mcfg.vision.depth - len(mcfg.vision.fullatt_block_indexes)}, full "
+          f"{len(mcfg.vision.fullatt_block_indexes)})", flush=True)
+    engine._state = None
+    return launches
+
+
+def run_qwen_path(sync=torch.cuda.synchronize, finetune_args=QWEN_FINETUNE_ARGS,
+                  forget_args=QWEN_FORGET_ARGS, eval_args=QWEN_EVAL_ARGS, serve_base=()):
+    """8a finetune, 8b forget, 8c evaluate, 8d serve Qwen2-VL-2B through
+    the CLIs; 8e serve Qwen2.5-VL-3B.  Returns each sub-phase's launches
+    (and 8c's numbers under "8c_numbers")."""
+    import shutil
+    import tempfile
+
+    from multimodal_unlearning_tpu_torch.cli import mm_calculate_metrics, mm_finetune, mm_forget
+
+    tmp = tempfile.mkdtemp(prefix="qwen_")
+    ft_dir, fg_dir = os.path.join(tmp, "finetune"), os.path.join(tmp, "forget")
+    out = {}
+    try:
+        # 8a: finetune.yaml as it ships, LoRA r 8 (the merger's adapters too)
+        with _CliRecorder(mm_finetune) as rec:
+            t0 = time.perf_counter()
+            _, peak, launches = _measured(lambda: mm_finetune.main(
+                finetune_args + [f"save_dir={ft_dir}"]))
+            wall = time.perf_counter() - t0
+        mcfg, cfg = rec.apply_kw[0][1], rec.step_args[1]
+        accum = cfg["grad_accum"]
+        _check_steps("8a finetune", rec.steps)
+        if accum != 2 or rec.apply_kw[1]["lora_cfg"] != 32 / 8:
+            raise AssertionError(f"8a: not finetune.yaml's LoRA r 8 / accumulation 2: {cfg}")
+        adapters = rec.loop["state"].trainable
+        if set(adapters["projector"]) != {"fc1", "fc2"}:
+            raise AssertionError("8a: no adapters on the merger")
+        _check_launches("8a finetune", launches, _expected_launches(
+            "retain_ft", {}, mcfg.decoder, mcfg.vision, steps=len(rec.steps) * accum))
+        print(f"8a finetune: main() {wall:.1f} s (init, steps, merge, save of "
+              f"{os.path.getsize(f'{ft_dir}/model.safetensors') / 1e9:.2f} GB)", flush=True)
+        _report_steps("8a finetune", rec.steps, launches, peak, QWEN_PEAK_BOUND_GIB)
+        out["8a"] = launches
+        del rec, adapters
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 8b: forget.yaml as it ships from 8a's checkpoint: LoRA.r=0, accumulation 4
+        with _CliRecorder(mm_forget) as rec:
+            t0 = time.perf_counter()
+            _, peak, launches = _measured(lambda: mm_forget.main(
+                forget_args + [f"model_path={ft_dir}", f"save_dir={fg_dir}"]))
+            wall = time.perf_counter() - t0
+        accum, loss = rec.step_args[1]["grad_accum"], rec.step_args[1]["loss_type"]
+        _check_steps("8b forget r0", rec.steps)
+        losses = [m["loss"] for m in rec.steps]
+        if accum != 4 or loss != "grad_diff_forget_ce_retain_ce" or rec.apply_kw[1][
+                "lora_cfg"] != 0.0 or len(set(losses)) < 2:
+            raise AssertionError(f"8b: not forget.yaml's run (accumulation {accum}, {loss}) or "
+                                 f"the loss did not move: {losses}")
+        _check_launches("8b forget r0", launches, _expected_launches(
+            loss, {}, mcfg.decoder, mcfg.vision, steps=len(rec.steps) * accum))
+        print(f"8b forget r0 (configs/mm/forget.yaml as it ships: LoRA.r=0, batch 2 x "
+              f"accumulation 4, {loss}, AdamW): main() {wall:.1f} s (load, steps, save); peak "
+              f"device memory {peak:.2f} GiB", flush=True)
+        _report_steps("8b forget r0", rec.steps, launches, peak, QWEN_PEAK_BOUND_GIB)
+        out["8b"] = launches
+        del rec
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(ft_dir, ignore_errors=True)
+
+        # 8c: eval.yaml on 8b's checkpoint, then the metrics CLI
+        argv = eval_args + [f"model_path={fg_dir}", f"processor_path={fg_dir}",
+                                 f"save_dir={os.path.join(tmp, 'eval')}"]
+        agg, save_dir, rec, numbers = _eval_run("8c eval", argv, sync, 6)
+        res = mm_calculate_metrics.main([f"ckpt_result={save_dir}/eval_log_aggregated.json",
+                                         f"retain_result={save_dir}/eval_log_aggregated.json",
+                                         f"save_file={os.path.join(tmp, 'metrics.json')}"])
+        nums = [v for k, v in res.items() if k not in ("method", "submitted_by")]
+        if not np.isfinite(nums).all():
+            raise AssertionError(f"8c metrics: {res}")
+        gap, n, off = hold_streams(rec.model, "8c eval",
+                                   [s for t in rec.tasks for s in t["streams"]],
+                                   [p for t in rec.tasks for p in t["prompts"]], rec.max_new,
+                                   rec.ends, next(rec.model.parameters()).dtype)
+        print(f"8c streams vs teacher-forced forwards: {n} tokens, {off} not the argmax, largest "
+              f"gap {gap:.4f}; metrics {json.dumps(res)}", flush=True)
+        numbers["teacher_forced"] = dict(tokens=n, not_argmax=off, max_gap=round(gap, 4))
+        out["8c"] = numbers["launches"]
+        out["8c_numbers"] = numbers
+        rec.model = None
+        del rec
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 8d: serving what 8b saved
+        served, model = _qwen_serve(fg_dir, tmp, serve_base)
+        out.update({f"8{k}": v for k, v in served.items()})
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # 8e: Qwen2.5-VL-3B
+    out["8e"] = _qwen25_serve(serve_base)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2763,10 +3393,14 @@ def main() -> int:
     b7_err, b7 = check_b7(dev, gen)
     bwd_err, bwd = check_bwd(dev, gen)
     b8_err, b8_rec = check_b8(dev, gen)
+    qwen_err, qwen_rec = check_qwen(dev, gen)
     torch.cuda.empty_cache()
     if "--kernels-only" in sys.argv[1:]:  # phases 1-2 alone: no main path, no result line
         print(json.dumps({"phase2": dict(b1=b1, b4=b4, b4q=b4q, b5=b5, b6=b6, b7=b7, bwd=bwd,
-                                         b8=b8_rec)}))
+                                         b8=b8_rec, qwen=qwen_rec)}))
+        return 0
+    if "--qwen-only" in sys.argv[1:]:  # phases 1-2 and 8 alone: no result line
+        print(json.dumps({"phase8": run_qwen_path(), "qwen_phase2": qwen_rec}))
         return 0
 
     cfg = serve.load_config(SERVE_ARGS + ["quantize_base=false"])
@@ -2819,19 +3453,29 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    cli_launches, reload_launches = run_forget_cli_path(specs)
-    # CLEAR's recipe: finetune -> forget at LoRA.r=0 -> the other losses,
-    # then the evaluation of the finetuned checkpoint
     import shutil
     import tempfile
 
-    ft_dir = tempfile.mkdtemp(prefix="recipe_finetune_")
-    try:
-        recipe_launches = run_recipe_path(ft_dir)
-        evals = run_eval_path(ft_dir)
-    finally:
-        shutil.rmtree(ft_dir, ignore_errors=True)
+    with cut_depth("llava", LLAVA_CLI_DEPTH):
+        cli_launches, reload_launches = run_forget_cli_path(specs)
+        # CLEAR's recipe: finetune -> forget at LoRA.r=0 -> the other losses,
+        # then the evaluation of the finetuned checkpoint
+        ft_dir = tempfile.mkdtemp(prefix="recipe_finetune_")
+        try:
+            recipe_launches = run_recipe_path(ft_dir)
+            evals = run_eval_path(ft_dir)
+        finally:
+            shutil.rmtree(ft_dir, ignore_errors=True)
     ev_a, ev_b, ev_d = (evals[k] for k in EVAL_RUNS)
+    # Qwen2-VL: the shipped mm configs' family, then Qwen2.5-VL-3B
+    qwen = run_qwen_path()
+    qwen_eval = qwen.pop("8c_numbers")
+
+    def q_row(name, *subphases):
+        """A kernel's Qwen2-VL numbers: phase 2's at phase 8's shapes, its
+        largest error there, and its launches in phase 8's sub-phases."""
+        return dict(max_abs_err=qwen_err[name], **qwen_rec[name],
+                    launches={k: qwen[k][name] for k in subphases})
 
     rows = [
         dict(name="flash_fwd (B1)", route="cuda",
@@ -2851,30 +3495,36 @@ def main() -> int:
              # CLEAR's evaluation (phase 7): teacher-forced forwards and prefills
              eval_launches={"7a": ev_a["launches"]["flash_fwd"],
                             "7b": ev_b["launches"]["flash_fwd"],
-                            "7d": ev_d["launches"]["flash_fwd"]}),
+                            "7d": ev_d["launches"]["flash_fwd"]},
+             # Qwen2-VL (phase 8): head dim 80 in the towers, group 6 in the decoder
+             qwen2vl=q_row("flash_fwd", "8a", "8b", "8c", "8d_shipped", "8d_int8_cache",
+                           "8d_int8_paged", "8d_int8_paged_spec", "8e")),
         dict(name="flash_bwd_dq (B2)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_bwd_dq.cu",
              replaces="multimodal_unlearning_tpu/ops/attention.py:219",
              launches=step_launches["flash_bwd_dq"], max_abs_err=bwd_err["dq"], **bwd["dq"],
              forget_cli_launches=cli_launches["flash_bwd_dq"],
-             recipe_launches={k: v["flash_bwd_dq"] for k, v in recipe_launches.items()}),
+             recipe_launches={k: v["flash_bwd_dq"] for k, v in recipe_launches.items()},
+             qwen2vl=q_row("flash_bwd_dq", "8a", "8b")),
         dict(name="flash_bwd_dkv (B3)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
              replaces="multimodal_unlearning_tpu/ops/attention.py:268",
              launches=step_launches["flash_bwd_dkv"], max_abs_err=bwd_err["dkv"],
              forget_cli_launches=cli_launches["flash_bwd_dkv"],
              recipe_launches={k: v["flash_bwd_dkv"] for k, v in recipe_launches.items()},
-             **bwd["dkv"]),
+             qwen2vl=q_row("flash_bwd_dkv", "8a", "8b"), **bwd["dkv"]),
         dict(name="flash_decode (B4)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/decode_attention.py:51",
              launches=launches["flash_decode"], max_abs_err=b4_err, **b4,
              reload_launches=reload_launches["flash_decode"],
-             eval_launches={"7a": ev_a["launches"]["flash_decode"]}),
+             eval_launches={"7a": ev_a["launches"]["flash_decode"]},
+             qwen2vl=q_row("flash_decode", "8c", "8d_shipped", "8e")),
         dict(name="flash_decode_q8 (B4q)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/decode_attention.py:71",
-             launches=q8_launches["flash_decode_q8"], max_abs_err=b4q_err, **b4q),
+             launches=q8_launches["flash_decode_q8"], max_abs_err=b4q_err, **b4q,
+             qwen2vl=q_row("flash_decode_q8", "8d_int8_cache")),
         dict(name="chunk_decode (B5)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/chunk_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/decode_attention.py:242",
@@ -2884,38 +3534,44 @@ def main() -> int:
              prefill_chunk=b5["chunk_decode"]["prefill_chunk"], gqa=b5["chunk_decode"]["gqa"],
              eval_verify=b5["chunk_decode"]["eval_verify"],
              eval_launches={"7b": ev_b["launches"]["chunk_decode"],
-                            "7d": ev_d["launches"]["chunk_decode"]}),
+                            "7d": ev_d["launches"]["chunk_decode"]},
+             qwen2vl=q_row("chunk_decode")),
         dict(name="chunk_decode_q8 (B5q)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/chunk_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/decode_attention.py:267",
              launches=spec8_launches["chunk_decode_q8"], max_abs_err=b5_err["chunk_decode_q8"],
              **b5["chunk_decode_q8"]["verify"],
              prefill_chunk=b5["chunk_decode_q8"]["prefill_chunk"],
-             gqa=b5["chunk_decode_q8"]["gqa"], eval_verify=b5["chunk_decode_q8"]["eval_verify"]),
+             gqa=b5["chunk_decode_q8"]["gqa"], eval_verify=b5["chunk_decode_q8"]["eval_verify"],
+             qwen2vl=q_row("chunk_decode_q8")),
         dict(name="paged_decode (B6)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/paged_attention.py:105",
              launches=paged_launches["paged_decode"], max_abs_err=b6_err["paged_decode"],
-             **b6["paged_decode"][128], page16=b6["paged_decode"][16]),
+             **b6["paged_decode"][128], page16=b6["paged_decode"][16],
+             qwen2vl=q_row("paged_decode")),
         dict(name="paged_decode_q8 (B6q)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/paged_attention.py:148",
              launches=paged8_launches["paged_decode_q8"], max_abs_err=b6_err["paged_decode_q8"],
-             **b6["paged_decode_q8"][128], page16=b6["paged_decode_q8"][16]),
+             **b6["paged_decode_q8"][128], page16=b6["paged_decode_q8"][16],
+             qwen2vl=q_row("paged_decode_q8", "8d_int8_paged")),
         dict(name="paged_chunk (B7)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/chunk_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/paged_attention.py:341",
              launches=paged_launches["paged_chunk"], max_abs_err=b7_err["paged_chunk"],
              **b7["paged_chunk"]["verify"],
              **{k: b7["paged_chunk"][k] for k in ("prefill_chunk", "gqa", "straddle",
-                                                   "verify_p16")}),
+                                                   "verify_p16")},
+             qwen2vl=q_row("paged_chunk")),
         dict(name="paged_chunk_q8 (B7q)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/chunk_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/paged_attention.py:384",
              launches=paged8_launches["paged_chunk_q8"], max_abs_err=b7_err["paged_chunk_q8"],
              **b7["paged_chunk_q8"]["verify"],
              **{k: b7["paged_chunk_q8"][k] for k in ("prefill_chunk", "gqa", "straddle",
-                                                      "verify_p16")}),
+                                                      "verify_p16")},
+             qwen2vl=q_row("paged_chunk_q8", "8d_int8_paged_spec")),
         dict(name="int4_matmul (B8)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/int4_matmul.cu",
              replaces="multimodal_unlearning_tpu/ops/int4_matmul.py:45",
@@ -2928,7 +3584,7 @@ def main() -> int:
              cases={k: v for k, v in b8_rec.items()
                     if k not in ("gate_up_m8", "decode_step_ms", "host_us_m8")}),
     ]
-    print(json.dumps({"eval": evals}))
+    print(json.dumps({"eval": evals, "qwen_eval": qwen_eval}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

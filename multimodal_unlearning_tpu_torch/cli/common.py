@@ -8,6 +8,7 @@ wait for multi-GPU.
 
 from __future__ import annotations
 
+import functools
 from pathlib import Path
 
 import torch
@@ -15,6 +16,7 @@ from torch import nn
 
 from multimodal_unlearning_tpu_torch.config import build_model_config, model_kind
 from multimodal_unlearning_tpu_torch.data import ByteTokenizer, MMProcessor
+from multimodal_unlearning_tpu_torch.data.processor import format_qwen
 from multimodal_unlearning_tpu_torch.device import resolve_device
 from multimodal_unlearning_tpu_torch.models import (
     VLM_KINDS, convert, decoder_module, hf_bridge, vlm_module)
@@ -146,8 +148,12 @@ def init_or_load_params(model_cfg, model_path: str | None, seed: int = 0,
             if kind == "llava":
                 tree = hf_bridge.llava_from_hf(sd, mcfg.decoder.num_layers,
                                                mcfg.vision.num_layers, device=device, dtype=dtype)
+            elif kind == "qwen2_vl":
+                tree = hf_bridge.qwen2vl_from_hf(sd, mcfg.decoder.num_layers, mcfg.vision.depth,
+                                                 device=device, dtype=dtype)
             elif kind == "llama":
-                tree = hf_bridge.llama_from_hf(sd, mcfg.num_layers, device=device, dtype=dtype)
+                tree = hf_bridge.llama_from_hf(sd, mcfg.num_layers, qkv_bias=mcfg.qkv_bias,
+                                               device=device, dtype=dtype)
             else:
                 raise NotImplementedError(f"loading a {kind!r} checkpoint is not ported yet")
         finally:
@@ -169,6 +175,8 @@ def save_model(save_dir, model_cfg, params) -> None:
     tree = model_tree(params) if isinstance(params, nn.Module) else params
     if kind == "llava":
         sd = hf_bridge.llava_to_hf(tree, mcfg.vision.patch_size)
+    elif kind == "qwen2_vl":
+        sd = hf_bridge.qwen2vl_to_hf(tree)
     elif kind == "llama":
         sd = hf_bridge.llama_to_hf(tree)
     else:
@@ -179,8 +187,10 @@ def save_model(save_dir, model_cfg, params) -> None:
 
 
 def build_processor(model_cfg, cfg=None, *, padding_side: str = "left") -> MMProcessor:
-    """The byte tokenizer and the family's chat template (llava) or tags
-    (text families).  Where the JAX package would load an HF tokenizer (a
+    """The byte tokenizer and the family's chat template (llava, qwen) or
+    tags (text families).  Qwen2-VL's processor wraps the image span in its
+    vision start and end tokens and makes patches (``vision_mode``
+    "qwen2vl").  Where the JAX package would load an HF tokenizer (a
     ``processor_path`` or ``tokenizer_path`` directory holding
     ``tokenizer*`` files, or any existing ``tokenizer_path`` of a text
     family), that needs ``transformers``, which the port does not use: it
@@ -200,11 +210,20 @@ def build_processor(model_cfg, cfg=None, *, padding_side: str = "left") -> MMPro
         tok = ByteTokenizer(vocab_size=int(arch["decoder"]["vocab_size"]),
                             image_token=arch.get("image_token", "<image>"),
                             image_token_id=int(arch["image_token_id"]))
-        return MMProcessor(tok, image_size=int(vision["image_size"]),
-                           num_image_tokens=(int(vision["image_size"])
-                                             // int(vision["patch_size"])) ** 2,
-                           chat_template=model_cfg.get("chat_template", "llava"),
-                           padding_side=padding_side)
+        template = model_cfg.get("chat_template", "llava")
+        if model_kind(model_cfg) == "qwen2_vl":
+            mcfg = build_model_config(model_cfg)
+            if template == "qwen":  # the placeholder the tokenizer reads as the image token
+                template = functools.partial(format_qwen, image_token=tok.image_token)
+            kw = dict(num_image_tokens=mcfg.num_image_tokens, vision_mode="qwen2vl",
+                      vision_wrap=(mcfg.vision_start_token_id, mcfg.vision_end_token_id),
+                      patch_size=mcfg.vision.patch_size,
+                      spatial_merge_size=mcfg.vision.spatial_merge_size)
+        else:
+            kw = dict(num_image_tokens=(int(vision["image_size"])
+                                        // int(vision["patch_size"])) ** 2)
+        return MMProcessor(tok, image_size=int(vision["image_size"]), chat_template=template,
+                           padding_side=padding_side, **kw)
     tok = ByteTokenizer(vocab_size=int(arch["vocab_size"]),
                         image_token_id=int(arch["vocab_size"]) - 1)
     tags = {k: model_cfg.get(k, "") for k in

@@ -3,6 +3,8 @@
     python -m multimodal_unlearning_tpu_torch.cli.mm_forget model_family=llava \\
         forget_data_path=synthetic retain_data_path=synthetic forget_loss=npo ...
 
+The config's own family, ``qwen-vl2-2b`` (Qwen2-VL), runs as it ships.
+
 Counterpart of ``multimodal_unlearning_tpu/cli/mm_forget.py``: reads
 ``configs/mm/forget.yaml`` with ``key=value`` overrides (``--config-name``
 picks another file), builds the CLEAR forget/retain dataset and its
@@ -17,8 +19,8 @@ Ported: every loss type of ``train/losses.py`` (``SKU_LOSS_ARGS``,
 ``dpo_fix``, RMU's control vector), L1/L0 regularization from zero or from
 the initial model, full-parameter forgetting (``LoRA.r=0``, the config's
 default: the model's own parameters are trained in place, the vision tower
-frozen under ``freeze_vision_module``; a teacher is a bf16 copy, or int8
-under ``quantize_teacher``), LoRA (``LoRA.r > 0``) over a dense or int8
+frozen under ``freeze_vision_module``, Qwen2-VL's merger with it; a teacher
+is a bf16 copy, or int8 under ``quantize_teacher``), LoRA (``LoRA.r > 0``) over a dense or int8
 (``quantize_base=true``) base with ``int8_compute``, ``int8_bwd``,
 ``quantize_teacher`` and the shared teacher, ``adamw`` and ``adamw_q8``,
 ``merge_dtype``, ``save_model``, ``save_adapters``, ``save_ckpts`` and
@@ -60,7 +62,8 @@ def make_apply_fn(kind, mcfg, *, lora_cfg=None, remat=False, remat_policy=None,
                   model=None):
     """apply_fn(params, batch_part, capture_layer) -> outputs.
 
-    ``params`` is a model (``models/llava.Llava`` or ``models/llama.Llama``),
+    ``params`` is a model (``models/llava.Llava``, ``models/qwen2_vl.QwenVL``
+    or ``models/llama.Llama``),
     the tuple (model, adapters) in LoRA mode, where ``lora_cfg`` is the
     adapters' scale (alpha / r), or a dense dict tree of ``model``'s own
     parameters (full-parameter forgetting: ``merge_trees`` of the trainable
@@ -72,7 +75,8 @@ def make_apply_fn(kind, mcfg, *, lora_cfg=None, remat=False, remat_policy=None,
         logits_dtype = compute_dtype
     vlm = kind in VLM_KINDS
     if not vlm and kind != "llama":
-        raise NotImplementedError(f"model kind {kind!r} is not ported yet (llava, llama)")
+        raise NotImplementedError(f"model kind {kind!r} is not ported yet (llava, qwen2_vl, "
+                                  "llama)")
     del mcfg  # the port's models carry their configuration
 
     def apply_fn(params, part, capture_layer=None):
@@ -92,7 +96,7 @@ def make_apply_fn(kind, mcfg, *, lora_cfg=None, remat=False, remat_policy=None,
             base = check_tree_of(model, params)
         else:
             base = params
-        if vlm:
+        if vlm:  # LLaVA's images [B, H, W, 3], or Qwen2-VL's patches [B, N, patch_dim]
             kw["pixel_values"] = torch.as_tensor(part["pixel_values"])
         out = base(torch.as_tensor(part["input_ids"]), **kw)
         return {"logits": out["logits"], "captured": out["captured"]}

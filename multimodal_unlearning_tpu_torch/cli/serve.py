@@ -10,6 +10,10 @@ optional expected-answer text seeding the speculative lookup}.
   python -m multimodal_unlearning_tpu_torch.cli.serve \\
       model_family=llava requests=reqs.jsonl save_file=out.jsonl
 
+``model_family=qwen-vl2-2b`` (or ``qwen-vl-3b``, the windowed 2.5 tower)
+serves Qwen2-VL: a request's image becomes the tower's patches and the
+engine carries its M-RoPE positions.
+
 As ``configs/mm/serve.yaml`` ships it, the decoder is int8 (W8A16,
 ``quantize_base=true``); ``quantize_base=int4`` (or ``int4:g64``, groups of
 64 rows) serves a grouped-int4 decoder (W4A16, kernel B8, bf16 activations)
@@ -48,7 +52,6 @@ from multimodal_unlearning_tpu_torch.cli.common import (
     build_processor, dtype_of, init_or_load_params, quantize_base_params)
 from multimodal_unlearning_tpu_torch.config import (
     Config, build_model_config, config_dir, get_model_identifiers, loader, model_kind)
-from multimodal_unlearning_tpu_torch.data import preprocess_image
 from multimodal_unlearning_tpu_torch.device import resolve_device
 from multimodal_unlearning_tpu_torch.models import VLM_KINDS
 from multimodal_unlearning_tpu_torch.serve import ServingEngine
@@ -112,14 +115,16 @@ def build_engine(cfg: dict, *, model=None, **engine_kw):
     return engine, processor, kind, mcfg
 
 
-def load_image(img, image_size: int) -> np.ndarray:
-    """A request's image (a path, or an array-like) -> CLIP-normalized
-    [image_size, image_size, 3] f32; PIL is imported only for a path."""
+def load_image(img, processor) -> np.ndarray:
+    """A request's image (a path, or an array-like) as the model takes it:
+    CLIP-normalized [image_size, image_size, 3] f32 (LLaVA) or Qwen2-VL's
+    patches [N, patch_dim] (``processor.preprocess``); PIL is imported only
+    for a path."""
     if isinstance(img, str):
         from PIL import Image
 
         img = np.asarray(Image.open(img).convert("RGB"))
-    return preprocess_image(np.asarray(img), image_size).astype(np.float32)
+    return processor.preprocess(np.asarray(img)).astype(np.float32)
 
 
 def run(cfg: dict):
@@ -140,7 +145,7 @@ def run(cfg: dict):
             r = json.loads(line)
             has_image = r.get("image") is not None and kind in VLM_KINDS
             ids = processor._encode_expand(processor.format(r["question"], None, has_image))
-            pix = load_image(r["image"], mcfg.vision.image_size) if has_image else None
+            pix = load_image(r["image"], processor) if has_image else None
             # "stop": string or list of strings, matched on the text
             stops = r.get("stop") or []
             stop_strs.append([stops] if isinstance(stops, str) else list(stops))

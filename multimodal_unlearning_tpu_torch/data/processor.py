@@ -1,6 +1,6 @@
 """Prompt formatting, tokenization, image preprocessing and collation: the
 port's copy of ``multimodal_unlearning_tpu/data/processor.py`` (the llava
-chat template and the tagged text families).
+and qwen chat templates and the tagged text families).
 
 - ``<image>`` expands to ``num_image_tokens`` copies in the collator, so the
   model's splice is a masked gather;
@@ -10,9 +10,18 @@ chat template and the tagged text families).
 - padding: left (the reference's default) or right, to the longest row
   rounded up to ``pad_multiple``;
 - uint8 images take CLIPImageProcessor's arithmetic, through the native
-  library when it loads (``utils/native.py``), else through PIL.
+  library when it loads (``utils/native.py``), else through PIL;
+- Qwen2-VL (``vision_mode="qwen2vl"``): the image span is wrapped in
+  ``vision_wrap`` (vision start, vision end) and the pixels become
+  flatten-order patches [N, 3*2*P*P] (``preprocess_image_qwen``).
 
-Qwen2-VL's patch layout (``vision_mode="qwen2vl"``) is not ported yet.
+The qwen template writes the TOKENIZER's image placeholder
+(``cli/common.build_processor`` binds it into the template).  The JAX
+package's ``format_qwen`` always writes ``<image>``, which the byte
+tokenizer of ``qwen-vl2-2b`` / ``qwen-vl-3b`` (image token
+``<|image_pad|>``) encodes as seven bytes: its samples carry no image token,
+and the image features are never spliced in.  The tiny test families use
+``<image>``, where the two packages agree.
 """
 
 from __future__ import annotations
@@ -33,6 +42,16 @@ def format_llava(question: str, answer: str | None, has_image: bool):
     return q + "ASSISTANT: " + answer + " "
 
 
+def format_qwen(question: str, answer: str | None, has_image: bool,
+                image_token: str = "<image>"):
+    """qwen chat template; ``image_token`` is the tokenizer's placeholder."""
+    q = ("<|im_start|>user\n" + (image_token if has_image else "") + question
+         + "<|im_end|>\n<|im_start|>assistant\n")
+    if answer is None:
+        return q
+    return q + answer + "<|im_end|>"
+
+
 def format_tagged(question: str, answer: str | None, tags: dict):
     """Text families: question_start_tag / question_end_tag / answer_tag."""
     q = tags["question_start_tag"] + question + tags["question_end_tag"] + tags.get("answer_tag", "")
@@ -41,7 +60,7 @@ def format_tagged(question: str, answer: str | None, tags: dict):
     return q + answer
 
 
-CHAT_TEMPLATES = {"llava": format_llava}
+CHAT_TEMPLATES = {"llava": format_llava, "qwen": format_qwen}
 
 
 def preprocess_image_hf(arr: np.ndarray, image_size: int) -> np.ndarray:
@@ -85,6 +104,73 @@ def preprocess_image(img, image_size: int) -> np.ndarray:
     return (arr - CLIP_MEAN) / CLIP_STD
 
 
+def smart_resize(height: int, width: int, factor: int = 28, min_pixels: int = 56 * 56,
+                 max_pixels: int = 28 * 28 * 1280):
+    """Qwen2VLImageProcessor's target size: both sides multiples of
+    ``factor``, the pixel count within [min_pixels, max_pixels], the aspect
+    kept."""
+    import math
+
+    h_bar = round(height / factor) * factor
+    w_bar = round(width / factor) * factor
+    if h_bar * w_bar > max_pixels:
+        beta = math.sqrt((height * width) / max_pixels)
+        h_bar = max(factor, math.floor(height / beta / factor) * factor)
+        w_bar = max(factor, math.floor(width / beta / factor) * factor)
+    elif h_bar * w_bar < min_pixels:
+        beta = math.sqrt(min_pixels / (height * width))
+        h_bar = math.ceil(height * beta / factor) * factor
+        w_bar = math.ceil(width * beta / factor) * factor
+    return h_bar, w_bar
+
+
+def qwen_patchify(arr: np.ndarray, patch_size: int = 14, merge_size: int = 2,
+                  temporal: int = 2) -> np.ndarray:
+    """A normalized [H, W, 3] image -> Qwen2-VL's flatten-order patches
+    [grid_h * grid_w, 3 * temporal * P * P] (one image, its frame repeated
+    ``temporal`` times)."""
+    H, W, C = arr.shape
+    gh, gw = H // patch_size, W // patch_size
+    x = np.repeat(arr.transpose(2, 0, 1)[None], temporal, axis=0)  # [T, C, H, W]
+    x = x.reshape(1, temporal, C, gh // merge_size, merge_size, patch_size,
+                  gw // merge_size, merge_size, patch_size)
+    x = x.transpose(0, 3, 6, 4, 7, 2, 1, 5, 8)
+    return np.ascontiguousarray(x.reshape(gh * gw, C * temporal * patch_size * patch_size))
+
+
+def preprocess_image_qwen(img, image_size: int, patch_size: int = 14,
+                          merge_size: int = 2) -> np.ndarray:
+    """Qwen2VLImageProcessor's single-image path at a fixed resolution:
+    a uint8 image is resized to ``image_size`` square (the static grid every
+    batch shares; ``smart_resize``'s own target is not used) by PIL's
+    bicubic filter, rescaled, CLIP-normalized and patchified ->
+    [N_patches, patch_dim] f32.  A float image (values in
+    [0, 1]) of another size is resized as ``preprocess_image`` resizes one,
+    through 8-bit PIL bicubic; the JAX package resizes it in floats with
+    ``jax.image.resize(..., "bicubic")`` there, so the two differ for such
+    inputs (a float image already at ``image_size`` is not resized)."""
+    arr = np.asarray(img)
+    if arr.ndim == 2:
+        arr = np.stack([arr] * 3, axis=-1)
+    if arr.dtype == np.uint8:
+        if arr.shape[:2] != (image_size, image_size):
+            from PIL import Image
+
+            arr = np.asarray(Image.fromarray(arr).resize((image_size, image_size),
+                                                         Image.BICUBIC))
+        arr = arr.astype(np.float32) / 255.0
+    else:
+        arr = arr.astype(np.float32)
+        if arr.shape[:2] != (image_size, image_size):
+            from PIL import Image
+
+            im = Image.fromarray((np.clip(arr, 0, 1) * 255).astype(np.uint8))
+            arr = np.asarray(im.resize((image_size, image_size), Image.BICUBIC)).astype(
+                np.float32) / 255.0
+    arr = (arr - CLIP_MEAN) / CLIP_STD
+    return qwen_patchify(arr, patch_size, merge_size)
+
+
 def _round_up(n, m):
     return (n + m - 1) // m * m
 
@@ -95,15 +181,22 @@ class MMProcessor:
     def __init__(self, tokenizer, *, image_size: int = 336, num_image_tokens: int = 576,
                  chat_template: str = "llava", padding_side: str = "left",
                  pad_multiple: int = 128, hf_question_count_quirk: bool = False,
-                 tags: dict | None = None, vision_mode: str = "clip"):
-        if vision_mode != "clip":
+                 tags: dict | None = None, vision_mode: str = "clip",
+                 vision_wrap: tuple | None = None, patch_size: int = 14,
+                 spatial_merge_size: int = 2):
+        if vision_mode not in ("clip", "qwen2vl"):
             raise NotImplementedError(
-                f"vision_mode {vision_mode!r}: Qwen2-VL's processor is not ported yet (other "
-                "model families come later)")
+                f"vision_mode {vision_mode!r}: the port has 'clip' (LLaVA) and 'qwen2vl'")
+        self.vision_mode = vision_mode
+        self.vision_wrap = vision_wrap  # (vision start id, vision end id)
+        self.patch_size = patch_size
+        self.spatial_merge_size = spatial_merge_size
         self.tokenizer = tokenizer
         self.image_size = image_size
         self.num_image_tokens = num_image_tokens
-        self.template = CHAT_TEMPLATES.get(chat_template)
+        # a name from CHAT_TEMPLATES, or a template with its arguments bound
+        self.template = chat_template if callable(chat_template) else CHAT_TEMPLATES.get(
+            chat_template)
         self.tags = tags
         self.padding_side = padding_side
         self.pad_multiple = pad_multiple
@@ -119,7 +212,10 @@ class MMProcessor:
         img_id = getattr(self.tokenizer, "image_token_id", -1)
         out: list[int] = []
         for i in ids:
-            if i == img_id:
+            if i == img_id and self.vision_wrap is not None:  # qwen2vl: start, span, end
+                out.extend([self.vision_wrap[0]] + [img_id] * self.num_image_tokens
+                           + [self.vision_wrap[1]])
+            elif i == img_id:
                 out.extend([img_id] * self.num_image_tokens)
             else:
                 out.append(i)
@@ -140,10 +236,10 @@ class MMProcessor:
     def collate(self, samples: list[dict], max_length: int, *, return_indices: bool = False,
                 return_answers: bool = False) -> dict:
         """A batch of numpy arrays: input_ids, attention_mask, labels (int32
-        [B, S]) and pixel_values (f32 [B, H, W, 3], zeros for rows without an
-        image).  ``samples`` may be a list of lists (a fixed number of
-        answers per sample): the arrays then carry that number as a second
-        dimension."""
+        [B, S]) and pixel_values (f32 [B, H, W, 3], or Qwen2-VL's patches
+        [B, N, 3*2*P*P]; zeros for rows without an image).  ``samples`` may
+        be a list of lists (a fixed number of answers per sample): the arrays
+        then carry that number as a second dimension."""
         nested = isinstance(samples[0], list)
         if nested:
             list_size = len(samples[0])
@@ -157,10 +253,10 @@ class MMProcessor:
         input_ids, attention_mask, labels = pad_and_mask(
             [ids for ids, _ in encoded], [n_q for _, n_q in encoded], S, pad_id,
             pad_left=self.padding_side == "left")
-        pixel_values = np.zeros((B, self.image_size, self.image_size, 3), np.float32)
+        pixel_values = self.empty_pixels(B)
         for r, s in enumerate(samples):
             if s.get("image") is not None:
-                pixel_values[r] = preprocess_image(s["image"], self.image_size)
+                pixel_values[r] = self.preprocess(s["image"])
 
         out = {"input_ids": input_ids, "attention_mask": attention_mask, "labels": labels,
                "pixel_values": pixel_values}
@@ -177,6 +273,21 @@ class MMProcessor:
             out = {k: v.reshape(len(v) // list_size, list_size, *v.shape[1:])
                    for k, v in out.items()}
         return out
+
+    def empty_pixels(self, B: int) -> np.ndarray:
+        """A zero pixel batch of this processor's layout."""
+        if self.vision_mode == "qwen2vl":
+            g = self.image_size // self.patch_size
+            return np.zeros((B, g * g, 3 * 2 * self.patch_size ** 2), np.float32)
+        return np.zeros((B, self.image_size, self.image_size, 3), np.float32)
+
+    def preprocess(self, img) -> np.ndarray:
+        """One image as the model takes it: [H, W, 3] CLIP-normalized, or
+        Qwen2-VL's patches [N, patch_dim]."""
+        if self.vision_mode == "qwen2vl":
+            return preprocess_image_qwen(img, self.image_size, self.patch_size,
+                                         self.spatial_merge_size)
+        return preprocess_image(img, self.image_size)
 
     def collate_forget(self, samples: list[dict], max_length: int) -> dict:
         """One collated batch per split of the forget dataset's items."""

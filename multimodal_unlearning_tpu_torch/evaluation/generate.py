@@ -99,7 +99,10 @@ def _prefill(model, is_vlm, input_ids, attention_mask, pixel_values, cache, kv_v
               compute_dtype=compute_dtype)
     if is_vlm:
         kw["pixel_values"] = pixel_values
-    return model(input_ids, **kw)["logits"][:, -1, :]
+    out = model(input_ids, **kw)
+    # Qwen2-VL: decode positions continue from the M-RoPE prompt's extent
+    delta = out.get("rope_delta")
+    return out["logits"][:, -1, :], (0 if delta is None else delta.long())
 
 
 def _generate(model, is_vlm, input_ids, attention_mask, pixel_values, *, cache, smax,
@@ -108,9 +111,9 @@ def _generate(model, is_vlm, input_ids, attention_mask, pixel_values, *, cache, 
     dev = input_ids.device
     kv_valid = torch.zeros((B, smax), dtype=torch.int32, device=dev)
     kv_valid[:, :S] = attention_mask
-    prompt_len = attention_mask.sum(dim=-1).long()
-    last = _prefill(model, is_vlm, input_ids, attention_mask, pixel_values, cache, kv_valid,
-                    attn_impl, compute_dtype)
+    last, delta = _prefill(model, is_vlm, input_ids, attention_mask, pixel_values, cache,
+                           kv_valid, attn_impl, compute_dtype)
+    prompt_len = attention_mask.sum(dim=-1).long() + delta
     token = torch.argmax(last, dim=-1)
     finished = (token == eos) if eos >= 0 else torch.zeros((B,), dtype=torch.bool, device=dev)
     out = torch.full((B, max_new_tokens), pad_token_id, dtype=torch.long, device=dev)
@@ -143,8 +146,8 @@ def _spec_generate(model, is_vlm, input_ids, attention_mask, pixel_values, draft
     dev = input_ids.device
     kv_valid = torch.zeros((B, smax), dtype=torch.int32, device=dev)
     kv_valid[:, :S] = attention_mask
-    last = _prefill(model, is_vlm, input_ids, attention_mask, pixel_values, cache, kv_valid,
-                    attn_impl, compute_dtype)
+    last, delta = _prefill(model, is_vlm, input_ids, attention_mask, pixel_values, cache,
+                           kv_valid, attn_impl, compute_dtype)
     token = torch.argmax(last, dim=-1)
     finished = (token == eos) if eos >= 0 else torch.zeros((B,), dtype=torch.bool, device=dev)
     finished = finished | (max_new_tokens <= 1)
@@ -157,7 +160,7 @@ def _spec_generate(model, is_vlm, input_ids, attention_mask, pixel_values, draft
     rows = torch.arange(B, device=dev)
     ones = torch.ones((B, K + 1), dtype=torch.int32, device=dev)
     cur = torch.full((B,), S, dtype=torch.long, device=dev)
-    pos = attention_mask.sum(dim=-1).long()
+    pos = attention_mask.sum(dim=-1).long() + delta
     n_out = torch.ones((B,), dtype=torch.long, device=dev)
     done = _AllFinished(dev)
     forwards = 0

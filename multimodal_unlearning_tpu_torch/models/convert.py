@@ -1,7 +1,8 @@
 """Carry weights from the JAX package's parameter trees into the port.
 
 The input is the nested dict that ``multimodal_unlearning_tpu``'s
-``llama.init_params`` / ``vit.init_params`` / ``llava.init_params`` return,
+``llama.init_params`` / ``vit.init_params`` / ``llava.init_params`` /
+``qwen2_vl.init_params`` (either tower version) return,
 with numpy arrays as leaves (``jax.tree.map(np.asarray, params)``):
 ``[in, out]`` weight layouts, layers stacked on a leading L dimension.
 The port's modules keep exactly that layout, so conversion puts the leaves
@@ -20,9 +21,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from multimodal_unlearning_tpu_torch.config import LlamaConfig, LlavaConfig, VitConfig
+from multimodal_unlearning_tpu_torch.config import (
+    LlamaConfig, LlavaConfig, QwenVisionConfig, QwenVLConfig, VitConfig)
 from multimodal_unlearning_tpu_torch.device import resolve_device
-from multimodal_unlearning_tpu_torch.models import llama, llava, vit
+from multimodal_unlearning_tpu_torch.models import llama, llava, qwen2_vl, vit
 from multimodal_unlearning_tpu_torch.utils.quantize import (
     QTensor, QTensor4, in_contiguous, is_qtensor)
 
@@ -106,7 +108,8 @@ def adapters_from_jax(tree: dict, *, device=None, dtype=torch.float32) -> dict:
 
 
 def from_jax(tree: dict, cfg, *, device=None, dtype=torch.float32):
-    """The port's model for ``cfg`` (LlamaConfig, VitConfig or LlavaConfig)
+    """The port's model for ``cfg`` (LlamaConfig, VitConfig, LlavaConfig,
+    QwenVLConfig or QwenVisionConfig)
     holding the weights of the parameter tree ``tree``: a JAX tree as numpy
     arrays, or a tree of tensors at the same paths (a loaded checkpoint,
     whose tensors on ``device`` in ``dtype`` become the parameters as they
@@ -119,6 +122,10 @@ def from_jax(tree: dict, cfg, *, device=None, dtype=torch.float32):
         model = llama.Llama(cfg, device="meta", dtype=dtype)
     elif isinstance(cfg, VitConfig):
         model = vit.Vit(cfg, device="meta", dtype=dtype)
+    elif isinstance(cfg, QwenVLConfig):
+        model = qwen2_vl.QwenVL(cfg, device="meta", dtype=dtype)
+    elif isinstance(cfg, QwenVisionConfig):
+        model = qwen2_vl.QwenVisionTower(cfg, device="meta", dtype=dtype)
     else:
         raise NotImplementedError(f"no converter for {type(cfg).__name__}")
     load_tree(model, tree, device=device, dtype=dtype)

@@ -7,7 +7,10 @@ The port's copy of the llama, ViT and LLaVA maps of
   keys ``model.layers.<i>.self_attn.<q,k,v,o>_proj.weight`` (HF Linear
   weights are [out, in]: transposed);
 - the ViT tower <-> CLIP's ``vision_tower.vision_model.encoder.layers.<i>``;
-- the projector <-> ``multi_modal_projector.linear_{1,2}``.
+- the projector <-> ``multi_modal_projector.linear_{1,2}``;
+- Qwen2-VL / Qwen2.5-VL (the published flat layout: the decoder under
+  ``model.`` with q/k/v biases, the tower under ``visual.`` with fused qkv
+  and a conv3d patch embedding).
 
 A tree here is a nested dict of tensors at the port's (and the JAX
 package's) paths.  ``*_to_hf`` returns views where it can (transposes,
@@ -17,7 +20,7 @@ checkpoint that reads a tensor when it is looked up) and copies it once to
 ``device`` in ``dtype``: a stacked leaf is allocated there whole and each
 layer's tensor is copied into its slice, so the tree is the only copy of
 the weights on the device.
-The neox, phi, stablelm and Qwen2-VL maps come with those model families.
+The neox, phi and stablelm maps come with those model families.
 """
 
 from __future__ import annotations
@@ -98,11 +101,14 @@ def llama_to_hf(params: dict, prefix: str = "") -> dict:
             sd[f"{prefix}model.layers.{i}.{hf}"] = _t(lp[ours][i])
         for ours, hf in _LLAMA_NORM_MAP.items():
             sd[f"{prefix}model.layers.{i}.{hf}"] = lp[ours][i]
+        for b in ("q", "k", "v"):  # the Qwen2 family's q/k/v biases
+            if f"{b}_bias" in lp:
+                sd[f"{prefix}model.layers.{i}.self_attn.{b}_proj.bias"] = lp[f"{b}_bias"][i]
     return sd
 
 
-def llama_from_hf(sd, num_layers: int, prefix: str = "", *, device="cpu",
-                  dtype=torch.float32) -> dict:
+def llama_from_hf(sd, num_layers: int, prefix: str = "", *, qkv_bias: bool = False,
+                  device="cpu", dtype=torch.float32) -> dict:
     g = _getter(sd, device, dtype)
 
     def stacked(hf, transpose):
@@ -111,8 +117,11 @@ def llama_from_hf(sd, num_layers: int, prefix: str = "", *, device="cpu",
 
     layers = {ours: stacked(hf, True) for ours, hf in _LLAMA_LAYER_MAP.items()}
     layers.update({ours: stacked(hf, False) for ours, hf in _LLAMA_NORM_MAP.items()})
+    if qkv_bias:
+        layers.update({f"{b}_bias": stacked(f"self_attn.{b}_proj.bias", False)
+                       for b in ("q", "k", "v")})
     embed = g(f"{prefix}model.embed_tokens.weight")
-    # a tied lm_head falls back to the embedding table
+    # a tied lm_head (Qwen2-VL-2B's) falls back to the embedding table
     head_key = f"{prefix}lm_head.weight"
     lm_head = (_transposed(sd, head_key, device, dtype) if head_key in sd
                else _t(embed).contiguous())
@@ -200,5 +209,108 @@ def llava_from_hf(sd, decoder_layers: int, vit_layers: int, *, device="cpu",
             "fc1_bias": g("multi_modal_projector.linear_1.bias"),
             "fc2": _transposed(sd, "multi_modal_projector.linear_2.weight", device, dtype),
             "fc2_bias": g("multi_modal_projector.linear_2.bias"),
+        },
+    }
+
+
+# ---------------------------------------------------------------------------
+# Qwen2-VL / Qwen2.5-VL (text under "model.", the tower under "visual.")
+# ---------------------------------------------------------------------------
+
+_QWEN_QKV = ("q", "k", "v")
+
+
+def _qwen_mlp_names(v25: bool):
+    return ((("gate", "gate_proj"), ("up", "up_proj"), ("down", "down_proj")) if v25
+            else (("fc1", "fc1"), ("fc2", "fc2")))
+
+
+def qwen2vl_to_hf(params: dict) -> dict:
+    """Either tower version (2.5 is told by its ``gate`` leaves).  The fused
+    qkv weights and biases are concatenations, so they are new tensors; the
+    rest are views."""
+    sd = llama_to_hf(params["language_model"])
+    vt = params["vision_tower"]
+    bp = vt["blocks"]
+    L, E = bp["q_proj"].shape[0], bp["q_proj"].shape[1]
+    v25 = "gate" in bp
+    pe = vt["patch_embed"]  # [patch_dim, E]: the patch vector in (c, t, ph, pw) order
+    P = int(round((pe.shape[0] // 6) ** 0.5))
+    sd["visual.patch_embed.proj.weight"] = _t(pe).reshape(E, 3, 2, P, P)
+    for i in range(L):
+        base = f"visual.blocks.{i}"
+        sd[f"{base}.norm1.weight"] = bp["ln1"]["scale"][i]
+        sd[f"{base}.norm2.weight"] = bp["ln2"]["scale"][i]
+        if not v25:
+            sd[f"{base}.norm1.bias"] = bp["ln1"]["bias"][i]
+            sd[f"{base}.norm2.bias"] = bp["ln2"]["bias"][i]
+        sd[f"{base}.attn.qkv.weight"] = torch.cat([_t(bp[f"{n}_proj"][i]) for n in _QWEN_QKV])
+        sd[f"{base}.attn.qkv.bias"] = torch.cat([bp[f"{n}_bias"][i] for n in _QWEN_QKV])
+        sd[f"{base}.attn.proj.weight"] = _t(bp["o_proj"][i])
+        sd[f"{base}.attn.proj.bias"] = bp["o_bias"][i]
+        for ours, hf in _qwen_mlp_names(v25):
+            sd[f"{base}.mlp.{hf}.weight"] = _t(bp[ours][i])
+            sd[f"{base}.mlp.{hf}.bias"] = bp[f"{ours}_bias"][i]
+    m = vt["merger"]
+    sd["visual.merger.ln_q.weight"] = m["ln_q"]["scale"]
+    if not v25:
+        sd["visual.merger.ln_q.bias"] = m["ln_q"]["bias"]
+    sd["visual.merger.mlp.0.weight"] = _t(m["fc1"])
+    sd["visual.merger.mlp.0.bias"] = m["fc1_bias"]
+    sd["visual.merger.mlp.2.weight"] = _t(m["fc2"])
+    sd["visual.merger.mlp.2.bias"] = m["fc2_bias"]
+    return sd
+
+
+def qwen2vl_from_hf(sd, decoder_layers: int, vision_depth: int, *, device="cpu",
+                    dtype=torch.float32) -> dict:
+    """Either tower version (2.5 is told by its ``gate_proj`` keys)."""
+    g = _getter(sd, device, dtype)
+    v25 = "visual.blocks.0.mlp.gate_proj.weight" in sd
+
+    def stacked(hf, transpose=False):
+        return _stacked(sd, [f"visual.blocks.{i}.{hf}" for i in range(vision_depth)], device,
+                        dtype, transpose)
+
+    def qkv_part(hf, j, E, transpose):
+        out = None
+        for i in range(vision_depth):
+            w = sd[f"visual.blocks.{i}.{hf}"][j * E:(j + 1) * E].to(device)
+            w = _t(w) if transpose else w
+            if out is None:
+                out = torch.empty((vision_depth, *w.shape), device=device, dtype=dtype)
+            out[i].copy_(w)
+        return out
+
+    conv = g("visual.patch_embed.proj.weight")  # [E, 3, T, P, P]
+    E = conv.shape[0]
+    blocks = {f"ln{n}": {"scale": stacked(f"norm{n}.weight")} for n in (1, 2)}
+    if not v25:
+        for n in (1, 2):
+            blocks[f"ln{n}"]["bias"] = stacked(f"norm{n}.bias")
+    for j, n in enumerate(_QWEN_QKV):
+        blocks[f"{n}_proj"] = qkv_part("attn.qkv.weight", j, E, True)
+        blocks[f"{n}_bias"] = qkv_part("attn.qkv.bias", j, E, False)
+    blocks["o_proj"] = stacked("attn.proj.weight", True)
+    blocks["o_bias"] = stacked("attn.proj.bias")
+    for ours, hf in _qwen_mlp_names(v25):
+        blocks[ours] = stacked(f"mlp.{hf}.weight", True)
+        blocks[f"{ours}_bias"] = stacked(f"mlp.{hf}.bias")
+    ln_q = {"scale": g("visual.merger.ln_q.weight")}
+    if not v25:
+        ln_q["bias"] = g("visual.merger.ln_q.bias")
+    return {
+        "language_model": llama_from_hf(sd, decoder_layers, qkv_bias=True, device=device,
+                                        dtype=dtype),
+        "vision_tower": {
+            "patch_embed": conv.reshape(E, -1).transpose(0, 1).contiguous(),
+            "blocks": blocks,
+            "merger": {
+                "ln_q": ln_q,
+                "fc1": _transposed(sd, "visual.merger.mlp.0.weight", device, dtype),
+                "fc1_bias": g("visual.merger.mlp.0.bias"),
+                "fc2": _transposed(sd, "visual.merger.mlp.2.weight", device, dtype),
+                "fc2_bias": g("visual.merger.mlp.2.bias"),
+            },
         },
     }

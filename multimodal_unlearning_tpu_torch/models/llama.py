@@ -48,7 +48,7 @@ from multimodal_unlearning_tpu_torch.models.params import ParamTree
 from multimodal_unlearning_tpu_torch.ops.attention import flash_attention
 from multimodal_unlearning_tpu_torch.ops.decode_attention import (
     chunk_decode_attention, decode_attention)
-from multimodal_unlearning_tpu_torch.ops.rope import apply_rope_bsd, rope_table
+from multimodal_unlearning_tpu_torch.ops.rope import apply_rope_bsd, mrope_select, rope_table
 from multimodal_unlearning_tpu_torch.utils.quantize import (
     dequantize_leaf, embed_lookup, int4_matmul, int8_matmul, int8_matmul_group, is_int4,
     is_qtensor, qs_of)
@@ -278,6 +278,10 @@ class Llama(ParamTree):
             "norm": (h,),
             "lm_head": (h, cfg.vocab_size),
         }, device=dev, dtype=dtype)
+        if cfg.qkv_bias:  # the Qwen2 family
+            for name, width in (("q_bias", h), ("k_bias", kvh), ("v_bias", kvh)):
+                self.layers.register_parameter(name, torch.nn.Parameter(
+                    torch.empty((L, width), device=dev, dtype=dtype), requires_grad=False))
         self.cfg = cfg
         self.make_rope_tables(dev)
 
@@ -302,6 +306,9 @@ class Llama(ParamTree):
             w.normal_(0.0, w.shape[-2] ** -0.5, generator=generator)
         lp.input_layernorm.fill_(1.0)
         lp.post_attention_layernorm.fill_(1.0)
+        if self.cfg.qkv_bias:
+            for name in ("q_bias", "k_bias", "v_bias"):
+                getattr(lp, name).zero_()
         self.embed_tokens.normal_(0.0, 0.02, generator=generator)
         self.norm.fill_(1.0)
         self.lm_head.normal_(0.0, self.lm_head.shape[-2] ** -0.5, generator=generator)
@@ -313,14 +320,21 @@ class Llama(ParamTree):
 
     def _project(self, t, names, layer, lora, lora_scale):
         """Projections ``names`` of one input ``t``.  Under W8A8 they share
-        one activation quantization (q/k/v, gate/up)."""
+        one activation quantization (q/k/v, gate/up).  A q/k/v bias (the
+        Qwen2 family) is added last, after the product's rescale and the
+        LoRA delta, in the output's dtype and never quantized, as in the
+        JAX package."""
         lp = self.layers
         ws = [getattr(lp, n)[layer] for n in names]
         lls = [self._lora_leaf(lora, n, layer) for n in names]
         if len(names) > 1 and INT8_COMPUTE and all(_is_int8(w) for w in ws):
             ys = int8_matmul_group(t, tuple(w["q"] for w in ws), tuple(w["s"] for w in ws))
-            return [apply_lora_delta(y, t, ll, lora_scale) for y, ll in zip(ys, lls)]
-        return [dense(t, w, ll, lora_scale) for w, ll in zip(ws, lls)]
+            ys = [apply_lora_delta(y, t, ll, lora_scale) for y, ll in zip(ys, lls)]
+        else:
+            ys = [dense(t, w, ll, lora_scale) for w, ll in zip(ws, lls)]
+        if self.cfg.qkv_bias and names[0] == "q_proj":
+            ys = [y + getattr(lp, n[0] + "_bias")[layer].to(y.dtype) for y, n in zip(ys, names)]
+        return ys
 
     def _attn_inputs(self, x, layer, cos_p, sin_p, lora, lora_scale):
         """Input norm, q/k/v projections and rope: x -> q, k, v [B, H, S, D]."""
@@ -444,7 +458,11 @@ class Llama(ParamTree):
                 # generation: mask-aware positions, as HF generate
                 positions = positions_from_mask(attention_mask)
         positions = positions.long()
-        cos_p, sin_p = self.rope_cos[positions], self.rope_sin[positions]  # [B, S, D]
+        if positions.ndim == 3:  # M-RoPE [3, B, S] (Qwen2-VL)
+            cos_p, sin_p = mrope_select(self.rope_cos, self.rope_sin, positions,
+                                        cfg.mrope_section, cfg.head_dim)
+        else:
+            cos_p, sin_p = self.rope_cos[positions], self.rope_sin[positions]  # [B, S, D]
 
         decoding = kv_cache is not None and S == 1
         # verify/prefill chunk: C > 1 tokens read the WHOLE cache (accepted

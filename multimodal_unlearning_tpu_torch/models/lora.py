@@ -4,7 +4,8 @@ Counterpart of ``multimodal_unlearning_tpu/models/lora.py`` (initialisation
 and merging; ``stack_adapters`` comes with multi-LoRA serving).  The
 adapter tree is a nested dict of tensors at the JAX tree's paths --
 ``language_model.layers.<proj>.{a,b}`` with ``a: [L, in, r]`` (gaussian times
-in^-0.5) and ``b: [L, r, out]`` (zeros), ``projector.{fc1,fc2}.{a,b}`` flat --
+in^-0.5) and ``b: [L, r, out]`` (zeros), ``projector.{fc1,fc2}.{a,b}`` flat
+(LLaVA's ``projector``, or Qwen2-VL's ``vision_tower.merger``) --
 and its leaves are the only tensors with ``requires_grad=True``: the base
 model stays frozen.  The adapters are applied inside the projections
 (``models/llama.py:dense``).
@@ -238,18 +239,23 @@ def merge(params, lora: dict, scale: float, consume: bool = False, out_dtype=Non
 
 def merge_model(params, adapters: dict, scale: float, consume: bool = False,
                 out_dtype=None) -> dict:
-    """Model-level merge_and_unload: decoder layers and projector adapters."""
+    """Model-level merge_and_unload: decoder layers and projector adapters
+    (at LLaVA's ``projector`` or inside Qwen2-VL's ``vision_tower.merger``)."""
     if "language_model" not in adapters:
         return merge(params, adapters, scale, consume=consume, out_dtype=out_dtype)
     m = _merger(adapters["language_model"], scale, consume, out_dtype)
     proj = adapters.get("projector")
+    site = _projector_site(params) if proj else None
     out = {}
     for key, sub in _items(params):
         if key == "language_model":
             out[key] = merge(sub, adapters["language_model"], scale, consume=consume,
                              out_dtype=out_dtype)
-        elif key == "projector" and proj:
+        elif site == (key,):
             out[key] = m.flat(sub, proj)
+        elif site is not None and site[0] == key:
+            out[key] = {k: m.flat(v, proj) if k == site[1] else m.walk(sub, k, v)
+                        for k, v in _items(sub)}
         else:
             out[key] = m.walk(params, key, sub)
     return out

@@ -8,7 +8,9 @@ CUDA tensor ``flash_attention`` launches the hand-written kernels
 ``csrc/flash_fwd.cu`` and, in the backward pass, ``csrc/flash_bwd_dq.cu`` and
 ``csrc/flash_bwd_dkv.cu``; on a CPU tensor it runs the plain versions.  There
 is no other route, and no 128-alignment fallback: the kernels take any
-sequence length (the ViT's 577 too) and head dims 64 and 128.
+sequence length (the ViT's 577 too) and head dims 64 and 128; the forward
+kernel also head dim 80 (the Qwen2-VL towers, which run without gradients:
+the backward kernels at 80 are not built, and asking for them raises).
 
 ``impl="auto"`` goes through ``FlashAttention`` (a ``torch.autograd.Function``:
 gradients for q, k and v from the saved o and lse); ``impl="plain"`` is the
@@ -80,9 +82,9 @@ def _flash_fwd_cuda(q, k, v, kv_mask, causal, q_offset, sm_scale):
         raise TypeError(f"flash_fwd kernel takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
     if any(t.device != q.device for t in (k, v)):
         raise ValueError("q, k and v must be on one device")
-    if (Bk, Dk) != (B, D) or v.shape != k.shape or Hq % Hkv or D not in (64, 128):
+    if (Bk, Dk) != (B, D) or v.shape != k.shape or Hq % Hkv or D not in (64, 80, 128):
         raise ValueError(f"flash_fwd: unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)} (head dim 64 or 128, Hq % Hkv == 0)")
+                         f"v {tuple(v.shape)} (head dim 64, 80 or 128, Hq % Hkv == 0)")
     q, k, v = _rows(q), _rows(k), _rows(v)
     mask = None
     if kv_mask is not None:

@@ -40,7 +40,10 @@
 //     short rows;
 //   - every group of lanes scores one key with 16-byte loads (a whole key row
 //     per group, coalesced: 8 bf16 dims a lane, or 16 int8 dims at GQA groups
-//     of 1-2, so an int8 warp keeps as many bytes in flight as a bf16 one)
+//     of 1-2, so an int8 warp keeps as many bytes in flight as a bf16 one;
+//     the lane layout is a function of D alone, and a lane loops over the G
+//     q-heads of its kv-head, so any G works, Qwen2-VL-2B's 6 included:
+//     G = 1, 2, 4, 6 and 8 are instantiated, and no head is padded)
 //     while each warp keeps 4 key groups of K and V loads in flight (on a
 //     bf16 cache at GQA groups of 1-2 the next 4 too while it scores these),
 //     with an online softmax per lane group in the log2 domain.  int8 values
@@ -75,8 +78,8 @@ __device__ __forceinline__ void i8x4_to_float(uint32_t w, float* out) {
 }
 
 // DL cache elements of one lane: 16 bytes of bf16 (8) or of int8 (16), or 8
-// bytes of int8 (8, at GQA groups of 4-8, where 16 dims a lane would take too
-// many registers)
+// bytes of int8 (8, at GQA groups of 3 and more, where 16 dims a lane would
+// take too many registers)
 template <typename T, int DL>
 struct Lane;
 template <>
@@ -409,6 +412,7 @@ int launch_g(int G, const Args& a, cudaStream_t st) {
     case 1: return launch<T, D, 1, PAGED>(a, st);
     case 2: return launch<T, D, 2, PAGED>(a, st);
     case 4: return launch<T, D, 4, PAGED>(a, st);
+    case 6: return launch<T, D, 6, PAGED>(a, st);
     case 8: return launch<T, D, 8, PAGED>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -7,7 +7,8 @@
 //   lse[b,h,i] = ln sum_j exp(s_ij)   (natural log, for the backward pass)
 // over the keys j with kv_mask[b,j] != 0 and, when causal, j <= q_offset+i.
 // A row with no such key gives o = 0 and lse = -1e30.  GQA maps q-head h to
-// kv-head h // group.  Any Sq and Sk (the ViT's 577 too); D is 64 or 128.
+// kv-head h // group.  Any Sq and Sk (the ViT's 577 too); D is 64, 80 (the
+// Qwen2-VL towers' heads, 1280 / 16) or 128.
 //
 // What bounds it on the card: at the forget step's (2,32,768,128) causal it
 // does 9.7 GFLOP on 50 MB of q, k, v and o, at the prefill's (1,32,768,128)
@@ -32,8 +33,12 @@
 //     tiles' copies in flight during this tile's two products: at D 128,
 //     32-column tiles in a ring of 3 (70 KB) with at most 168 registers a
 //     thread, so 3 blocks share an SM; at D 64, 64-column tiles in a ring of
-//     2.  Rows are padded to D+8 elements, so each ldmatrix (K, and V
-//     transposed) reads 8 rows that fall on distinct bank groups.
+//     2, and at D 80 likewise.  Rows are padded to D+8 elements, so each
+//     ldmatrix (K, and V transposed) reads 8 rows that fall on distinct bank
+//     groups: a row of (D+8)*2 bytes is 272, 144 or 176 bytes, 4, 4 or 12
+//     words past a multiple of 32 banks, and 8 rows at 4r or 12r mod 32 cover
+//     the 32 banks once.  D 80 is 5 k-steps of 16 and 10 n8 tiles: the loops
+//     below run over D/16 and D/8 and need no power of two.
 //   - before any load the block lists its live tiles (a column the mask
 //     admits, up to its last causal column), marking those the mask admits
 //     whole, so all-padding tiles are never copied and inner tiles skip the
@@ -380,8 +385,10 @@ extern "C" int mmu_flash_fwd_bf16(const void* q, const void* k, const void* v, c
                qsh, qss, ksb, ksh,  kss, vsb, vsh, vss, osb,      osh,    oss,      sm_scale,
                causal, q_offset, static_cast<cudaStream_t>(stream)};
   // D 128: 32-column tiles in a ring of 3 (70 KB) and at most 168 registers,
-  // so 3 blocks share an SM; D 64: 64-column tiles, 2 stages
+  // so 3 blocks share an SM; D 64 and 80: 64-column tiles, 2 stages (57 KB
+  // at D 80)
   if (D == 128) return launch<128, 32, 3, 3>(a);
+  if (D == 80) return launch<80, 64, 2, 1>(a);
   if (D == 64) return launch<64, 64, 2, 1>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -61,6 +61,7 @@ _SPLIT_MIN_TILES = 4    # fewest tiles a split should hold
 DECODE_BLOCKS_PER_SM = 2   # the one-token kernel's split plan aims at this many blocks per SM
 DECODE_MIN_RUN = 512       # ... with runs of at least this many columns
 DECODE_RUN_ALIGN = 64      # ... in multiples of this many columns
+DECODE_GROUPS = (1, 2, 4, 6, 8)  # the GQA groups csrc/flash_decode.cu instantiates
 
 
 def _check_cache(cache):
@@ -167,9 +168,10 @@ def _decode_cuda(q, cache, layer, kv_valid, sm_scale):
     k_cache, v_cache, k_s, v_s = _launch_args(q, cache, layer)
     B, Hq, _, D = q.shape
     L, Bc, Hkv, Smax, Dc = k_cache.shape
-    if (Bc, Dc) != (B, D) or Hq % Hkv or Hq // Hkv not in (1, 2, 4, 8) or D not in (64, 128):
+    if (Bc, Dc) != (B, D) or Hq % Hkv or Hq // Hkv not in DECODE_GROUPS or D not in (64, 128):
         raise ValueError(f"flash_decode: unsupported shapes q {tuple(q.shape)} "
-                         f"cache {tuple(k_cache.shape)} (head dim 64 or 128, GQA group 1/2/4/8)")
+                         f"cache {tuple(k_cache.shape)} (head dim 64 or 128, GQA group "
+                         f"{'/'.join(map(str, DECODE_GROUPS))})")
     valid, S, vstride = valid_columns(q, kv_valid, Smax)
     tensors = (k_cache, v_cache) if k_s is None else (k_cache, v_cache, k_s, v_s)
     if not all(t.is_contiguous() for t in tensors):

@@ -42,8 +42,8 @@ import torch
 from multimodal_unlearning_tpu_torch.ops import kernels
 from multimodal_unlearning_tpu_torch.ops.attention import mha_reference
 from multimodal_unlearning_tpu_torch.ops.decode_attention import (
-    _check_cache, _launch_args, _route, chunk_attention_reference, chunk_visibility,
-    decode_scratch, split_scratch, valid_columns)
+    DECODE_GROUPS, _check_cache, _launch_args, _route, chunk_attention_reference,
+    chunk_visibility, decode_scratch, split_scratch, valid_columns)
 
 __all__ = ["is_paged", "gather_layer_kv", "paged_decode_attention",
            "paged_chunk_decode_attention"]
@@ -111,8 +111,9 @@ def _decode_cuda(q, cache, layer, kv_valid, sm_scale):
     k, v, k_s, v_s, table, _ = _paged_launch_args(q, cache, layer)
     B, Hq, _, D = q.shape
     L, Hkv, NP, P, _ = k.shape
-    if Hq // Hkv not in (1, 2, 4, 8):
-        raise ValueError(f"paged_decode: GQA group {Hq // Hkv} (1, 2, 4 or 8)")
+    if Hq // Hkv not in DECODE_GROUPS:
+        raise ValueError(f"paged_decode: GQA group {Hq // Hkv} "
+                         f"({'/'.join(map(str, DECODE_GROUPS))})")
     MP = table.shape[1]
     valid, S, vstride = valid_columns(q, kv_valid, MP * P)
     q = q.contiguous()

@@ -33,3 +33,26 @@ def apply_rope_bsd(x, cos_bsd, sin_bsd):
     c = cos_bsd[:, None, :, :]
     s = sin_bsd[:, None, :, :]
     return (x * c + _rotate_half(x) * s).to(x.dtype)
+
+
+def mrope_select(cos, sin, positions, mrope_section, head_dim: int):
+    """Qwen2-VL's multimodal RoPE: each rotary channel takes its angle from
+    one of three position streams.
+
+    cos/sin: [max_len, D] tables; positions: [3, B, S] (temporal, height,
+    width); ``mrope_section`` gives each stream's channel count over the
+    first half of D, and the second half repeats the first (HF's
+    apply_multimodal_rotary_pos_emb).  Returns ([B, S, D], [B, S, D]): a
+    gather per channel, which picks exactly the value the JAX package's
+    one-hot product picks."""
+    half = head_dim // 2
+    seg = torch.repeat_interleave(torch.arange(len(mrope_section)),
+                                  torch.tensor(mrope_section))[:half]
+    if seg.numel() < half:  # jnp.repeat's total_repeat_length pads with the last stream
+        seg = torch.cat([seg, seg[-1:].expand(half - seg.numel())])
+    seg = torch.cat([seg, seg]).to(positions.device)  # stream of each channel [D]
+    chan = torch.arange(head_dim, device=positions.device)
+    pos = positions[seg]  # [D, B, S]: each channel's stream
+    cos_sel = cos[pos, chan[:, None, None]].permute(1, 2, 0)
+    sin_sel = sin[pos, chan[:, None, None]].permute(1, 2, 0)
+    return cos_sel, sin_sel

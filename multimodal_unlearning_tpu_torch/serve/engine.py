@@ -16,6 +16,13 @@ position, refilled from the queue between decode chunks.
   (its write column at insert plus its budget): the decode chunk hands
   attention the validity rows narrowed to that extent, so the one-token
   kernel never walks the columns past it.
+- Qwen2-VL's M-RoPE: a prompt's forward computes its [3, 1, S] positions
+  and its ``rope_delta`` (text after an image continues at the image's
+  extent, not at the token count); the engine folds the delta into every
+  position it computes later: the slot's ``pos_next`` at insert, a
+  registered prefix's suffix positions, and the chunked-prefill passes
+  after the first chunk (which holds the image).  A preempted request is
+  recomputed from its prompt, delta and all.
 - the per-slot state (``kv_valid``, ``write_col``, ``pos_next``,
   ``token``, ``remaining``, ``live``) lives on the device and is updated in
   place; the host reads only each chunk's emitted tokens.  In pipelined
@@ -109,8 +116,10 @@ class ServingEngine:
     """Fixed-slot continuous-batching engine over one model.
 
     Args:
-      params: the model (``models.llama.Llama`` or ``models.llava.Llava``).
-      model_cfg / kind: its config and registry kind ("llama" or "llava").
+      params: the model (``models.llama.Llama``, ``models.llava.Llava`` or
+        ``models.qwen2_vl.QwenVL``).
+      model_cfg / kind: its config and registry kind ("llama", "llava" or
+        "qwen2_vl").
       num_slots: decode batch width B.
       max_len: per-slot cache length Smax (rounded up to 128; prompt bucket
         + new tokens must fit -- longer submissions are rejected).
@@ -196,7 +205,7 @@ class ServingEngine:
         self.params = params
         self.model_cfg = model_cfg
         self.kind = kind
-        self.is_vlm = kind == "llava" or hasattr(model_cfg, "decoder")
+        self.is_vlm = kind in ("llava", "qwen2_vl") or hasattr(model_cfg, "decoder")
         self.dec_cfg = model_cfg.decoder if self.is_vlm else model_cfg
         decoder_module(self.dec_cfg)  # raises for a family the port lacks
         self.B = num_slots
@@ -445,6 +454,12 @@ class ServingEngine:
         return self.params(ids, attn_impl=self.attn_impl, compute_dtype=self.compute_dtype,
                            **kw)
 
+    @staticmethod
+    def _rope_delta(out) -> int:
+        """A one-row prompt forward's M-RoPE delta (Qwen2-VL), else 0."""
+        delta = out.get("rope_delta")
+        return 0 if delta is None else int(delta[0])
+
     def _new_slab(self, n: int) -> dict:
         """A fresh one-row [L, 1, Hkv, n, D] cache of the engine's dtype."""
         return decoder_module(self.dec_cfg).init_kv_cache(
@@ -544,14 +559,17 @@ class ServingEngine:
             self._scatter_pages(slab, own[: sp // self.page])
         first = self._first_token(req, out["logits"][0, -1])
         hist = torch.where(mask_t[0] > 0, ids_t[0], -2) if self.K else None
-        self._arm_slot(req, slot, first, mask_t[0], sp, len(prompt), hist)
+        self._arm_slot(req, slot, first, mask_t[0], sp, len(prompt) + self._rope_delta(out),
+                       hist)
         return first
 
     def _prefix_fill(self, slab, ids, mask, pix=None):
         """A standalone prompt forward into ``slab`` (its first columns, at
-        offset 0): the prefix cache's and the first prefill chunk's."""
-        self._forward(ids, pixel_values=pix, attention_mask=mask, kv_cache=slab,
-                      cache_offset=0, kv_valid_mask=mask, last_logit_only=True)
+        offset 0): the prefix cache's and the first prefill chunk's.  Returns
+        its M-RoPE delta (0 but on Qwen2-VL)."""
+        return self._rope_delta(self._forward(
+            ids, pixel_values=pix, attention_mask=mask, kv_cache=slab, cache_offset=0,
+            kv_valid_mask=mask, last_logit_only=True))
 
     def _extend(self, slab, P: int, kv_row, plen: int, ids, table=None):
         """Chunked prefill: C unpadded prompt tokens run as one chunk_decode
@@ -575,7 +593,8 @@ class ServingEngine:
     def _suffix_insert(self, req, slot: int, pslab, pvalid, phist, plen: int, suffix,
                        table=None):
         """The P-column slab ``pslab`` lands in ``slot``'s cache columns
-        0..P-1; the RIGHT-padded suffix runs as one chunk_decode pass (its
+        0..P-1; the RIGHT-padded suffix runs at positions ``plen`` on (the
+        prefix's rope delta folded in) as one chunk_decode pass (its
         queries read the prefix through ``pvalid`` plus their own chunk
         columns causally), written at columns P..P+sp-1.  Arms the slot;
         returns the first token.  Paged: the prefix's columns are already in
@@ -637,7 +656,7 @@ class ServingEngine:
                              f"{len(self._free_pages)} are free (kv_pool_pages; register "
                              "prefixes before submitting requests)")
         slab = self._new_slab(P)
-        self._prefix_fill(slab, ids_t, mask_t, self._pixels(pixel_values))
+        delta = self._prefix_fill(slab, ids_t, mask_t, self._pixels(pixel_values))
         pages = []
         if self.page:
             pages = self._alloc_pages(P // self.page)
@@ -646,7 +665,8 @@ class ServingEngine:
             self._scatter_pages(slab, pages)
             slab = None
         pid = len(self._prefixes)
-        self._prefixes[pid] = dict(slab=slab, mask=mask_t, plen=len(prompt_ids), P=P,
+        # plen: where the suffix's positions start (M-RoPE delta included)
+        self._prefixes[pid] = dict(slab=slab, mask=mask_t, plen=len(prompt_ids) + delta, P=P,
                                    hist=torch.where(mask_t[0] > 0, ids_t[0], -2), pages=pages)
         return pid
 
@@ -693,11 +713,11 @@ class ServingEngine:
         ids = torch.tensor([prompt[:C]], dtype=torch.long, device=self.device)
         mask = torch.ones((1, C), dtype=torch.int32, device=self.device)
         job = dict(req=req, slot=slot, P=C, pos=C, kv_row=mask, prompt=prompt, slab=None,
-                   pages=None, table=None)
+                   pages=None, table=None, delta=0)
         if self.page:
             job["pages"] = self._alloc_pages(self._own_pages_needed(req))
             slab = self._new_slab(C)
-            self._prefix_fill(slab, ids, mask, self._pixels(req.pixel_values))
+            job["delta"] = self._prefix_fill(slab, ids, mask, self._pixels(req.pixel_values))
             self._scatter_pages(slab, job["pages"][:C // self.page])
             row = np.zeros((self.MP,), np.int32)
             row[:len(job["pages"])] = job["pages"]
@@ -706,8 +726,8 @@ class ServingEngine:
             n_full = (n - 1) // C  # chunks before the final (<= C) one
             total = n_full * C + _bucket(n - n_full * C, self.bucket_multiple)
             job["slab"] = self._new_slab(total)
-            self._prefix_fill(_cols(job["slab"], 0, C), ids, mask,
-                              self._pixels(req.pixel_values))
+            job["delta"] = self._prefix_fill(_cols(job["slab"], 0, C), ids, mask,
+                                             self._pixels(req.pixel_values))
         self._n_prefill_chunks += 1
         self._prefill_job = job
 
@@ -722,8 +742,8 @@ class ServingEngine:
         if len(prompt) - job["pos"] > C:
             ids = torch.tensor([prompt[job["pos"]:job["pos"] + C]], dtype=torch.long,
                                device=self.device)
-            job["kv_row"] = self._extend(job["slab"], job["P"], job["kv_row"], job["pos"], ids,
-                                         table=job["table"])
+            job["kv_row"] = self._extend(job["slab"], job["P"], job["kv_row"],
+                                         job["pos"] + job["delta"], ids, table=job["table"])
             job["P"] += C
             job["pos"] += C
             return
@@ -740,7 +760,8 @@ class ServingEngine:
         else:
             pslab = _cols(job["slab"], 0, job["P"])
         first = self._suffix_insert(req, job["slot"], pslab, job["kv_row"][:, :job["P"]], hist,
-                                    job["pos"], prompt[job["pos"]:], table=job["table"])
+                                    job["pos"] + job["delta"], prompt[job["pos"]:],
+                                    table=job["table"])
         self._after_insert(req, job["slot"], first)
 
     def _decode_chunk(self):

@@ -1,4 +1,5 @@
-"""Kernels B1 (flash forward), B2/B3 (flash backward: dq, dk/dv), B4/B4q
+"""Kernels B1 (flash forward; head dims 64, 80 and 128), B2/B3 (flash
+backward: dq, dk/dv), B4/B4q
 (flash decode, bf16 and int8 cache), B5/B5q (verify-chunk attention, bf16
 and int8 cache), B6/B6q, B7/B7q (the same two on a paged cache) and B8
 (grouped-int4 W4A16 matmul) against their plain PyTorch versions on the
@@ -75,9 +76,14 @@ def _randn(rng, shape, dev):
         (1, 4, 2, 40, 200, 128, True, 130, 0),       # the causal range ends inside a tile
         (2, 4, 4, 129, 129, 128, True, 0, 129),      # dead rows at D 128
         (1, 8, 8, 150, 150, 128, True, 0, 0),        # an odd count of paired causal row blocks
+        (2, 16, 16, 576, 576, 80, False, 0, 0),      # Qwen2-VL's tower: D 80, no padding
+        (2, 16, 16, 200, 200, 80, False, 0, 37),     # D 80, masked
+        (1, 8, 8, 150, 150, 80, True, 0, 3),         # D 80, causal
+        (2, 4, 2, 37, 93, 80, True, 50, 5),          # D 80, GQA, q_offset, ragged lengths
     ],
     ids=["vit", "prefill", "gqa", "q_offset", "dead_row", "ragged", "ragged_causal_d64",
-         "causal_mid_tile", "dead_row_d128", "causal_odd_blocks"],
+         "causal_mid_tile", "dead_row_d128", "causal_odd_blocks", "qwen_tower_d80",
+         "masked_d80", "causal_d80", "gqa_ragged_d80"],
 )
 def test_flash_fwd_matches_plain(dev, B, Hq, Hkv, Sq, Sk, D, causal, q_offset, pad):
     rng = np.random.default_rng(0)
@@ -97,7 +103,34 @@ def test_flash_fwd_matches_plain(dev, B, Hq, Hkv, Sq, Sk, D, causal, q_offset, p
     assert torch.all(o.float()[~live.expand_as(o)] == 0)
 
 
-@pytest.mark.parametrize("G", [1, 2, 4])
+def test_flash_fwd_d80_ragged_windows(dev):
+    """Qwen2.5-VL's windowed blocks at D 80: the windows folded into the
+    batch, each row its own right padding (ragged windows), one launch."""
+    rng = np.random.default_rng(7)
+    W, H, Lw, D = 9 * 2, 16, 64, 80
+    q, k, v = (_randn(rng, (W, H, Lw, D), dev) for _ in range(3))
+    lens = rng.integers(1, Lw + 1, W)
+    lens[0] = Lw
+    mask = (torch.arange(Lw)[None, :] < torch.from_numpy(lens)[:, None]).to(dev, torch.int32)
+    before = kernels.LAUNCHES["flash_fwd"]
+    o = flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_fwd"] == before + 1
+    ref = flash_attention(q, k, v, mask, impl="plain")
+    torch.testing.assert_close(o.float(), ref.float(), atol=O_TOL, rtol=0)
+
+
+def test_flash_bwd_refuses_d80(dev):
+    """The backward kernels are not built at D 80 (the Qwen2-VL towers run
+    without gradients): asking for them raises instead of falling back."""
+    rng = np.random.default_rng(8)
+    q, k, v, do = (_randn(rng, (1, 4, 64, 80), dev) for _ in range(4))
+    o, lse = flash_attention_lse(q, k, v)
+    with pytest.raises(ValueError, match="head dim 64 or 128"):
+        flash_attention_bwd(q, k, v, None, do, o, lse)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 6])
 def test_flash_decode_matches_plain(dev, G):
     rng = np.random.default_rng(1)
     L, B, Hkv, Smax, D = 4, 8, 32 // G, 2048, 128
@@ -127,7 +160,7 @@ def _cache(rng, shape, dev, int8):
 
 
 @pytest.mark.parametrize("Smax", [2048, 1000])
-@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("G", [1, 4, 6])
 def test_flash_decode_q8_matches_plain(dev, G, Smax):
     rng = np.random.default_rng(4)
     L, B, Hkv, D = 4, 8, 32 // G, 128
@@ -160,9 +193,11 @@ def test_flash_decode_q8_matches_plain(dev, G, Smax):
         (2, 8, 2, 10, 2048, 0),      # GQA, G*C 40: past two row tiles, one 64-row block
         (2, 8, 2, 17, 1000, 0),      # GQA, G*C 68: past 64 rows, two blocks
         (8, 32, 32, 5, 128, 0),      # Smax of two tiles: one split
+        (8, 12, 2, 5, 2048, 0),      # Qwen2-VL-2B's group 6: the verify round, G*C 30
+        (1, 12, 2, 512, 2048, 1536),  # group 6, a chunked-prefill pass over a slab view
     ],
     ids=["verify", "prefill_chunk", "gqa", "ragged", "c1", "c16", "c17", "gqa_m40", "gqa_m68",
-         "one_split"],
+         "one_split", "gqa6_verify", "gqa6_prefill_chunk"],
 )
 def test_chunk_decode_matches_plain(dev, int8, B, Hq, Hkv, C, Smax, slab):
     rng = np.random.default_rng(5)
@@ -203,9 +238,10 @@ def test_chunk_decode_matches_plain(dev, int8, B, Hq, Hkv, C, Smax, slab):
         (2, 4, 4, 70, 300, 64, True, 230, 3),        # the same at D 64, with padding
         (2, 16, 4, 333, 333, 64, True, 0, 61),       # GQA group 4, odd blocks, left padding
         (2, 8, 8, 300, 300, 128, True, 0, 128),      # key blocks 0 and 1 all padding
+        (2, 12, 2, 300, 300, 128, True, 0, 37),      # Qwen2-VL-2B's group 6, left padding
     ],
     ids=["step", "left_pad", "gqa", "q_offset", "vit", "dead_row", "odd_blocks", "len_129",
-         "ragged_d64", "gqa4_pad", "pad_block"],
+         "ragged_d64", "gqa4_pad", "pad_block", "gqa6"],
 )
 def test_flash_bwd_matches_plain(dev, B, Hq, Hkv, Sq, Sk, D, causal, q_offset, pad):
     rng = np.random.default_rng(2)
@@ -292,7 +328,7 @@ def _paged(cache, P, rng):
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 @pytest.mark.parametrize("P", [16, 128])
-@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("G", [1, 4, 6])
 def test_paged_decode_matches_plain(dev, int8, P, G):
     rng = np.random.default_rng(6)
     L, B, Hkv, S, D, layer = 4, 8, 32 // G, 2048, 128, 3
@@ -325,8 +361,9 @@ def test_paged_decode_matches_plain(dev, int8, P, G):
         (1, 32, 32, 512, "prefill_chunk"),  # 512 queries behind 1,024 prefix columns
         (2, 8, 8, 3, "fresh_page"),        # the chunk starts a page past every valid one
         (4, 32, 32, 1, "verify_c1"),       # one query per row, split columns
+        (8, 12, 2, 5, "gqa6"),             # Qwen2-VL-2B's group 6
     ],
-    ids=["verify", "gqa", "prefill_chunk", "fresh_page", "verify_c1"],
+    ids=["verify", "gqa", "prefill_chunk", "fresh_page", "verify_c1", "gqa6"],
 )
 def test_paged_chunk_matches_plain(dev, int8, P, B, Hq, Hkv, C, case):
     rng = np.random.default_rng(7)

@@ -66,7 +66,8 @@ def test_port_imports_with_jax_blocked():
                  "data.datasets", "data.loader", "data.prefetch",
                  "train.checkpoints", "train.loop", "models.hf_bridge",
                  "evaluation", "evaluation.rouge", "evaluation.metrics", "evaluation.generate",
-                 "evaluation.evaluator", "cli.mm_eval", "cli.mm_calculate_metrics"):
+                 "evaluation.evaluator", "cli.mm_eval", "cli.mm_calculate_metrics",
+                 "models.qwen2_vl"):
         assert f"multimodal_unlearning_tpu_torch.{name}" in mods
 
 

@@ -117,3 +117,19 @@ def test_make_server_from_a_serve_config():
         assert srv.engine.page == 128
     finally:
         srv.shutdown()
+
+
+def test_make_server_serves_qwen():
+    """The HTTP front end over Qwen2.5-VL (the windowed tower, M-RoPE): a
+    text prompt in the qwen chat template is served."""
+    cfg = tserve.load_config(["model_family=tiny-qwen25vl-test", "device=cpu", "dtype=float32",
+                              "quantize_base=false", "num_slots=2", "max_length=256",
+                              "chunk=4", "generation.max_new_tokens=4"])
+    srv = serve_http.make_server(cfg)
+    host, port = srv.serve(port=0)
+    try:
+        out = _post(f"http://{host}:{port}/v1/completions", {"prompt": "Who is this?"})
+        assert 1 <= out["tokens"] <= 4 and isinstance(out["text"], str)
+        assert srv.engine.kind == "qwen2_vl"
+    finally:
+        srv.shutdown()

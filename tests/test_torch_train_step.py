@@ -220,8 +220,14 @@ def test_nonfinite_batch_leaves_state_untouched():
 
 
 def test_unported_train_step_options_raise():
+    # Qwen2-VL is ported now; the cv stack's ResNet is not
     with pytest.raises(NotImplementedError, match="not ported"):
-        tforget.make_apply_fn("qwen2_vl", None)
+        tforget.make_apply_fn("resnet", None)
+
+
+@pytest.mark.parametrize("kind", ["llama", "llava", "qwen2_vl"])
+def test_ported_kinds_construct(kind):
+    assert callable(tforget.make_apply_fn(kind, None))
 
 
 def test_port_bench_control_flow_on_the_cpu():
