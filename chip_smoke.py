@@ -169,16 +169,29 @@ stays within its time limit.
    and paged with speculation (B7q), held against the dense run up to
    near-ties; 8e Qwen2.5-VL-3B (qwen-vl-3b, the windowed tower) from its
    seed in bf16: prefill logits against plain attention and four image
-   requests served, streams held against teacher-forced forwards.  Every
+   requests served, streams held against teacher-forced forwards; 8f (after
+   8d, on its model) the rest of ``serve.yaml``: 8b's checkpoint quantized
+   by ``cli.quantize_model.main``, adapters "ft" (8a's) and "rnd" (random, r
+   8) served by ``cli.serve.main`` with ``logprobs=true`` to six requests on
+   the base, "ft" and "rnd" -- (a) each stream equal, up to a first near-tie,
+   to its stream from an engine holding only its adapter, each adapter
+   changing some stream; (b) every token and logprob held against a
+   teacher-forced forward with its adapter; (c) the same mix on an int8
+   cache with a system prompt registered per adapter, dense (B4q, B5q),
+   paged (B6q, B7q) and paged with K 4 (B7q); (d) sampled (temperature 0.7,
+   top-k 50, top-p 0.9) in two submission orders and through
+   ``greedy_generate(do_sample=True)``, every token held against the
+   sampler's own noise on teacher-forced logits -- then a decode step's
+   kernels and device ms with 0, 1 and 2 adapters live and sampled.  Every
    run's launches asserted from its structure (training steps and
    micro-batches, teacher-forced forwards, the engine's prompt, image,
    decode and chunk forwards).  ``--qwen-only`` runs phases 1, 2 and 8 and
    prints their numbers instead of a result line.
-9. Prints one ``{"eval": ...}`` line (phase 7's numbers and 8c's), one
+9. Prints one ``{"eval": ...}`` line (phase 7's numbers, 8c's and 8f's), one
    ``{"kernels": [...]}`` line (twelve kernels; B1-B3 with phase 6's
    launches, B1, B4 and B5 with phase 7's, each with a ``qwen2vl`` entry:
-   phase 2's numbers at the Qwen shapes and phase 8's launches), the card's
-   name and power limit, and as the last line
+   phase 2's numbers at the Qwen shapes and phase 8's launches, 8f's
+   included), the card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -1498,7 +1511,12 @@ def profiled(fn, ranges=()):
     has that name, of the device kernels whose name contains it}."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # host ops only when a range is asked for (or in a rehearsal without a
+    # card): the profiler's processing of a 16-step decode chunk's host
+    # events took ~20 s a window
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if ranges or not torch.cuda.is_available() else [])
+    with torch_profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1591,14 +1609,35 @@ SYSTEM_PROMPT = ("You are a careful assistant for a vision-language benchmark. A
                  "question in one short sentence.")
 
 
-def first_difference(model, label, got, want, prompts, dtype=torch.bfloat16):
+def _tf_positions(model, ids, n):
+    """Teacher-forced positions of prompt ``ids`` and ``n`` generated tokens
+    after it: on Qwen2-VL the prompt's M-RoPE positions, then one position
+    a token from the prompt's extent, as the engine decodes them (a
+    generated token that happens to be the image token is text there, which
+    the positions of the whole sequence would not say); None elsewhere."""
+    from multimodal_unlearning_tpu_torch.models import qwen2_vl
+
+    if not isinstance(model, qwen2_vl.QwenVL):
+        return None
+    cfg = model.cfg
+    g, ms = cfg.default_grid, cfg.vision.spatial_merge_size
+    ids_t = torch.tensor([list(ids)], device=next(model.parameters()).device)
+    pos, delta = qwen2_vl.mrope_positions(ids_t, torch.ones_like(ids_t), cfg.image_token_id,
+                                          (g[0], g[1] // ms, g[2] // ms))
+    tail = len(ids) + delta[0] + torch.arange(n, device=ids_t.device)
+    return torch.cat([pos, tail.expand(3, 1, n)], dim=-1)
+
+
+def first_difference(model, label, got, want, prompts, dtype=torch.bfloat16, extras=None):
     """The two stream sets must agree token for token up to any first
     difference; there the reference path (a teacher-forced forward of
-    ``model`` over the prompt and the reference tokens before it) must see
-    its top two logits closer than TIE_MARGIN.  Nothing after a first
-    difference is compared.  Returns the near-ties found."""
+    ``model`` over the prompt and the reference tokens before it, with the
+    stream's ``extras`` model arguments: its LoRA adapter) must see its top
+    two logits closer than TIE_MARGIN.  Nothing after a first difference is
+    compared.  Returns the near-ties found."""
     ties = []
-    for i, (g, w, (ids, pix)) in enumerate(zip(got, want, prompts)):
+    extras = extras or [{}] * len(got)
+    for i, (g, w, (ids, pix), kw) in enumerate(zip(got, want, prompts, extras)):
         n = min(len(g), len(w))
         t = next((j for j in range(n) if g[j] != w[j]), n if len(g) != len(w) else None)
         if t is None:
@@ -1607,8 +1646,8 @@ def first_difference(model, label, got, want, prompts, dtype=torch.bfloat16):
         seq = torch.tensor([list(ids) + list(w[:t])], device=dev)
         pv = None if pix is None else torch.from_numpy(np.asarray(pix)[None]).to(dev, dtype)
         with torch.inference_mode():
-            logits = model(seq, pixel_values=pv, compute_dtype=dtype,
-                           last_logit_only=True)["logits"][0, -1].float()
+            logits = model(seq, pixel_values=pv, compute_dtype=dtype, last_logit_only=True,
+                           positions=_tf_positions(model, ids, t), **kw)["logits"][0, -1].float()
         top2 = torch.topk(logits, 2).values
         gap = (top2[0] - top2[1]).item()
         if gap >= TIE_MARGIN:
@@ -1620,8 +1659,9 @@ def first_difference(model, label, got, want, prompts, dtype=torch.bfloat16):
     return ties
 
 
-def _serve(engine, jobs, counted=True):
-    """Submit (ids, max_new, pixels, draft, prefix) jobs, run to the end;
+def _serve(engine, jobs, counted=True, extra=None):
+    """Submit (ids, max_new, pixels, draft, prefix) jobs (with ``extra``'s
+    per-job submit arguments: an adapter, a sampling seed), run to the end;
     returns (requests, wall s, launches, peak GiB) with the launch counts of
     this run alone."""
     torch.cuda.synchronize()
@@ -1629,8 +1669,8 @@ def _serve(engine, jobs, counted=True):
     if counted:
         kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    reqs = [engine.submit(ids, n, pixel_values=pix, draft_ref=d, prefix=pid)
-            for ids, n, pix, d, pid in jobs]
+    reqs = [engine.submit(ids, n, pixel_values=pix, draft_ref=d, prefix=pid, **kw)
+            for (ids, n, pix, d, pid), kw in zip(jobs, extra or [{}] * len(jobs))]
     engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2899,21 +2939,40 @@ def _report_eval(label, rec, wall, peak):
                 ms_per_forward=round(gen_s / max(n_fwd, 1) * 1e3, 3), peak_gib=round(peak, 2))
 
 
-def hold_streams(model, label, streams, prompts, max_new, ends, dtype=torch.bfloat16):
+def hold_streams(model, label, streams, prompts, max_new, ends, dtype=torch.bfloat16,
+                 extras=None, logprobs=None):
     """Every token of every stream against one teacher-forced forward of
-    ``model`` over the stream's prompt and the stream: each token must be
-    the argmax after what precedes it, or within TIE_MARGIN of it, and so
-    must the better of ``ends`` (the eos, or the pad a greedy row emits)
-    where a stream shorter than ``max_new`` stopped.  Returns (largest gap, tokens
-    checked, tokens that were not the argmax)."""
+    ``model`` over the stream's prompt and the stream (with the stream's
+    ``extras`` model arguments: its LoRA adapter): each token must be the
+    argmax after what precedes it, or within TIE_MARGIN of it, and so must
+    the better of ``ends`` (the eos, or the pad a greedy row emits) where a
+    stream shorter than ``max_new`` stopped.  With ``logprobs`` (one list
+    per stream), each must be within LOGIT_TOL of that forward's
+    ``log_softmax`` at its token.  Returns (largest gap, tokens checked,
+    tokens that were not the argmax, the largest logprob difference: 0.0
+    without ``logprobs``)."""
     dev = next(model.parameters()).device
-    worst, n, off = 0.0, 0, 0
-    for i, (s, (ids, pix)) in enumerate(zip(streams, prompts)):
+    worst, n, off, lp_worst = 0.0, 0, 0, 0.0
+    extras = extras or [{}] * len(streams)
+    for i, (s, (ids, pix), kw) in enumerate(zip(streams, prompts, extras)):
         seq = torch.tensor([list(ids) + list(s)], device=dev)
         pv = None if pix is None else torch.from_numpy(np.asarray(pix)[None]).to(dev, dtype)
         with torch.inference_mode():
-            logits = model(seq, pixel_values=pv, compute_dtype=dtype)["logits"][0].float()
+            logits = model(seq, pixel_values=pv, compute_dtype=dtype,
+                           positions=_tf_positions(model, ids, len(s)), **kw)["logits"][0].float()
         lg = logits[len(ids) - 1:]  # lg[j] predicts token j of the stream
+        if logprobs is not None:
+            tok = torch.tensor(s, dtype=torch.long, device=dev)
+            want = torch.log_softmax(lg[:len(s)], dim=-1)[torch.arange(len(s), device=dev), tok]
+            got = torch.tensor(logprobs[i], dtype=torch.float32, device=dev)
+            if got.shape != want.shape:
+                raise AssertionError(f"{label}: stream {i} has {len(s)} tokens and "
+                                     f"{got.numel()} logprobs")
+            d = float((got - want).abs().max()) if len(s) else 0.0
+            if d > LOGIT_TOL:
+                raise AssertionError(f"{label}: stream {i}'s logprobs lie {d:.4f} from the "
+                                     f"teacher-forced log_softmax (tol {LOGIT_TOL})")
+            lp_worst = max(lp_worst, d)
         top = lg.max(dim=-1).values
         gaps = top[:len(s)] - lg[torch.arange(len(s), device=dev),
                                   torch.tensor(s, dtype=torch.long, device=dev)]
@@ -2926,7 +2985,7 @@ def hold_streams(model, label, streams, prompts, max_new, ends, dtype=torch.bflo
             raise AssertionError(f"{label}: stream {i} token {j} of {len(s)} lies {gap:.4f} below "
                                  f"the teacher-forced argmax (tie margin {TIE_MARGIN})")
         worst, n, off = max(worst, gap), n + len(gaps), off + int((gaps > 0).sum())
-    return worst, n, off
+    return worst, n, off, lp_worst
 
 
 def _eval_run(label, argv, sync, tasks):
@@ -3027,7 +3086,7 @@ def run_eval_path(ft_dir, args=EVAL_CLI_ARGS, runs=EVAL_RUNS, sync=torch.cuda.sy
     # every token of every stream against a teacher-forced forward
     for label, rec in ((la, rec_a), (lb, rec_b), (ld, rec_d)):
         t0 = time.perf_counter()
-        gap, n, off = hold_streams(model, label, [s for t in rec.tasks for s in t["streams"]],
+        gap, n, off, _ = hold_streams(model, label, [s for t in rec.tasks for s in t["streams"]],
                                    [p for t in rec.tasks for p in t["prompts"]], rec.max_new,
                                    rec.ends)
         out[label]["teacher_forced"] = dict(tokens=n, not_argmax=off, max_gap=round(gap, 4))
@@ -3124,6 +3183,34 @@ def _check_launches(label, launches, want):
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
 
 
+def _cli_serve(argv):
+    """``cli.serve.main(argv)`` with its engine, its requests, wall s, peak
+    GiB, launches and forward counts kept: (rows, engine, requests, wall,
+    peak, launches, forward counts)."""
+    seen = {}
+    build, submit = serve.build_engine, ServingEngine.submit
+
+    def build_wrapper(*a, **kw):
+        out = build(*a, **kw)
+        seen["engine"] = out[0]
+        return out
+
+    def submit_wrapper(engine, *a, **kw):
+        req = submit(engine, *a, **kw)
+        seen.setdefault("reqs", []).append(req)
+        return req
+
+    serve.build_engine, ServingEngine.submit = build_wrapper, submit_wrapper
+    try:
+        with _ForwardCounts() as fc:
+            t0 = time.perf_counter()
+            results, peak, launches = _measured(lambda: serve.main(argv))
+            wall = time.perf_counter() - t0
+    finally:
+        serve.build_engine, ServingEngine.submit = build, submit
+    return results, seen["engine"], seen["reqs"], wall, peak, launches, fc
+
+
 def _qwen_serve(ckpt_dir, tmp, serve_base=()):
     """8d: cli/serve.py's ``main`` on configs/mm/serve.yaml as it ships with
     model_family=qwen-vl2-2b and ``model_path`` (the int8 W8A16 decoder,
@@ -3147,28 +3234,7 @@ def _qwen_serve(ckpt_dir, tmp, serve_base=()):
             f.write(json.dumps({"question": q, "image": path, "max_new_tokens": n}) + "\n")
     base = ["model_family=qwen-vl2-2b", f"model_path={ckpt_dir}", f"requests={req_file}",
             f"save_file={out_file}", *serve_base]
-    seen = {}
-    build, submit = serve.build_engine, ServingEngine.submit
-
-    def build_wrapper(*a, **kw):
-        out = build(*a, **kw)
-        seen["engine"] = out[0]
-        return out
-
-    def submit_wrapper(engine, *a, **kw):
-        req = submit(engine, *a, **kw)
-        seen.setdefault("reqs", []).append(req)
-        return req
-
-    serve.build_engine, ServingEngine.submit = build_wrapper, submit_wrapper
-    try:
-        with _ForwardCounts() as fc:
-            t0 = time.perf_counter()
-            results, peak, launches = _measured(lambda: serve.main(base))
-            wall = time.perf_counter() - t0
-    finally:
-        serve.build_engine, ServingEngine.submit = build, submit
-    engine, reqs = seen["engine"], seen["reqs"]
+    results, engine, reqs, wall, peak, launches, fc = _cli_serve(base)
     model, mcfg = engine.params, engine.model_cfg
     label = "8d serve.yaml as it ships (int8 W8A16, bf16 cache)"
     if not isinstance(model.language_model.layers.q_proj, quantize.QTensor):
@@ -3185,7 +3251,7 @@ def _qwen_serve(ckpt_dir, tmp, serve_base=()):
                 p[1] is not None and not np.array_equal(r.pixel_values, p[1]))
             for r, p in zip(reqs, prompts)):
         raise AssertionError(f"{label}: the CLI formed other prompts or patches than expected")
-    gap, n, off = hold_streams(model, label, [r.tokens for r in reqs], prompts, QWEN_NEW,
+    gap, n, off, _ = hold_streams(model, label, [r.tokens for r in reqs], prompts, QWEN_NEW,
                                (engine.eos, engine.pad_id), engine.compute_dtype)
     n_tok = sum(len(r.tokens) for r in reqs)
     print(f"{label}: main() {wall:.1f} s (load, quantize, serve); {len(reqs)} requests, {n_tok} "
@@ -3231,6 +3297,350 @@ def _qwen_serve(ckpt_dir, tmp, serve_base=()):
     return out, model
 
 
+QWEN_ADAPTERS = [None, "ft", "rnd", "rnd", "ft", None]  # request i's adapter (even i: an image)
+QWEN_8F_RUNS = ("8f_mixed", "8f_only_base", "8f_only_ft", "8f_only_rnd", "8f_int8_prefix",
+                "8f_int8_paged_prefix", "8f_int8_paged_spec_prefix", "8f_sampled",
+                "8f_sampled_reversed", "8f_generate")
+# "rnd"'s b: each product a ~ N(0, 1/in) gives ~N(0, 1) entries, so its
+# delta (scale 4, r 8) moves a projection's output by ~0.2 of its own spread
+RND_B_STD = 0.02
+SAMPLED = dict(temperature=0.7, top_k=50, top_p=0.9)
+SAMPLE_SEEDS = [1000 + i for i in range(6)]
+
+
+def _adapter_kw(adapters, name):
+    """A teacher-forced forward's arguments for adapter ``name`` (none for
+    the base model)."""
+    if name is None:
+        return {}
+    tree, scale = adapters[name]
+    return {"lora": tree, "lora_scale": scale}
+
+
+def hold_sampled(model, label, streams, prompts, seeds, max_new, ends, dtype=torch.bfloat16,
+                 **sample):
+    """Every token of every sampled stream against one teacher-forced
+    forward of ``model`` over the stream's prompt and the stream, with the
+    sampler's own noise: token j of the stream seeded s must be the argmax
+    of the scaled logits plus ``gumbel(fold_in(key(s), j))`` over the top-k /
+    top-p support, or within TIE_MARGIN of it, and so must the better of
+    ``ends`` where a stream shorter than ``max_new`` stopped.  bf16 noise
+    moves the support's edge too: a token whose scaled logit lies within
+    TIE_MARGIN of the lowest one kept counts as inside, and the argmax it is
+    held against is taken over the tokens that lie TIE_MARGIN or more above
+    that edge.  Returns (largest gap, tokens checked, tokens that were not
+    the perturbed argmax)."""
+    from multimodal_unlearning_tpu_torch.evaluation import sampling
+
+    dev = next(model.parameters()).device
+    worst, n_all, off = 0.0, 0, 0
+    for i, (s, (ids, pix), seed) in enumerate(zip(streams, prompts, seeds)):
+        seq = torch.tensor([list(ids) + list(s)], device=dev)
+        pv = None if pix is None else torch.from_numpy(np.asarray(pix)[None]).to(dev, dtype)
+        with torch.inference_mode():
+            logits = model(seq, pixel_values=pv, compute_dtype=dtype,
+                           positions=_tf_positions(model, ids, len(s)))["logits"][0].float()
+            n = len(s) + (len(s) < max_new)  # the stop's position too
+            lg = logits[len(ids) - 1:len(ids) - 1 + n]
+            key = sampling.row_keys(torch.full((1,), seed, device=dev))
+            keys = sampling.fold_in(key.expand(n, 2), torch.arange(n, device=dev))
+            scaled = sampling.process_logits(lg, sample["temperature"])
+            masked = sampling.process_logits(lg, **sample)
+            edge = torch.where(torch.isfinite(masked), scaled, float("inf")).amin(
+                dim=-1, keepdim=True)
+            z = scaled + sampling.gumbel(keys, lg.shape[-1])
+            top = torch.where(scaled >= torch.minimum(edge + TIE_MARGIN, scaled.amax(
+                dim=-1, keepdim=True)), z, float("-inf")).amax(dim=-1)
+            z = torch.where(scaled >= edge - TIE_MARGIN, z, float("-inf"))
+            tok = torch.tensor(s, dtype=torch.long, device=dev)
+            gaps = top[:len(s)] - z[torch.arange(len(s), device=dev), tok]
+            if len(s) < max_new:
+                end = [e for e in ends if e is not None and e >= 0]
+                gaps = torch.cat([gaps, (top[len(s)] - z[len(s), end].max())[None]])
+        j = int(torch.argmax(gaps))
+        gap = float(gaps[j])
+        if not gap <= TIE_MARGIN:
+            raise AssertionError(f"{label}: sampled stream {i} (seed {seed}) token {j} of "
+                                 f"{len(s)} lies {gap:.4f} below the perturbed teacher-forced "
+                                 f"argmax (tie margin {TIE_MARGIN})")
+        worst, n_all, off = max(worst, gap), n_all + n, off + int((gaps > 0).sum())
+    return worst, n_all, off
+
+
+def _diverged(a, b) -> int:
+    return sum(x != y for x, y in zip(a, b))
+
+
+STEP_COST_CHUNK = 4  # decode steps a profiled dispatch holds: the profiler's
+# processing of a 16-step chunk (~40,000 device kernels) took ~30 s a case
+
+
+def _step_costs(model, cfg, dirs, ids):
+    """Decode-step costs of one steady chunk with every slot live: the base
+    model greedy, one adapter live on every slot, two adapters live, and the
+    base model sampled.  Returns {case: (ms per step unprofiled, device
+    kernels per step, device ms per step)}; the bank's and the sampler's
+    shares are the differences from the base case."""
+    out = {}
+    for key, extra, names in (
+            ("base", dict(adapters=None), [None]),
+            ("one_adapter", dict(adapters=dirs), ["ft"]),
+            ("two_adapters", dict(adapters=dirs), ["ft", "rnd"]),
+            ("sampled", dict(adapters=None, **SAMPLED), [None])):
+        engine, *_ = serve.build_engine(Config(dict(cfg, logprobs=False, chunk=STEP_COST_CHUNK,
+                                                    **extra)), model=model)
+        budget = 1 + 6 * engine.chunk
+        reqs = [engine.submit(ids, budget, adapter=names[b % len(names)])
+                for b in range(engine.B)]
+        engine.step()  # prefills every slot and dispatches the first chunk
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(4):
+            engine.step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / (4 * engine.chunk)
+        _, dev_ms, n_kernels, _ = profiled(engine.step)
+        engine.run()
+        if not all(r.done and (len(r.tokens) == budget or r.finish_reason == "eos")
+                   for r in reqs):
+            raise AssertionError(f"8f step costs ({key}): a request ended early")
+        out[key] = (round(step_ms, 3), n_kernels / engine.chunk, round(dev_ms / engine.chunk, 4))
+        engine._state = None
+    base = out["base"]
+    print(f"8f decode step costs, {len(ids)}-token prompts, all slots live (ms unprofiled, "
+          f"device kernels, device ms per step): {out}; the bank adds "
+          f"{out['one_adapter'][1] - base[1]:.1f} (one adapter) / "
+          f"{out['two_adapters'][1] - base[1]:.1f} (two) kernels and "
+          f"{out['two_adapters'][2] - base[2]:.4f} device ms a step; the sampler adds "
+          f"{out['sampled'][1] - base[1]:.1f} kernels and {out['sampled'][2] - base[2]:.4f} "
+          f"device ms a step", flush=True)
+    return out
+
+
+def _qwen_adapters(fg_dir, ft_dir, model, tmp, serve_base=()):
+    """8f: the rest of configs/mm/serve.yaml on Qwen2-VL-2B.  8b's checkpoint
+    quantized through ``cli.quantize_model.main``; adapters "ft" (8a's,
+    saved as trained) and "rnd" (decoder and merger, r 8, alpha 32, random
+    ``b``); ``cli.serve.main`` on the quantized checkpoint with both and
+    ``logprobs=true``, six requests (three with the image) on the base, "ft"
+    and "rnd": (a) each stream equals, up to a first near-tie, its stream from
+    an engine that holds only its adapter, and each adapter changes some
+    stream; (b) every token is held against a teacher-forced forward with its
+    adapter, and every logprob within LOGIT_TOL of that forward's
+    log_softmax; (c) the same mix on an int8 cache with a system prompt
+    registered per adapter, dense (B4q, B5q), paged (B6q, B7q) and paged with
+    K 4 (B7q), held the same way; (d) sampled (temperature 0.7, top-k 50,
+    top-p 0.9, the bf16 cache) in two submission orders and through
+    ``greedy_generate(do_sample=True)``, every token held against the
+    sampler's own noise on teacher-forced logits.  Then the decode step's
+    cost with 0, 1 and 2 adapters live and sampled.  ``model``: 8d's int8
+    model, for the adapters' shapes.  Returns each run's launches and, under
+    "8f_numbers", what it printed."""
+    from multimodal_unlearning_tpu_torch.cli import quantize_model
+    from multimodal_unlearning_tpu_torch.evaluation.generate import greedy_generate, pad_prompts
+    from multimodal_unlearning_tpu_torch.models import lora as tlora
+    from multimodal_unlearning_tpu_torch.train.checkpoints import load_adapter, save_adapter
+    from multimodal_unlearning_tpu_torch.utils.pytree import tree_map_with_path
+
+    t_start = time.perf_counter()
+    out, numbers, laps = {}, {}, {}
+
+    def lap(name):  # seconds since the last lap
+        laps[name] = round(time.perf_counter() - t_start - sum(laps.values()), 1)
+
+    dev = next(model.parameters()).device
+    q_dir = os.path.join(tmp, "int8")
+    # configs/quantize.yaml has no device key: the serve overrides' device
+    # is added (+device=), the others set
+    sizes = quantize_model.main(["model_family=qwen-vl2-2b", f"model_path={fg_dir}",
+                                 f"save_dir={q_dir}", "bits=int8",
+                                 *(("+" if a.startswith("device=") else "") + a
+                                   for a in serve_base)])
+    lap("quantize")
+    numbers["quantized_gib"] = round(sizes["quant_bytes"] / 2**30, 3)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rnd = tlora.init_model_lora(model, 8, gen)
+    rnd = tree_map_with_path(lambda p, x: (torch.randn(x.shape, generator=gen, device=dev)
+                                           * RND_B_STD if p[-1] == "b" else x).detach(), rnd)
+    dirs = {"ft": ft_dir, "rnd": os.path.join(tmp, "adapter_rnd")}
+    save_adapter(dirs["rnd"], rnd, 32 / 8)
+    del rnd
+    adapters = {n: load_adapter(d, device=dev) for n, d in dirs.items()}
+
+    model_cfg = serve.get_model_identifiers("qwen-vl2-2b")
+    processor = common.build_processor(model_cfg)
+    specs = _qwen_requests(processor, 6, 8)
+    req_file, out_file = os.path.join(tmp, "requests_8f.jsonl"), os.path.join(tmp, "out_8f.jsonl")
+    with open(req_file, "w") as f:
+        for i, ((_, n, _, img, q), name) in enumerate(zip(specs, QWEN_ADAPTERS)):
+            path = None
+            if img is not None:
+                from PIL import Image
+
+                path = os.path.join(tmp, f"image8f_{i}.png")
+                Image.fromarray(img).save(path)
+            f.write(json.dumps({"question": q, "image": path, "max_new_tokens": n,
+                                "adapter": name}) + "\n")
+    base = ["model_family=qwen-vl2-2b", f"model_path={q_dir}", f"requests={req_file}",
+            f"save_file={out_file}", "logprobs=true",
+            f"adapters={{ft: {dirs['ft']}, rnd: {dirs['rnd']}}}", *serve_base]
+    rows, engine, reqs, wall, peak, launches, fc = _cli_serve(base)
+    label = "8f mixed adapters (serve CLI on the quantized checkpoint, logprobs)"
+    model, mcfg, dtype = engine.params, engine.model_cfg, engine.compute_dtype
+    ends = (engine.eos, engine.pad_id)
+    if not isinstance(model.language_model.layers.q_proj, quantize.QTensor):
+        raise AssertionError(f"{label}: the checkpoint did not load as int8")
+    _check_launches(label, launches, fc.expected(mcfg, "flash_decode"))
+    for r, row, name in zip(reqs, rows, QWEN_ADAPTERS):
+        if not r.done or not (len(r.tokens) == QWEN_NEW or r.finish_reason == "eos") or len(
+                row["logprobs"]) != len(r.tokens) or r.lora_id != engine._adapter_ids[name]:
+            raise AssertionError(f"{label}: request {r.uid} ({name}) ended with "
+                                 f"{len(r.tokens)} tokens, {len(row['logprobs'])} logprobs")
+    prompts = [(ids, pix) for ids, _, pix, *_ in specs]
+    extras = [_adapter_kw(adapters, n) for n in QWEN_ADAPTERS]
+    streams = [r.tokens for r in reqs]
+    gap, n, off, lp_gap = hold_streams(model, label, streams, prompts, QWEN_NEW, ends, dtype,
+                                       extras=extras, logprobs=[r.logprobs for r in reqs])
+    _report(label, engine, reqs, wall, launches, peak)
+    print(f"{label}: streams vs teacher-forced forwards with their adapters: {n} tokens, {off} "
+          f"not the argmax, largest gap {gap:.4f}; logprobs vs its log_softmax: largest "
+          f"difference {lp_gap:.4f} (tol {LOGIT_TOL})", flush=True)
+    numbers["mixed"] = dict(wall_s=round(wall, 2), max_gap=round(gap, 4),
+                            max_logprob_diff=round(lp_gap, 4))
+    out["8f_mixed"] = launches
+    lap("mixed")
+    cfg = serve.load_config(base)
+    engine._state = None
+    del engine
+
+    # (a) engines that hold one adapter each, all six requests on it
+    jobs = [(ids, n, pix, None, None) for ids, n, pix, *_ in specs]
+    ref = {}
+    for name in (None, "ft", "rnd"):
+        eng, *_ = serve.build_engine(Config(dict(
+            cfg, logprobs=False, adapters=None if name is None else {name: dirs[name]})),
+            model=model)
+        with _ForwardCounts() as fc:
+            r_n, wall_n, launches_n, peak_n = _serve(eng, jobs, extra=[{"adapter": name}] * 6)
+        key = f"8f_only_{name or 'base'}"
+        _check_launches(key, launches_n, fc.expected(mcfg, "flash_decode"))
+        ref[name] = [r.tokens for r in r_n]
+        out[key] = launches_n
+        eng._state = None
+        del eng
+    ties = first_difference(model, "8f (a)", streams,
+                            [ref[name][i] for i, name in enumerate(QWEN_ADAPTERS)], prompts,
+                            dtype, extras=extras)
+    changed = {name: _diverged(ref[name], ref[None]) for name in ("ft", "rnd")}
+    if not all(changed.values()):
+        raise AssertionError(f"8f (a): an adapter changed no stream of the six: {changed}")
+    print(f"8f (a) mixed vs single-adapter engines: streams agree up to first differences at "
+          f"near-ties {ties}; streams each adapter changes (of 6, vs the base engine) "
+          f"{changed}", flush=True)
+    numbers["a"] = dict(near_ties=ties, changed=changed)
+    lap("single_adapter_engines")
+
+    # (c) an int8 cache and a system prompt registered per adapter
+    system = processor.tokenizer.encode(SYSTEM_PROMPT, add_special_tokens=True)
+    full = [(ids if pix is not None else list(system) + list(ids), pix) for ids, pix in prompts]
+    for key, extra, dkern, ckern in (
+            ("8f_int8_prefix", {}, "flash_decode_q8", "chunk_decode_q8"),
+            ("8f_int8_paged_prefix", {"page_size": 128}, "paged_decode_q8", "paged_chunk_q8"),
+            ("8f_int8_paged_spec_prefix", {"page_size": 128, "speculative_k": 4},
+             "paged_decode_q8", "paged_chunk_q8")):
+        eng, *_ = serve.build_engine(Config(dict(cfg, kv_cache_dtype="int8", **extra)),
+                                     model=model)
+        with _ForwardCounts() as fc:
+            kernels.reset_launch_counts()
+            pre = {name: eng.register_prefix(system, adapter=name) for name in (None, "ft", "rnd")}
+            r_c, wall_c, launches_c, peak_c = _serve(
+                eng, [(ids, n, pix, None, None if pix is not None else pre[name])
+                      for (ids, n, pix, *_), name in zip(jobs, QWEN_ADAPTERS)],
+                counted=False, extra=[{"adapter": name} for name in QWEN_ADAPTERS])
+        _check_launches(key, launches_c, fc.expected(mcfg, dkern, ckern))
+        want = [ckern] if eng.K else [dkern, ckern]
+        if not all(launches_c[k] for k in want):
+            raise AssertionError(f"{key}: {want} did not all launch: {launches_c}")
+        g_c, n_c, off_c, lp_c = hold_streams(model, key, [r.tokens for r in r_c], full, QWEN_NEW,
+                                             ends, dtype, extras=extras,
+                                             logprobs=[r.logprobs for r in r_c])
+        _report(key, eng, r_c, wall_c, launches_c, peak_c)
+        print(f"{key}: streams vs teacher-forced forwards over system prompt + question with "
+              f"their adapters: {n_c} tokens, {off_c} not the argmax, largest gap {g_c:.4f}; "
+              f"logprobs largest difference {lp_c:.4f}; streams differing from the mixed "
+              f"run's {_diverged([r.tokens for r in r_c], streams)} of 6", flush=True)
+        numbers[key] = dict(max_gap=round(g_c, 4), max_logprob_diff=round(lp_c, 4),
+                            tokens_per_round=round(eng.stats()["tokens_per_round"], 3))
+        out[key] = launches_c
+        eng._state = None
+        del eng
+        torch.cuda.empty_cache()
+        lap(key[3:])
+
+    # (d) sampled, bf16 cache, base model: two submission orders, then
+    # greedy_generate(do_sample=True) on the same prompts and seeds
+    sampled = {}
+    cfg_s = Config(dict(cfg, logprobs=False, adapters=None, **SAMPLED))
+    for key, order in (("8f_sampled", list(range(6))), ("8f_sampled_reversed",
+                                                        list(range(5, -1, -1)))):
+        eng, *_ = serve.build_engine(cfg_s, model=model)
+        with _ForwardCounts() as fc:
+            r_s, wall_s, launches_s, _ = _serve(eng, [jobs[i] for i in order],
+                                                extra=[{"sample_seed": SAMPLE_SEEDS[i]}
+                                                       for i in order])
+        _check_launches(key, launches_s, fc.expected(mcfg, "flash_decode"))
+        got = [None] * 6
+        for r, i in zip(r_s, order):
+            got[i] = r.tokens
+        sampled[key] = got
+        out[key] = launches_s
+        eng._state = None
+        del eng
+    pad = processor.tokenizer.pad_token_id
+    ids_b, mask_b = pad_prompts([list(ids) for ids, _ in prompts], pad)
+    pix0 = next(pix for _, pix in prompts if pix is not None)
+    pix_b = np.stack([pix0 * 0 if pix is None else pix for _, pix in prompts])
+    with torch.inference_mode():
+        (toks, stats), peak_g, launches_g = _measured(lambda: greedy_generate(
+            model, mcfg, ids_b, mask_b, max_new_tokens=QWEN_NEW, pad_token_id=pad,
+            eos_token_id=processor.tokenizer.eos_token_id, pixel_values=pix_b, is_vlm=True,
+            cache_dtype=dtype, compute_dtype=dtype, do_sample=True, sample_seeds=SAMPLE_SEEDS,
+            return_stats=True, **SAMPLED))
+    L = mcfg.decoder.num_layers
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    want["flash_fwd"] = L + vision_launches(mcfg.vision)
+    want["flash_decode"] = stats["forwards"] * L
+    _check_launches("8f_generate", launches_g, want)
+    out["8f_generate"] = launches_g
+    gen_streams = []
+    for row in toks.tolist():
+        cut = next((t for t, x in enumerate(row) if x == pad), len(row))
+        gen_streams.append(row[:cut])
+    sampled["8f_generate"] = gen_streams
+    held = {}
+    for key, st in sampled.items():
+        held[key] = hold_sampled(model, key, st, prompts, SAMPLE_SEEDS, QWEN_NEW,
+                                 (processor.tokenizer.eos_token_id, pad), dtype,
+                                 **SAMPLED)
+    div = {"reversed": _diverged(sampled["8f_sampled"], sampled["8f_sampled_reversed"]),
+           "generate": _diverged(sampled["8f_sampled"], sampled["8f_generate"])}
+    print(f"8f (d) sampled {SAMPLED}: every token vs the perturbed teacher-forced argmax "
+          f"(largest gap, tokens, not the argmax) {held}; streams diverging from the first "
+          f"order's (of 6): {div}", flush=True)
+    numbers["d"] = dict(held={k: (round(v[0], 4), v[1], v[2]) for k, v in held.items()},
+                        diverged=div)
+    lap("sampled")
+
+    text_ids = prompts[1][0]
+    numbers["step_costs"] = _step_costs(model, cfg, dirs, text_ids)
+    lap("step_costs")
+    numbers["seconds"] = round(time.perf_counter() - t_start, 1)
+    numbers["laps"] = laps
+    print(f"8f: {numbers['seconds']} s in all ({laps})", flush=True)
+    out["8f_numbers"] = numbers
+    return out
+
+
 def _qwen25_serve(serve_base=()):
     """8e: Qwen2.5-VL-3B (the windowed tower; 16 q-heads on 2 kv-heads)
     from its seed in bf16 through build_engine: prefill logits of the
@@ -3255,7 +3665,7 @@ def _qwen25_serve(serve_base=()):
     if max(d) > LOGIT_TOL or not all(torch.isfinite(logits[r.uid]).all() for r in reqs):
         raise AssertionError(f"{label}: prefill logits vs plain attention {d} (tol {LOGIT_TOL})")
     prompts = [(ids, pix) for ids, _, pix, *_ in specs]
-    gap, n, off = hold_streams(model, label, [r.tokens for r in reqs], prompts, QWEN_NEW,
+    gap, n, off, _ = hold_streams(model, label, [r.tokens for r in reqs], prompts, QWEN_NEW,
                                (engine.eos, engine.pad_id), engine.compute_dtype)
     print(f"{label}: prefill logits vs plain attention max|diff| {[round(x, 4) for x in d]} "
           f"(tol {LOGIT_TOL}); streams vs teacher-forced forwards: {n} tokens, {off} not the "
@@ -3270,15 +3680,18 @@ def _qwen25_serve(serve_base=()):
 def run_qwen_path(sync=torch.cuda.synchronize, finetune_args=QWEN_FINETUNE_ARGS,
                   forget_args=QWEN_FORGET_ARGS, eval_args=QWEN_EVAL_ARGS, serve_base=()):
     """8a finetune, 8b forget, 8c evaluate, 8d serve Qwen2-VL-2B through
-    the CLIs; 8e serve Qwen2.5-VL-3B.  Returns each sub-phase's launches
-    (and 8c's numbers under "8c_numbers")."""
+    the CLIs, 8f quantize and serve it with adapters, logprobs and
+    sampling; 8e serve Qwen2.5-VL-3B.  Returns each sub-phase's launches
+    (and 8c's and 8f's numbers under "8c_numbers" and "8f_numbers")."""
     import shutil
     import tempfile
 
     from multimodal_unlearning_tpu_torch.cli import mm_calculate_metrics, mm_finetune, mm_forget
+    from multimodal_unlearning_tpu_torch.train.checkpoints import save_adapter
 
     tmp = tempfile.mkdtemp(prefix="qwen_")
     ft_dir, fg_dir = os.path.join(tmp, "finetune"), os.path.join(tmp, "forget")
+    ft_adapter = os.path.join(tmp, "adapter_ft")
     out = {}
     try:
         # 8a: finetune.yaml as it ships, LoRA r 8 (the merger's adapters too)
@@ -3295,6 +3708,8 @@ def run_qwen_path(sync=torch.cuda.synchronize, finetune_args=QWEN_FINETUNE_ARGS,
         adapters = rec.loop["state"].trainable
         if set(adapters["projector"]) != {"fc1", "fc2"}:
             raise AssertionError("8a: no adapters on the merger")
+        # 8f serves them as adapter "ft", as trained (alpha / r = 4)
+        save_adapter(ft_adapter, adapters, rec.apply_kw[1]["lora_cfg"])
         _check_launches("8a finetune", launches, _expected_launches(
             "retain_ft", {}, mcfg.decoder, mcfg.vision, steps=len(rec.steps) * accum))
         print(f"8a finetune: main() {wall:.1f} s (init, steps, merge, save of "
@@ -3340,7 +3755,7 @@ def run_qwen_path(sync=torch.cuda.synchronize, finetune_args=QWEN_FINETUNE_ARGS,
         nums = [v for k, v in res.items() if k not in ("method", "submitted_by")]
         if not np.isfinite(nums).all():
             raise AssertionError(f"8c metrics: {res}")
-        gap, n, off = hold_streams(rec.model, "8c eval",
+        gap, n, off, _ = hold_streams(rec.model, "8c eval",
                                    [s for t in rec.tasks for s in t["streams"]],
                                    [p for t in rec.tasks for p in t["prompts"]], rec.max_new,
                                    rec.ends, next(rec.model.parameters()).dtype)
@@ -3357,6 +3772,8 @@ def run_qwen_path(sync=torch.cuda.synchronize, finetune_args=QWEN_FINETUNE_ARGS,
         # 8d: serving what 8b saved
         served, model = _qwen_serve(fg_dir, tmp, serve_base)
         out.update({f"8{k}": v for k, v in served.items()})
+        # 8f: 8b's checkpoint quantized, served with adapters, logprobs, sampling
+        out.update(_qwen_adapters(fg_dir, ft_adapter, model, tmp, serve_base))
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -3470,6 +3887,7 @@ def main() -> int:
     # Qwen2-VL: the shipped mm configs' family, then Qwen2.5-VL-3B
     qwen = run_qwen_path()
     qwen_eval = qwen.pop("8c_numbers")
+    qwen_serving = qwen.pop("8f_numbers")
 
     def q_row(name, *subphases):
         """A kernel's Qwen2-VL numbers: phase 2's at phase 8's shapes, its
@@ -3498,7 +3916,7 @@ def main() -> int:
                             "7d": ev_d["launches"]["flash_fwd"]},
              # Qwen2-VL (phase 8): head dim 80 in the towers, group 6 in the decoder
              qwen2vl=q_row("flash_fwd", "8a", "8b", "8c", "8d_shipped", "8d_int8_cache",
-                           "8d_int8_paged", "8d_int8_paged_spec", "8e")),
+                           "8d_int8_paged", "8d_int8_paged_spec", "8e", *QWEN_8F_RUNS)),
         dict(name="flash_bwd_dq (B2)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_bwd_dq.cu",
              replaces="multimodal_unlearning_tpu/ops/attention.py:219",
@@ -3519,12 +3937,14 @@ def main() -> int:
              launches=launches["flash_decode"], max_abs_err=b4_err, **b4,
              reload_launches=reload_launches["flash_decode"],
              eval_launches={"7a": ev_a["launches"]["flash_decode"]},
-             qwen2vl=q_row("flash_decode", "8c", "8d_shipped", "8e")),
+             qwen2vl=q_row("flash_decode", "8c", "8d_shipped", "8e", "8f_mixed",
+                           "8f_only_base", "8f_only_ft", "8f_only_rnd", "8f_sampled",
+                           "8f_sampled_reversed", "8f_generate")),
         dict(name="flash_decode_q8 (B4q)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/decode_attention.py:71",
              launches=q8_launches["flash_decode_q8"], max_abs_err=b4q_err, **b4q,
-             qwen2vl=q_row("flash_decode_q8", "8d_int8_cache")),
+             qwen2vl=q_row("flash_decode_q8", "8d_int8_cache", "8f_int8_prefix")),
         dict(name="chunk_decode (B5)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/chunk_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/decode_attention.py:242",
@@ -3543,7 +3963,7 @@ def main() -> int:
              **b5["chunk_decode_q8"]["verify"],
              prefill_chunk=b5["chunk_decode_q8"]["prefill_chunk"],
              gqa=b5["chunk_decode_q8"]["gqa"], eval_verify=b5["chunk_decode_q8"]["eval_verify"],
-             qwen2vl=q_row("chunk_decode_q8")),
+             qwen2vl=q_row("chunk_decode_q8", "8f_int8_prefix")),
         dict(name="paged_decode (B6)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/paged_attention.py:105",
@@ -3555,7 +3975,7 @@ def main() -> int:
              replaces="multimodal_unlearning_tpu/ops/paged_attention.py:148",
              launches=paged8_launches["paged_decode_q8"], max_abs_err=b6_err["paged_decode_q8"],
              **b6["paged_decode_q8"][128], page16=b6["paged_decode_q8"][16],
-             qwen2vl=q_row("paged_decode_q8", "8d_int8_paged")),
+             qwen2vl=q_row("paged_decode_q8", "8d_int8_paged", "8f_int8_paged_prefix")),
         dict(name="paged_chunk (B7)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/chunk_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/paged_attention.py:341",
@@ -3571,7 +3991,8 @@ def main() -> int:
              **b7["paged_chunk_q8"]["verify"],
              **{k: b7["paged_chunk_q8"][k] for k in ("prefill_chunk", "gqa", "straddle",
                                                       "verify_p16")},
-             qwen2vl=q_row("paged_chunk_q8", "8d_int8_paged_spec")),
+             qwen2vl=q_row("paged_chunk_q8", "8d_int8_paged_spec", "8f_int8_paged_prefix",
+                           "8f_int8_paged_spec_prefix")),
         dict(name="int4_matmul (B8)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/int4_matmul.cu",
              replaces="multimodal_unlearning_tpu/ops/int4_matmul.py:45",
@@ -3584,7 +4005,7 @@ def main() -> int:
              cases={k: v for k, v in b8_rec.items()
                     if k not in ("gate_up_m8", "decode_step_ms", "host_us_m8")}),
     ]
-    print(json.dumps({"eval": evals, "qwen_eval": qwen_eval}))
+    print(json.dumps({"eval": evals, "qwen_eval": qwen_eval, "qwen_serving": qwen_serving}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,8 @@ Drains a JSONL request file through the continuous-batching engine
 ``multimodal_unlearning_tpu/cli/serve.py``.  Request lines:
 {"question": str, "image": optional path or null, "max_new_tokens":
 optional int, "stop": optional string or list of strings, "draft":
-optional expected-answer text seeding the speculative lookup}.
+optional expected-answer text seeding the speculative lookup, "adapter":
+optional name of one of ``adapters``, "sample_seed": optional int}.
 
   python -m multimodal_unlearning_tpu_torch.cli.serve \\
       model_family=llava requests=reqs.jsonl save_file=out.jsonl
@@ -21,7 +22,14 @@ and ``quantize_base=false`` bf16 weights.  ``kv_cache_dtype=int8`` quantizes
 the KV cache, ``speculative_k=4`` verifies prompt-lookup drafts,
 ``prefill_chunk=512`` prefills long prompts in chunks and
 ``system_prompt=...`` prefills a shared prefix once (text requests prefill
-only their own suffix against it).
+only their own suffix against it).  ``temperature=0.7 top_k=50 top_p=0.9``
+samples (a request's stream from its ``sample_seed``, by default its
+position in the file counted from 1); ``logprobs=true`` writes each
+completion's per-token logprobs (``"logprobs"``, rounded to 6 places);
+``'adapters={ft: dir1, npo: dir2}'`` serves LoRA adapters saved by
+``train/checkpoints.save_adapter`` (the forget and finetune CLIs'
+``adapter`` directories) from one engine, each request on the adapter it
+names (none: the base model).
 ``page_size=128`` pages the KV cache (``kv_pool_pages=N`` caps the pool;
 0 keeps the dense layout's capacity): the summary line then reports the
 pool's peak pages and preemptions.
@@ -55,6 +63,7 @@ from multimodal_unlearning_tpu_torch.config import (
 from multimodal_unlearning_tpu_torch.device import resolve_device
 from multimodal_unlearning_tpu_torch.models import VLM_KINDS
 from multimodal_unlearning_tpu_torch.serve import ServingEngine
+from multimodal_unlearning_tpu_torch.train.checkpoints import load_adapter
 from multimodal_unlearning_tpu_torch.utils.quantize import tree_nbytes
 
 
@@ -91,6 +100,12 @@ def build_engine(cfg: dict, *, model=None, **engine_kw):
         model = quantize_base_params(model, kind, cfg["quantize_base"])
     cache_dtype = torch.int8 if str(cfg.get("kv_cache_dtype") or "") == "int8" else dtype
     tok = processor.tokenizer
+    # multi-LoRA: {name: dir-with-adapter.safetensors} -> one engine serves
+    # every sweep variant; requests pick theirs via an "adapter" field
+    adapters = None
+    if cfg.get("adapters"):
+        adapters = {name: load_adapter(path, device=device)
+                    for name, path in dict(cfg["adapters"]).items()}
     engine = ServingEngine(
         model, mcfg, kind,
         num_slots=int(cfg.get("num_slots", 8)),
@@ -104,7 +119,7 @@ def build_engine(cfg: dict, *, model=None, **engine_kw):
         temperature=float(cfg.get("temperature") or 0.0),
         top_k=int(cfg.get("top_k") or 0),
         top_p=float(cfg.get("top_p") or 1.0),
-        adapters=cfg.get("adapters"),
+        adapters=adapters,
         prefill_chunk=int(cfg.get("prefill_chunk") or 0),
         page_size=int(cfg.get("page_size") or 0),
         kv_pool_pages=int(cfg.get("kv_pool_pages") or 0) or None,
@@ -154,7 +169,9 @@ def run(cfg: dict):
             dref = tok.encode(r["draft"]) if r.get("draft") else None
             reqs.append(engine.submit(ids, int(r.get("max_new_tokens", default_new)),
                                       pixel_values=pix, draft_ref=dref,
-                                      prefix=None if has_image else prefix_id))
+                                      sample_seed=r.get("sample_seed"),
+                                      prefix=None if has_image else prefix_id,
+                                      adapter=r.get("adapter")))
             texts.append(r["question"])
 
     t0 = time.perf_counter()
@@ -181,6 +198,8 @@ def run(cfg: dict):
             if late:
                 completion = completion[: min(late)]
             row = {"question": question, "completion": completion, "tokens": len(req.tokens)}
+            if engine.want_lp:
+                row["logprobs"] = [round(x, 6) for x in req.logprobs]
             results.append(row)
             f.write(json.dumps(row) + "\n")
     n_tok = sum(len(r.tokens) for r in reqs)

@@ -4,14 +4,16 @@ Stands up a local OpenAI-completions-shaped endpoint over the
 continuous-batching engine (serve/http.py), like
 ``multimodal_unlearning_tpu/cli/serve_http.py``: text requests POST
 /v1/completions and are admitted into decode slots as they arrive, with the
-engine's options (speculation, the prefix cache, the paged KV cache, the
-int8 cache) applied unchanged.  Standard library only.
+engine's options (multi-LoRA ``adapters``, sampling, ``logprobs``,
+speculation, the prefix cache, the paged KV cache, the int8 cache) applied
+unchanged.  Standard library only.
 
   python -m multimodal_unlearning_tpu_torch.cli.serve_http \\
-      model_family=llava page_size=128 host=127.0.0.1 port=8000
+      model_family=llava page_size=128 'adapters={npo: out/npo/adapter}' \\
+      host=127.0.0.1 port=8000
 
   curl -s localhost:8000/v1/completions -d \\
-      '{"prompt": "Who is Aurelia Kim?", "max_tokens": 64}'
+      '{"prompt": "Who is Aurelia Kim?", "max_tokens": 64, "adapter": "npo"}'
 
 Overrides are those of ``cli/serve.py`` (the defaults of
 ``configs/mm/serve.yaml``), ``host`` and ``port`` included; the card is the

@@ -1,3 +1,4 @@
-from multimodal_unlearning_tpu_torch.evaluation import evaluator, generate, metrics, rouge
+from multimodal_unlearning_tpu_torch.evaluation import (
+    evaluator, generate, metrics, rouge, sampling)
 
-__all__ = ["evaluator", "generate", "metrics", "rouge"]
+__all__ = ["evaluator", "generate", "metrics", "rouge", "sampling"]

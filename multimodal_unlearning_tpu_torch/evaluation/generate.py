@@ -1,4 +1,4 @@
-"""Greedy batched generation with a KV cache, in PyTorch.
+"""Batched generation with a KV cache, greedy or sampled, in PyTorch.
 
 Counterpart of ``multimodal_unlearning_tpu/evaluation/generate.py``
 (``pad_prompts``, ``greedy_generate``): the evaluator's per-batch
@@ -27,8 +27,15 @@ wait for (on the card), so the loop never stalls the device queue; the
 steps run after the last row finished emit only pad, so the tokens are the
 ones the JAX loop returns.  ``eos_token_id=None`` runs the whole budget.
 
+- Sampled route (``do_sample``): the plain route with each token drawn by
+  ``evaluation/sampling.py`` (temperature / top-k / top-p) instead of the
+  argmax: row b's token i under the key ``fold_in(fold_in(key0,
+  sample_seeds[b]), i)`` (the first token i = 0, step t's i = t + 1), the
+  JAX package's stream bit for bit, and the stream the serving engine
+  gives the same request and seed.
+
 The JAX function's ``aot_layouts`` (an XLA parameter-layout cache) has no
-meaning in eager PyTorch and is ignored; ``mesh`` and ``do_sample`` raise.
+meaning in eager PyTorch and is ignored; ``mesh`` raises.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from multimodal_unlearning_tpu_torch.evaluation import sampling
 from multimodal_unlearning_tpu_torch.models import decoder_module
 from multimodal_unlearning_tpu_torch.speculative import accept_round, propose_drafts
 
@@ -106,7 +114,7 @@ def _prefill(model, is_vlm, input_ids, attention_mask, pixel_values, cache, kv_v
 
 
 def _generate(model, is_vlm, input_ids, attention_mask, pixel_values, *, cache, smax,
-              max_new_tokens, pad_token_id, eos, attn_impl, compute_dtype):
+              max_new_tokens, pad_token_id, eos, attn_impl, compute_dtype, sample=None):
     B, S = input_ids.shape
     dev = input_ids.device
     kv_valid = torch.zeros((B, smax), dtype=torch.int32, device=dev)
@@ -114,7 +122,17 @@ def _generate(model, is_vlm, input_ids, attention_mask, pixel_values, *, cache, 
     last, delta = _prefill(model, is_vlm, input_ids, attention_mask, pixel_values, cache,
                            kv_valid, attn_impl, compute_dtype)
     prompt_len = attention_mask.sum(dim=-1).long() + delta
-    token = torch.argmax(last, dim=-1)
+    if sample is None:
+        def pick(logits, _):
+            return torch.argmax(logits, dim=-1)
+    else:  # token i of row b: the key of (sample_seeds[b], i)
+        keys = sampling.row_keys(sample["seeds"], device=dev)
+
+        def pick(logits, i):
+            return sampling.sample_token(keys, torch.full((B,), i, device=dev), logits,
+                                         sample["temperature"], sample["top_k"],
+                                         sample["top_p"])
+    token = pick(last, 0)
     finished = (token == eos) if eos >= 0 else torch.zeros((B,), dtype=torch.bool, device=dev)
     out = torch.full((B, max_new_tokens), pad_token_id, dtype=torch.long, device=dev)
     out[:, 0] = torch.where(finished, pad_token_id, token)
@@ -130,7 +148,7 @@ def _generate(model, is_vlm, input_ids, attention_mask, pixel_values, *, cache, 
         logits = model(token[:, None], attention_mask=ones, positions=(prompt_len + t)[:, None],
                        kv_cache=cache, cache_offset=S + t, kv_valid_mask=kv_valid[:, :extent],
                        attn_impl=attn_impl, compute_dtype=compute_dtype)["logits"]
-        token = torch.argmax(logits[:, -1, :], dim=-1)
+        token = pick(logits[:, -1, :], t + 1)
         if eos >= 0:
             finished = finished | (token == eos)
         out[:, t + 1] = torch.where(finished, pad_token_id, token)
@@ -223,15 +241,16 @@ def greedy_generate(
     left-padded prompts, numpy or torch.  ``cache_dtype=torch.int8``: the
     int8 KV cache (B4q / B5q).  ``speculate_k`` > 0: the speculative route,
     with ``draft_ref`` [B, R] optional reference rows (-2 padded) seeding
-    the lookup corpus.  ``return_stats``: also return {"forwards": decode
-    forwards (verify rounds) run}.  ``aot_layouts`` is accepted and ignored
-    (an XLA layout cache in the JAX package); ``mesh`` and ``do_sample``
-    raise."""
-    del aot_layouts, temperature, top_k, top_p, sample_seeds
-    if do_sample:
-        raise NotImplementedError(
-            "do_sample: sampling (evaluation/sampling.py, temperature / top_k / top_p) is not "
-            "ported yet; greedy decoding only")
+    the lookup corpus.  ``do_sample``: sampled decoding (``temperature``,
+    ``top_k``, ``top_p``), row b seeded ``sample_seeds[b]`` (default
+    ``arange(B)``); speculation verifies against the argmax, so the two
+    together raise ValueError.  ``return_stats``: also return {"forwards":
+    decode forwards (verify rounds) run}.  ``aot_layouts`` is accepted and
+    ignored (an XLA layout cache in the JAX package); ``mesh`` raises."""
+    del aot_layouts
+    if do_sample and speculate_k:
+        raise ValueError("speculate_k verifies against greedy argmax; combine it with "
+                         "do_sample=False")
     if mesh is not None:
         raise NotImplementedError("mesh: tensor-parallel generation needs multi-GPU, which is "
                                   "not ported yet")
@@ -257,6 +276,11 @@ def greedy_generate(
                 params, is_vlm, input_ids, attention_mask, pixel_values, ref.to(dev, torch.long),
                 k_spec=int(speculate_k), vocab=dec_cfg.vocab_size, **kw)
         else:
+            sample = None
+            if do_sample:
+                seeds = torch.arange(B) if sample_seeds is None else _tensor(sample_seeds)
+                sample = dict(seeds=seeds.to(dev, torch.long), temperature=float(temperature),
+                              top_k=int(top_k), top_p=float(top_p))
             tokens, stats = _generate(params, is_vlm, input_ids, attention_mask, pixel_values,
-                                      **kw)
+                                      sample=sample, **kw)
     return (tokens, stats) if return_stats else tokens

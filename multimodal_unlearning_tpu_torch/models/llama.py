@@ -55,7 +55,7 @@ from multimodal_unlearning_tpu_torch.utils.quantize import (
 
 __all__ = ["LlamaConfig", "Llama", "init_params", "rms_norm", "dense", "init_kv_cache",
            "init_paged_kv_cache", "positions_from_mask", "enable_int8_compute",
-           "apply_lora_delta"]
+           "apply_lora_delta", "PER_ROW"]
 
 REMAT_POLICIES = (None, "save_attn", "save_attn_ffn")
 
@@ -98,19 +98,32 @@ def _maybe_dequant(w, dtype):
     return w.to(dtype)
 
 
-def apply_lora_delta(y, t, ll, scale):
+# ``lora_ids`` value saying the bank leaves are already one adapter per row
+# ([B, in, r] / [B, r, out]): the serving engine gathers its slots' adapters
+# once per decode chunk instead of once per projection and step
+PER_ROW = "per_row"
+
+
+def apply_lora_delta(y, t, ll, scale, ids=None):
     """Add a LoRA delta to projection output ``y`` (input ``t`` [B, S, in]).
-    ``ll`` leaves are [in, r] / [r, out] for one adapter."""
+
+    ``ll`` leaves are [in, r] / [r, out] for one adapter, or an ADAPTER BANK
+    [A, in, r] / [A, r, out] selected per batch row by ``ids`` [B]
+    (multi-LoRA serving: each row goes through its own adapter in the same
+    forward), or, with ``ids=PER_ROW``, leaves gathered per row already."""
     if ll is None:
         return y
     a, b = ll["a"].to(t.dtype), ll["b"].to(t.dtype)
     if a.ndim == 3:
-        raise NotImplementedError(
-            "a multi-adapter LoRA bank [A, in, r] is not ported yet (multi-LoRA serving)")
-    return y + ((t @ a) @ b) * scale
+        if ids is None:  # a silent [A, in, r] matmul broadcast would be wrong
+            raise ValueError("multi-adapter LoRA bank applied without lora_ids")
+        if not (isinstance(ids, str) and ids == PER_ROW):
+            a, b = a[ids], b[ids]
+    delta = (t @ a) @ b
+    return y + (delta if scale == 1.0 else delta * scale)
 
 
-def dense(x, w, lora_leaf=None, lora_scale: float = 0.0):
+def dense(x, w, lora_leaf=None, lora_scale: float = 0.0, lora_ids=None):
     # a grouped-int4 leaf always takes the W4A16 product (kernel B8 for
     # small M): the W8A8 route of INT8_COMPUTE is int8-only, and a dense
     # dequant here would write bf16 weights at every decode step
@@ -120,7 +133,7 @@ def dense(x, w, lora_leaf=None, lora_scale: float = 0.0):
         y = int8_matmul(x, *qs_of(w))
     else:
         y = x @ _maybe_dequant(w, x.dtype)
-    return apply_lora_delta(y, x, lora_leaf, lora_scale)
+    return apply_lora_delta(y, x, lora_leaf, lora_scale, lora_ids)
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -318,7 +331,7 @@ class Llama(ParamTree):
         ll = None if lora is None else lora.get(name)
         return None if ll is None else {"a": ll["a"][layer], "b": ll["b"][layer]}
 
-    def _project(self, t, names, layer, lora, lora_scale):
+    def _project(self, t, names, layer, lora, lora_scale, lora_ids=None):
         """Projections ``names`` of one input ``t``.  Under W8A8 they share
         one activation quantization (q/k/v, gate/up).  A q/k/v bias (the
         Qwen2 family) is added last, after the product's rescale and the
@@ -329,41 +342,43 @@ class Llama(ParamTree):
         lls = [self._lora_leaf(lora, n, layer) for n in names]
         if len(names) > 1 and INT8_COMPUTE and all(_is_int8(w) for w in ws):
             ys = int8_matmul_group(t, tuple(w["q"] for w in ws), tuple(w["s"] for w in ws))
-            ys = [apply_lora_delta(y, t, ll, lora_scale) for y, ll in zip(ys, lls)]
+            ys = [apply_lora_delta(y, t, ll, lora_scale, lora_ids) for y, ll in zip(ys, lls)]
         else:
-            ys = [dense(t, w, ll, lora_scale) for w, ll in zip(ws, lls)]
+            ys = [dense(t, w, ll, lora_scale, lora_ids) for w, ll in zip(ws, lls)]
         if self.cfg.qkv_bias and names[0] == "q_proj":
             ys = [y + getattr(lp, n[0] + "_bias")[layer].to(y.dtype) for y, n in zip(ys, names)]
         return ys
 
-    def _attn_inputs(self, x, layer, cos_p, sin_p, lora, lora_scale):
+    def _attn_inputs(self, x, layer, cos_p, sin_p, lora, lora_scale, lora_ids=None):
         """Input norm, q/k/v projections and rope: x -> q, k, v [B, H, S, D]."""
         cfg = self.cfg
         B, S, _ = x.shape
         hd, nh, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
         h = rms_norm(x, self.layers.input_layernorm[layer], cfg.rms_norm_eps)
-        q, k, v = self._project(h, ("q_proj", "k_proj", "v_proj"), layer, lora, lora_scale)
+        q, k, v = self._project(h, ("q_proj", "k_proj", "v_proj"), layer, lora, lora_scale,
+                                lora_ids)
         q = q.view(B, S, nh, hd).transpose(1, 2)
         k = k.view(B, S, nkv, hd).transpose(1, 2)
         v = v.view(B, S, nkv, hd).transpose(1, 2)
         return apply_rope_bsd(q, cos_p, sin_p), apply_rope_bsd(k, cos_p, sin_p), v
 
-    def _attn_out_ffn_in(self, x, attn, layer, lora, lora_scale):
+    def _attn_out_ffn_in(self, x, attn, layer, lora, lora_scale, lora_ids=None):
         """Output projection, residual, post norm, gate/up: -> (x, ffn_pre_down)."""
         cfg = self.cfg
         x = x + dense(attn, self.layers.o_proj[layer], self._lora_leaf(lora, "o_proj", layer),
-                      lora_scale)
+                      lora_scale, lora_ids)
         h = rms_norm(x, self.layers.post_attention_layernorm[layer], cfg.rms_norm_eps)
-        gate, up = self._project(h, ("gate_proj", "up_proj"), layer, lora, lora_scale)
+        gate, up = self._project(h, ("gate_proj", "up_proj"), layer, lora, lora_scale,
+                                 lora_ids)
         return x, F.silu(gate.to(_promote(gate.dtype))).to(x.dtype) * up
 
-    def _ffn_down(self, x, ff, layer, lora, lora_scale):
+    def _ffn_down(self, x, ff, layer, lora, lora_scale, lora_ids=None):
         return x + dense(ff, self.layers.down_proj[layer],
-                         self._lora_leaf(lora, "down_proj", layer), lora_scale)
+                         self._lora_leaf(lora, "down_proj", layer), lora_scale, lora_ids)
 
-    def _after_attn(self, x, attn, layer, lora, lora_scale):
-        x, ff = self._attn_out_ffn_in(x, attn, layer, lora, lora_scale)
-        return self._ffn_down(x, ff, layer, lora, lora_scale)
+    def _after_attn(self, x, attn, layer, lora, lora_scale, lora_ids=None):
+        x, ff = self._attn_out_ffn_in(x, attn, layer, lora, lora_scale, lora_ids)
+        return self._ffn_down(x, ff, layer, lora, lora_scale, lora_ids)
 
     def _attend(self, q, k, v, layer, kv_cache, cache_offset, kv_mask, decoding, attn_impl,
                 chunk_decode=False):
@@ -384,11 +399,11 @@ class Llama(ParamTree):
         return attn.transpose(1, 2).reshape(B, S, -1)
 
     def _block(self, x, layer, cos_p, sin_p, kv_cache, cache_offset, kv_mask, decoding,
-               attn_impl, lora=None, lora_scale=0.0, chunk_decode=False):
-        q, k, v = self._attn_inputs(x, layer, cos_p, sin_p, lora, lora_scale)
+               attn_impl, lora=None, lora_scale=0.0, chunk_decode=False, lora_ids=None):
+        q, k, v = self._attn_inputs(x, layer, cos_p, sin_p, lora, lora_scale, lora_ids)
         attn = self._attend(q, k, v, layer, kv_cache, cache_offset, kv_mask, decoding,
                             attn_impl, chunk_decode)
-        return self._after_attn(x, attn, layer, lora, lora_scale)
+        return self._after_attn(x, attn, layer, lora, lora_scale, lora_ids)
 
     def _block_remat(self, x, layer, cos_p, sin_p, kv_mask, attn_impl, lora, lora_scale,
                      policy):
@@ -416,7 +431,7 @@ class Llama(ParamTree):
 
     def forward(self, input_ids=None, *, inputs_embeds=None, attention_mask=None,
                 positions=None, kv_cache=None, cache_offset=0, kv_valid_mask=None,
-                lora: dict | None = None, lora_scale: float = 0.0,
+                lora: dict | None = None, lora_scale: float = 0.0, lora_ids=None,
                 capture_layer: int | None = None, remat: bool = False,
                 remat_policy: str | None = None, attn_impl: str = "auto",
                 compute_dtype=torch.bfloat16, logits_dtype=None, return_hidden: bool = False,
@@ -424,8 +439,10 @@ class Llama(ParamTree):
         """Decoder forward (modes: see the module docstring).
 
         ``lora``: adapter tree ``{"layers": {proj: {"a", "b"}}, "lm_head": ...}``
-        applied with ``lora_scale``.  ``capture_layer``: also return the f32
-        hidden state after that layer.  ``remat``: recompute each layer in the
+        applied with ``lora_scale``; a bank (``models/lora.stack_adapters``)
+        with ``lora_ids`` [B], one adapter per row (``apply_lora_delta``).
+        ``capture_layer``: also return the f32 hidden state after that layer.
+        ``remat``: recompute each layer in the
         backward pass instead of keeping its activations (no-cache mode with
         gradients on; it changes memory, never values); ``remat_policy`` says
         what is kept, see ``_block_remat``.
@@ -485,20 +502,21 @@ class Llama(ParamTree):
                                       lora_scale, remat_policy)
             else:
                 x = self._block(x, layer, cos_p, sin_p, kv_cache, cache_offset, kv_mask,
-                                decoding, attn_impl, layer_lora, lora_scale, chunk_decode)
+                                decoding, attn_impl, layer_lora, lora_scale, chunk_decode,
+                                lora_ids)
             if capture_layer is not None and layer == capture_layer:
                 captured = x.to(torch.float32)
         return self._epilogue(x, lora, lora_scale, logits_dtype, last_logit_only,
-                              return_hidden, captured, kv_cache)
+                              return_hidden, captured, kv_cache, lora_ids)
 
     def _epilogue(self, x, lora, lora_scale, logits_dtype, last_logit_only, return_hidden,
-                  captured, kv_cache):
+                  captured, kv_cache, lora_ids=None):
         """Final norm + LM head (LoRA on ``lm_head`` included); logits cast
         to ``logits_dtype`` after a head in the compute dtype."""
         x = rms_norm(x, self.norm, self.cfg.rms_norm_eps)
         lm_lora = lora.get("lm_head") if lora is not None else None
         xh = x[:, -1:] if last_logit_only else x
-        logits = dense(xh, self.lm_head, lm_lora, lora_scale).to(logits_dtype)
+        logits = dense(xh, self.lm_head, lm_lora, lora_scale, lora_ids).to(logits_dtype)
         return {"logits": logits, "kv_cache": kv_cache, "captured": captured,
                 "hidden": x if return_hidden else None}
 

@@ -47,13 +47,14 @@ def reachable_mask(params: dict, cfg: LlavaConfig) -> dict:
     return tree_map_with_path(leaf_mask, params)
 
 
-def project(params, feats, lora=None, lora_scale: float = 0.0):
+def project(params, feats, lora=None, lora_scale: float = 0.0, lora_ids=None):
     """Two-layer MLP projector with exact (erf) GELU, HF's
-    ``projector_hidden_act="gelu"``; ``lora``: ``{"fc1", "fc2"}`` adapters."""
+    ``projector_hidden_act="gelu"``; ``lora``: ``{"fc1", "fc2"}`` adapters, or
+    a bank of them selected per row by ``lora_ids``."""
     def dense(x, name):
         y = x @ getattr(params, name).to(x.dtype) + getattr(params, f"{name}_bias")
         ab = lora.get(name) if lora is not None else None
-        return llama.apply_lora_delta(y, x, ab, lora_scale)
+        return llama.apply_lora_delta(y, x, ab, lora_scale, lora_ids)
 
     h = dense(feats, "fc1")
     h = F.gelu(h.to(torch.promote_types(h.dtype, torch.float32)),
@@ -100,12 +101,13 @@ class Llava(nn.Module):
 
     def forward(self, input_ids, *, pixel_values=None, attention_mask=None, positions=None,
                 kv_cache=None, cache_offset=0, kv_valid_mask=None, lora: dict | None = None,
-                lora_scale: float = 0.0, capture_layer: int | None = None,
+                lora_scale: float = 0.0, lora_ids=None, capture_layer: int | None = None,
                 remat: bool = False, remat_policy: str | None = None,
                 attn_impl: str = "auto", compute_dtype=torch.bfloat16, logits_dtype=None,
                 last_logit_only: bool = False, chunk_decode: bool = False) -> dict:
         """VLM forward; ``input_ids`` already hold the expanded image tokens.
-        ``lora``: ``{"language_model": ..., "projector": ...}`` adapters.  The
+        ``lora``: ``{"language_model": ..., "projector": ...}`` adapters, or a
+        bank of them with ``lora_ids`` [B] (multi-LoRA serving).  The
         vision tower is frozen and runs without building a graph.
         ``chunk_decode`` and ``positions`` pass through to the decoder (text
         passes into the cache: speculative verify, chunked prefill, prefix
@@ -124,16 +126,16 @@ class Llava(nn.Module):
                 feats = feats[:, 1:, :]
             image_embeds = project(self.projector, feats,
                                    lora=None if lora is None else lora.get("projector"),
-                                   lora_scale=lora_scale)
+                                   lora_scale=lora_scale, lora_ids=lora_ids)
             embeds = splice_image_embeds(embeds, image_embeds,
                                          input_ids == cfg.image_token_id)
         return lm(inputs_embeds=embeds, attention_mask=attention_mask, positions=positions,
                   kv_cache=kv_cache, cache_offset=cache_offset, kv_valid_mask=kv_valid_mask,
                   lora=lora if lora is None else lora.get("language_model"),
-                  lora_scale=lora_scale, capture_layer=capture_layer, remat=remat,
-                  remat_policy=remat_policy, attn_impl=attn_impl, compute_dtype=compute_dtype,
-                  logits_dtype=logits_dtype, last_logit_only=last_logit_only,
-                  chunk_decode=chunk_decode)
+                  lora_scale=lora_scale, lora_ids=lora_ids, capture_layer=capture_layer,
+                  remat=remat, remat_policy=remat_policy, attn_impl=attn_impl,
+                  compute_dtype=compute_dtype, logits_dtype=logits_dtype,
+                  last_logit_only=last_logit_only, chunk_decode=chunk_decode)
 
 
 def init_params(cfg: LlavaConfig, generator: torch.Generator | None = None, *,

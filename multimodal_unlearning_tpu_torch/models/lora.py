@@ -1,7 +1,8 @@
 """LoRA adapters over stacked-layer parameter trees.
 
-Counterpart of ``multimodal_unlearning_tpu/models/lora.py`` (initialisation
-and merging; ``stack_adapters`` comes with multi-LoRA serving).  The
+Counterpart of ``multimodal_unlearning_tpu/models/lora.py``: initialisation,
+merging and ``stack_adapters``, the multi-adapter bank of multi-LoRA
+serving.  The
 adapter tree is a nested dict of tensors at the JAX tree's paths --
 ``language_model.layers.<proj>.{a,b}`` with ``a: [L, in, r]`` (gaussian times
 in^-0.5) and ``b: [L, r, out]`` (zeros), ``projector.{fc1,fc2}.{a,b}`` flat
@@ -31,6 +32,24 @@ DEFAULT_TARGETS = (
 PROJECTOR_TARGETS = ("fc1", "fc2")
 
 
+def stack_adapters(trees: list, scales: list) -> dict:
+    """Stack same-structure adapter trees into ONE multi-adapter bank for
+    per-row serving (``models/llama.py:apply_lora_delta`` with ``lora_ids``;
+    apply with ``lora_scale=1.0``: each adapter's own alpha/r scale is
+    folded into its ``b`` here, in the adapter's dtype).
+
+    Decoder layer leaves [L, in, r] stack to [L, A, in, r] (axis 1: the
+    layer loop still slices L); flat projector leaves [in, r] stack to
+    [A, in, r]."""
+    def walk(nodes, scales, key=None):
+        if isinstance(nodes[0], dict):
+            return {k: walk([n[k] for n in nodes], scales, k) for k in nodes[0]}
+        leaves = [(x * s if key == "b" else x).detach() for x, s in zip(nodes, scales)]
+        return torch.stack(leaves, dim=1 if leaves[0].ndim == 3 else 0)
+
+    return walk(list(trees), [float(s) for s in scales])
+
+
 def lora_scale(r: int, alpha: float) -> float:
     return alpha / r if r else 0.0
 
@@ -41,7 +60,7 @@ def _get(node, name):
 
 def _weight_shape(w):
     """Logical [.., in, out] shape of a dense or int8-quantized weight."""
-    if is_int4(w):
+    if is_int4(w):  # init_lora only: a serving bank never reads the base's shape
         raise NotImplementedError("LoRA over grouped int4 bases is not ported yet (int4 "
                                   "training is a later slice)")
     if isinstance(w, QTensor):

@@ -164,11 +164,12 @@ class QwenVisionTower(ParamTree):
 
 def vision_forward(tower: QwenVisionTower, cfg: QwenVisionConfig, patches, *, grid: tuple,
                    attn_impl: str = "auto", compute_dtype=torch.bfloat16, merger_lora=None,
-                   lora_scale: float = 0.0):
+                   lora_scale: float = 0.0, lora_ids=None):
     """Encode pre-patchified images [B, N, patch_dim] (one image per row,
     all at the static ``grid``) -> merged features [B, N // merge^2,
     out_hidden_size].  The blocks run without autograd; the merger (and
-    its ``merger_lora`` adapters ``{"fc1", "fc2"}``) with it."""
+    its ``merger_lora`` adapters ``{"fc1", "fc2"}``, or a bank of them
+    selected per row by ``lora_ids``) with it."""
     B, N, _ = patches.shape
     E, nh, hd = cfg.embed_dim, cfg.num_heads, cfg.head_dim
     eps = cfg.layer_norm_eps
@@ -241,7 +242,7 @@ def vision_forward(tower: QwenVisionTower, cfg: QwenVisionConfig, patches, *, gr
     def dense(z, name):
         y = z @ getattr(m, name).to(z.dtype) + getattr(m, f"{name}_bias")
         ab = merger_lora.get(name) if merger_lora is not None else None
-        return llama.apply_lora_delta(y, z, ab, lora_scale)
+        return llama.apply_lora_delta(y, z, ab, lora_scale, lora_ids)
 
     if is25:
         y = llama.rms_norm(x, m.ln_q.scale, eps)
@@ -306,7 +307,7 @@ class QwenVL(nn.Module):
 
     def forward(self, input_ids, *, pixel_values=None, attention_mask=None, positions=None,
                 kv_cache=None, cache_offset=0, kv_valid_mask=None,
-                lora: dict | None = None, lora_scale: float = 0.0,
+                lora: dict | None = None, lora_scale: float = 0.0, lora_ids=None,
                 capture_layer: int | None = None, remat: bool = False,
                 remat_policy: str | None = None, attn_impl: str = "auto",
                 compute_dtype=torch.bfloat16, logits_dtype=None, last_logit_only: bool = False,
@@ -318,7 +319,8 @@ class QwenVL(nn.Module):
         2-D ``positions`` (decode, chunk passes) already hold the row's
         ``rope_delta`` and feed all three streams.  ``lora``:
         ``{"language_model": ..., "projector": ...}``, the projector's
-        adapters applied in the merger."""
+        adapters applied in the merger; a bank of them with ``lora_ids`` [B]
+        (multi-LoRA serving)."""
         cfg = self.cfg
         B, S = input_ids.shape
         if attention_mask is None:
@@ -334,7 +336,7 @@ class QwenVL(nn.Module):
                 self.vision_tower, cfg.vision, pixel_values, grid=grid, attn_impl=attn_impl,
                 compute_dtype=compute_dtype,
                 merger_lora=None if lora is None else lora.get("projector"),
-                lora_scale=lora_scale)
+                lora_scale=lora_scale, lora_ids=lora_ids)
             embeds = splice_image_embeds(embeds, image_embeds, input_ids == cfg.image_token_id)
         out_delta = None
         if positions is None:
@@ -344,10 +346,10 @@ class QwenVL(nn.Module):
         out = lm(inputs_embeds=embeds, attention_mask=attention_mask, positions=positions,
                  kv_cache=kv_cache, cache_offset=cache_offset, kv_valid_mask=kv_valid_mask,
                  lora=lora if lora is None else lora.get("language_model"),
-                 lora_scale=lora_scale, capture_layer=capture_layer, remat=remat,
-                 remat_policy=remat_policy, attn_impl=attn_impl, compute_dtype=compute_dtype,
-                 logits_dtype=logits_dtype, last_logit_only=last_logit_only,
-                 chunk_decode=chunk_decode)
+                 lora_scale=lora_scale, lora_ids=lora_ids, capture_layer=capture_layer,
+                 remat=remat, remat_policy=remat_policy, attn_impl=attn_impl,
+                 compute_dtype=compute_dtype, logits_dtype=logits_dtype,
+                 last_logit_only=last_logit_only, chunk_decode=chunk_decode)
         if out_delta is not None:
             out["rope_delta"] = out_delta
         return out

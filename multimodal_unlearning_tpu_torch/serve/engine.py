@@ -7,7 +7,7 @@ position, refilled from the queue between decode chunks.
 - prefill + insert: a request's prompt, left-padded to its bucket, runs
   through the model straight into its slot's columns of the stacked
   [L, B, Hkv, Smax, D] cache (a view of the slot's slab); the first token
-  is the argmax of the last position.
+  is the argmax of the last position (or sampled from it).
 - decode chunk: ``chunk`` single-token steps for ALL slots at once.  Every
   slot sits at its own cache column (per-row cache write) and reads the
   cache through its [B, Smax] validity row, so idle slots (all-zero rows)
@@ -24,8 +24,9 @@ position, refilled from the queue between decode chunks.
   after the first chunk (which holds the image).  A preempted request is
   recomputed from its prompt, delta and all.
 - the per-slot state (``kv_valid``, ``write_col``, ``pos_next``,
-  ``token``, ``remaining``, ``live``) lives on the device and is updated in
-  place; the host reads only each chunk's emitted tokens.  In pipelined
+  ``token``, ``remaining``, ``live``; sampled: ``key``, ``out_idx``) lives
+  on the device and is updated in place; the host reads only each chunk's
+  emitted tokens (and their logprobs).  In pipelined
   mode chunk k+1 is queued before chunk k's tokens are read, so the device
   queue never drains while the host does its bookkeeping.
 
@@ -45,6 +46,26 @@ position, refilled from the queue between decode chunks.
 - prefix cache (``register_prefix``): a shared prefix is prefilled once
   into a slab; a request with ``prefix=<id>`` copies the slab into its
   slot's columns and prefills only its suffix (one ``chunk_decode`` pass).
+- sampled decoding (``temperature`` > 0, ``top_k``, ``top_p``;
+  ``evaluation/sampling.py``): a request seeded s draws its token i with
+  the key ``fold_in(fold_in(key0, s), i)``, so its stream equals its solo
+  ``greedy_generate(do_sample=True)`` stream wherever it is placed.  The
+  first token (at insert) takes i = ``len(req.tokens)``: 0 for a new
+  request, and for one re-admitted after a preemption the index where its
+  stream stopped.  (The JAX engine restarts at 0 there and repeats indices:
+  ROADMAP queue 2.)  A decode chunk folds its T steps' keys at once, since
+  a live row's index at step t is its index at the chunk's start plus t.
+- multi-LoRA (``adapters``): the adapters are stacked into one bank
+  (``models/lora.stack_adapters``, slot 0 the zero adapter, i.e. the base
+  model) and each request picks one (``submit(adapter=)``).  An insert runs
+  its one row through its adapter (none for the base); a decode chunk
+  gathers its slots' adapters from the bank once, when the slots' adapters
+  changed, and every projection applies them per row
+  (``models/llama.PER_ROW``).  A registered prefix is prefilled through
+  the adapter it names, and only requests on that adapter use it.
+- logprobs: each emitted token's raw ``log_softmax`` (f32) of the model's
+  logits, whatever the sampling settings, aligned with ``Request.tokens``
+  on every route and cut with them at a stop sequence.
 - paged cache (``page_size``, ``kv_pool_pages``): one pool of fixed-size
   pages [L, Hkv, NP, P, D] shared by all slots plus a host-managed block
   table [B, MP] per slot, as the JAX engine keeps it.  Page 0 is a trash
@@ -78,8 +99,13 @@ import numpy as np
 import torch
 
 from multimodal_unlearning_tpu_torch.device import resolve_device
+from multimodal_unlearning_tpu_torch.evaluation import sampling
 from multimodal_unlearning_tpu_torch.models import decoder_module
-from multimodal_unlearning_tpu_torch.speculative import accept_round, propose_drafts
+from multimodal_unlearning_tpu_torch.models.llama import PER_ROW
+from multimodal_unlearning_tpu_torch.models.lora import stack_adapters
+from multimodal_unlearning_tpu_torch.speculative import (
+    accept_round, propose_drafts, token_logprobs)
+from multimodal_unlearning_tpu_torch.utils.pytree import tree_map
 
 
 @dataclass
@@ -91,8 +117,11 @@ class Request:
     max_new_tokens: int
     pixel_values: np.ndarray | None = None
     draft_ref: list = field(default_factory=list)  # lookup-corpus seed tokens
+    sample_seed: int = 0  # stream seed under sampled decoding
     prefix: int | None = None  # registered shared-prefix id (prefix cache)
+    lora_id: int = 0  # adapter index under multi-LoRA serving (0 = base)
     tokens: list = field(default_factory=list)
+    logprobs: list = field(default_factory=list)  # per emitted token (opt-in)
     stop: list = field(default_factory=list)  # token-id stop sequences
     done: bool = False
     finish_reason: str = ""  # "length", "eos", "stop" or "cancel" once done
@@ -143,12 +172,19 @@ class ServingEngine:
         included; default ``num_slots * max_len / page_size + 1``, the dense
         layout's capacity.  Set lower to cap KV memory: admission then
         queues, and slots are preempted and recomputed under pressure.
+      temperature / top_k / top_p: temperature > 0 samples (per-request
+        ``sample_seed``, by default the request's uid); speculation verifies
+        against the argmax, so the two together raise ValueError.
+      adapters: ``{name: (adapter_tree, scale)}`` served from one bank;
+        requests pick theirs by name (``submit(adapter=)``).
+      logprobs: attach each emitted token's raw ``log_softmax`` to its
+        request (``Request.logprobs``, aligned with ``tokens``).
       device: where the engine runs; the card unless "cpu" is passed.
       on_prefill: optional ``fn(request, last_logits)`` called with each
         prefill's last-position logits [V] (f32, on the device).
 
-    The JAX engine's sampling, multi-LoRA, logprobs and mesh are not ported:
-    asking for any of them raises ``NotImplementedError``.
+    The JAX engine's ``mesh`` (tensor-parallel serving) is not ported: it
+    raises ``NotImplementedError``.
     """
 
     def __init__(
@@ -181,20 +217,9 @@ class ServingEngine:
         device=None,
         on_prefill=None,
     ):
-        # top_k/top_p only shape sampling; the JAX engine ignores them too
-        # while it is off
-        del top_k, top_p
-        unported = {
-            "temperature": float(temperature) > 0.0,
-            "adapters": bool(adapters),
-            "logprobs": bool(logprobs),
-            "mesh": mesh is not None,
-        }
-        asked = [k for k, v in unported.items() if v]
-        if asked:
-            raise NotImplementedError(
-                f"ServingEngine options not ported yet: {asked} (greedy serving on one device "
-                "only)")
+        if mesh is not None:
+            raise NotImplementedError("ServingEngine option not ported yet: mesh (serving on "
+                                      "one device only)")
         if cache_dtype not in (torch.bfloat16, torch.float16, torch.float32, torch.int8):
             raise NotImplementedError(f"cache_dtype {cache_dtype}: float or int8 only")
         self.device = resolve_device(device)
@@ -240,6 +265,28 @@ class ServingEngine:
         self.attn_impl = attn_impl
         self.K = int(speculate_k)
         self.R = int(spec_ref_len) if self.K else 0
+        self.want_lp = bool(logprobs)
+        self.do_sample = float(temperature) > 0.0
+        self.temperature, self.top_k, self.top_p = float(temperature), int(top_k), float(top_p)
+        if self.do_sample and self.K:
+            raise ValueError("speculate_k verifies against greedy argmax; use temperature=0 "
+                             "with speculation")
+        # multi-LoRA: one bank in the compute dtype, index 0 the zero adapter
+        self._adapter_ids = {None: 0}
+        self._lora = None
+        if adapters:
+            trees, scales = [], []
+            for i, (name, (tree, scale)) in enumerate(adapters.items()):
+                self._adapter_ids[name] = i + 1
+                trees.append(tree)
+                scales.append(float(scale))
+            zero = tree_map(torch.zeros_like, trees[0])
+            self._lora = tree_map(lambda x: x.to(self.device, compute_dtype),
+                                  stack_adapters([zero] + trees, [0.0] + scales))
+        # per slot: the adapter its request runs (host copy); the decode
+        # chunks' per-row gather of the bank, kept while it is unchanged
+        self._slot_lora = [0] * num_slots
+        self._rows_lora = None
         self.prefill_chunk = (
             _bucket(int(prefill_chunk), self.bucket_multiple) if prefill_chunk else 0)
         self._prefill_job: dict | None = None
@@ -358,6 +405,7 @@ class ServingEngine:
 
     def _release_slot(self, slot: int):
         self._release_slot_pages(slot)
+        self._slot_lora[slot] = 0  # an idle row needs no adapter
         self._free.append(slot)
 
     def _preempt_slot(self, slot: int):
@@ -454,6 +502,31 @@ class ServingEngine:
         return self.params(ids, attn_impl=self.attn_impl, compute_dtype=self.compute_dtype,
                            **kw)
 
+    def _lora_kw(self, lora_id: int) -> dict:
+        """A one-row forward's LoRA arguments: the bank with its row's
+        adapter, or none for the base model."""
+        if not lora_id:
+            return {}
+        return dict(lora=self._lora, lora_scale=1.0,
+                    lora_ids=torch.full((1,), lora_id, dtype=torch.long, device=self.device))
+
+    def _rows_lora_kw(self) -> dict:
+        """A decode chunk's LoRA arguments: the bank's decoder leaves
+        gathered once per row (``PER_ROW``) by the slots' adapters, kept
+        while those stay the same; none while every slot runs the base."""
+        ids = tuple(self._slot_lora)
+        if self._lora is None or not any(ids):
+            return {}
+        if self._rows_lora is None or self._rows_lora[0] != ids:
+            idx = torch.tensor(ids, dtype=torch.long)
+            if self.device.type == "cuda":  # from pinned memory: no wait on the queue
+                idx = idx.pin_memory().to(self.device, non_blocking=True)
+            dec = self._lora["language_model"] if self.is_vlm else self._lora
+            # stacked layer leaves [L, A, in, r] gather on axis 1, flat ones on 0
+            rows = tree_map(lambda x: x.index_select(1 if x.ndim == 4 else 0, idx), dec)
+            self._rows_lora = (ids, {"language_model": rows} if self.is_vlm else rows)
+        return dict(lora=self._rows_lora[1], lora_scale=1.0, lora_ids=PER_ROW)
+
     @staticmethod
     def _rope_delta(out) -> int:
         """A one-row prompt forward's M-RoPE delta (Qwen2-VL), else 0."""
@@ -487,6 +560,9 @@ class ServingEngine:
             # (-2 marks never-match entries)
             state["ids_buf"] = torch.full((B, self.smax), -2, dtype=torch.long, device=dev)
             state["draft_ref"] = torch.full((B, self.R), -2, dtype=torch.long, device=dev)
+        if self.do_sample:
+            state["key"] = torch.zeros((B, 2), dtype=torch.long, device=dev)  # stream key
+            state["out_idx"] = z.clone()  # next output index (the fold index)
         return state
 
     def _pixels(self, pixel_values):
@@ -496,10 +572,26 @@ class ServingEngine:
         return torch.from_numpy(np.asarray(pixel_values, np.float32)[None]).to(
             self.device, self.compute_dtype)
 
-    def _first_token(self, req, last) -> int:
+    def _first_token(self, req, slot: int, last):
+        """The token an insert emits from the prompt's last logits [V] and
+        its logprob (None unless asked for).  Sampled: the slot takes the
+        request's stream key, and the token's fold index is
+        ``len(req.tokens)``, so a re-admitted request goes on with its
+        stream."""
         if self.on_prefill is not None:
             self.on_prefill(req, last)
-        return int(torch.argmax(last))
+        if self.do_sample:
+            st, dev, i = self._state, self.device, len(req.tokens)
+            st["key"][slot] = sampling.row_keys(
+                torch.full((1,), req.sample_seed, dtype=torch.long, device=dev))[0]
+            st["out_idx"][slot] = i + 1
+            tok = sampling.sample_token(
+                st["key"][slot:slot + 1], torch.full((1,), i, dtype=torch.long, device=dev),
+                last[None], self.temperature, self.top_k, self.top_p)[0]
+        else:
+            tok = torch.argmax(last)
+        lp = float(token_logprobs(last, tok)) if self.want_lp else None
+        return int(tok), lp
 
     def _arm_slot(self, req, slot: int, first: int, valid_row, write_col: int, pos_next: int,
                   hist=None):
@@ -522,6 +614,7 @@ class ServingEngine:
         st["token"][slot] = first
         st["remaining"][slot] = 0 if finished_now else max_new - 1
         st["live"][slot] = (not finished_now) and max_new - 1 > 0
+        self._slot_lora[slot] = req.lora_id
         if self.K:
             st["ids_buf"][slot].fill_(-2)
             st["ids_buf"][slot, :hist.shape[-1]] = hist
@@ -539,10 +632,10 @@ class ServingEngine:
         mask[0, sp - len(prompt):] = 1
         return torch.from_numpy(ids).to(self.device), torch.from_numpy(mask).to(self.device)
 
-    def _prefill_insert(self, req: Request, slot: int) -> int:
+    def _prefill_insert(self, req: Request, slot: int):
         """Prefill ``req`` into ``slot``'s cache columns and arm the slot;
-        returns the first token.  Paged: into a slab, whose pages then land
-        in the slot's own pages."""
+        returns the first token and its logprob.  Paged: into a slab, whose
+        pages then land in the slot's own pages."""
         prompt = self._eff_prompt(req)
         ids_t, mask_t = self._left_padded(prompt)
         sp = ids_t.shape[1]
@@ -554,24 +647,26 @@ class ServingEngine:
             slab = _cols(self._state["cache"], 0, sp, slice(slot, slot + 1))
         out = self._forward(ids_t, pixel_values=self._pixels(req.pixel_values),
                             attention_mask=mask_t, kv_cache=slab, cache_offset=0,
-                            kv_valid_mask=mask_t, last_logit_only=True)
+                            kv_valid_mask=mask_t, last_logit_only=True,
+                            **self._lora_kw(req.lora_id))
         if self.page:
             self._scatter_pages(slab, own[: sp // self.page])
-        first = self._first_token(req, out["logits"][0, -1])
+        first, lp = self._first_token(req, slot, out["logits"][0, -1])
         hist = torch.where(mask_t[0] > 0, ids_t[0], -2) if self.K else None
         self._arm_slot(req, slot, first, mask_t[0], sp, len(prompt) + self._rope_delta(out),
                        hist)
-        return first
+        return first, lp
 
-    def _prefix_fill(self, slab, ids, mask, pix=None):
+    def _prefix_fill(self, slab, ids, mask, pix=None, lora_id: int = 0):
         """A standalone prompt forward into ``slab`` (its first columns, at
-        offset 0): the prefix cache's and the first prefill chunk's.  Returns
-        its M-RoPE delta (0 but on Qwen2-VL)."""
+        offset 0) through adapter ``lora_id``: the prefix cache's and the
+        first prefill chunk's.  Returns its M-RoPE delta (0 but on
+        Qwen2-VL)."""
         return self._rope_delta(self._forward(
             ids, pixel_values=pix, attention_mask=mask, kv_cache=slab, cache_offset=0,
-            kv_valid_mask=mask, last_logit_only=True))
+            kv_valid_mask=mask, last_logit_only=True, **self._lora_kw(lora_id)))
 
-    def _extend(self, slab, P: int, kv_row, plen: int, ids, table=None):
+    def _extend(self, slab, P: int, kv_row, plen: int, ids, table=None, lora_id: int = 0):
         """Chunked prefill: C unpadded prompt tokens run as one chunk_decode
         pass against the first P columns of ``slab`` (seen through
         ``kv_row``) and land at columns P..P+C-1; returns the validity row of
@@ -586,7 +681,8 @@ class ServingEngine:
         self._forward(ids, attention_mask=torch.ones((1, C), dtype=torch.int32, device=dev),
                       positions=plen + torch.arange(C, device=dev)[None], kv_cache=cache,
                       cache_offset=torch.full((1,), P, dtype=torch.long, device=dev),
-                      kv_valid_mask=row, chunk_decode=True, last_logit_only=True)
+                      kv_valid_mask=row, chunk_decode=True, last_logit_only=True,
+                      **self._lora_kw(lora_id))
         row[:, P:P + C] = 1
         return row
 
@@ -597,7 +693,7 @@ class ServingEngine:
         prefix's rope delta folded in) as one chunk_decode pass (its
         queries read the prefix through ``pvalid`` plus their own chunk
         columns causally), written at columns P..P+sp-1.  Arms the slot;
-        returns the first token.  Paged: the prefix's columns are already in
+        returns the first token and its logprob.  Paged: the prefix's columns are already in
         the pool, where the one-row block ``table`` (the slot's row) points;
         the pass reads and writes the pool through it and ``pslab`` is
         unused."""
@@ -620,8 +716,9 @@ class ServingEngine:
                                                              device=dev),
                             positions=plen + torch.arange(sp, device=dev)[None], kv_cache=slab,
                             cache_offset=torch.full((1,), P, dtype=torch.long, device=dev),
-                            kv_valid_mask=row, chunk_decode=True)
-        first = self._first_token(req, out["logits"][0, n_sfx - 1])  # last REAL position
+                            kv_valid_mask=row, chunk_decode=True, **self._lora_kw(req.lora_id))
+        # the last REAL position
+        first, lp = self._first_token(req, slot, out["logits"][0, n_sfx - 1])
         row[:, P:P + n_sfx] = 1
         hist = None
         if self.K:
@@ -629,7 +726,7 @@ class ServingEngine:
             hist[:P] = phist
             hist[P:P + n_sfx] = ids_t[0, :n_sfx]
         self._arm_slot(req, slot, first, row[0, :P + sp], P + n_sfx, plen + n_sfx, hist)
-        return first
+        return first, lp
 
     # ------------------------------------------------------- prefix cache
     @torch.inference_mode()
@@ -645,10 +742,10 @@ class ServingEngine:
         freed and that every prefix request's table points at (no copy, and
         the slab is not kept).  Register prefixes before submitting requests:
         pinned pages shrink the pool that queued requests were checked
-        against."""
-        if adapter is not None:
-            raise NotImplementedError("prefixes per adapter need multi-LoRA serving, which is "
-                                      "not ported yet")
+        against.  ``adapter``: the prefix is prefilled through that adapter
+        and serves only requests on it (an unknown name is a KeyError)."""
+        if adapter is not None and adapter not in self._adapter_ids:
+            raise KeyError(f"unknown adapter {adapter!r}")
         ids_t, mask_t = self._left_padded(list(prompt_ids))
         P = ids_t.shape[1]
         if self.page and P // self.page > len(self._free_pages):
@@ -656,7 +753,8 @@ class ServingEngine:
                              f"{len(self._free_pages)} are free (kv_pool_pages; register "
                              "prefixes before submitting requests)")
         slab = self._new_slab(P)
-        delta = self._prefix_fill(slab, ids_t, mask_t, self._pixels(pixel_values))
+        delta = self._prefix_fill(slab, ids_t, mask_t, self._pixels(pixel_values),
+                                  self._adapter_ids[adapter])
         pages = []
         if self.page:
             pages = self._alloc_pages(P // self.page)
@@ -667,7 +765,8 @@ class ServingEngine:
         pid = len(self._prefixes)
         # plen: where the suffix's positions start (M-RoPE delta included)
         self._prefixes[pid] = dict(slab=slab, mask=mask_t, plen=len(prompt_ids) + delta, P=P,
-                                   hist=torch.where(mask_t[0] > 0, ids_t[0], -2), pages=pages)
+                                   hist=torch.where(mask_t[0] > 0, ids_t[0], -2), pages=pages,
+                                   adapter=adapter)
         return pid
 
     def _fill_with_prefix(self, req, slot):
@@ -681,9 +780,9 @@ class ServingEngine:
             sp = _bucket(max(len(suffix), 1), self.bucket_multiple)
             self._admit_pages(req, slot, sp, prefix_pages=pre["pages"])
             table = self._row_table(self._table[slot])
-        first = self._suffix_insert(req, slot, pre["slab"], pre["mask"], pre["hist"],
-                                    pre["plen"], suffix, table=table)
-        self._after_insert(req, slot, first)
+        first, lp = self._suffix_insert(req, slot, pre["slab"], pre["mask"], pre["hist"],
+                                        pre["plen"], suffix, table=table)
+        self._after_insert(req, slot, first, lp)
 
     # ---------------------------------------------------- chunked prefill
     def _needs_chunked_prefill(self, req) -> bool:
@@ -717,7 +816,8 @@ class ServingEngine:
         if self.page:
             job["pages"] = self._alloc_pages(self._own_pages_needed(req))
             slab = self._new_slab(C)
-            job["delta"] = self._prefix_fill(slab, ids, mask, self._pixels(req.pixel_values))
+            job["delta"] = self._prefix_fill(slab, ids, mask, self._pixels(req.pixel_values),
+                                             req.lora_id)
             self._scatter_pages(slab, job["pages"][:C // self.page])
             row = np.zeros((self.MP,), np.int32)
             row[:len(job["pages"])] = job["pages"]
@@ -727,7 +827,7 @@ class ServingEngine:
             total = n_full * C + _bucket(n - n_full * C, self.bucket_multiple)
             job["slab"] = self._new_slab(total)
             job["delta"] = self._prefix_fill(_cols(job["slab"], 0, C), ids, mask,
-                                             self._pixels(req.pixel_values))
+                                             self._pixels(req.pixel_values), req.lora_id)
         self._n_prefill_chunks += 1
         self._prefill_job = job
 
@@ -743,7 +843,8 @@ class ServingEngine:
             ids = torch.tensor([prompt[job["pos"]:job["pos"] + C]], dtype=torch.long,
                                device=self.device)
             job["kv_row"] = self._extend(job["slab"], job["P"], job["kv_row"],
-                                         job["pos"] + job["delta"], ids, table=job["table"])
+                                         job["pos"] + job["delta"], ids, table=job["table"],
+                                         lora_id=req.lora_id)
             job["P"] += C
             job["pos"] += C
             return
@@ -759,23 +860,30 @@ class ServingEngine:
             self._set_pmeta(job["slot"], req, job["P"] + sp, 0)
         else:
             pslab = _cols(job["slab"], 0, job["P"])
-        first = self._suffix_insert(req, job["slot"], pslab, job["kv_row"][:, :job["P"]], hist,
-                                    job["pos"] + job["delta"], prompt[job["pos"]:],
-                                    table=job["table"])
-        self._after_insert(req, job["slot"], first)
+        first, lp = self._suffix_insert(req, job["slot"], pslab, job["kv_row"][:, :job["P"]],
+                                        hist, job["pos"] + job["delta"], prompt[job["pos"]:],
+                                        table=job["table"])
+        self._after_insert(req, job["slot"], first, lp)
 
     def _decode_chunk(self):
         """``chunk`` decode steps for every slot; returns the emitted tokens
-        and liveness, both [chunk, B] on the device."""
+        and liveness, both [chunk, B] on the device, and with ``logprobs``
+        the tokens' logprobs [chunk, B]."""
         st, B, T = self._state, self.B, self.chunk
         dev = self.device
         rows = torch.arange(B, device=dev)
         ones = torch.ones((B, 1), dtype=torch.int32, device=dev)
         emits = torch.empty((T, B), dtype=torch.long, device=dev)
         lives = torch.empty((T, B), dtype=torch.bool, device=dev)
+        lps = torch.empty((T, B), dtype=torch.float32, device=dev) if self.want_lp else None
         cache = self._pool(self._table_device()) if self.page else st["cache"]
+        lora_kw = self._rows_lora_kw()
         # no row holds a valid column at or past `extent` in this chunk
         extent = min(self.smax, _bucket(max(max(self._col_cap), 1), 128))
+        if self.do_sample:
+            # a live row's fold index at step t is its index now plus t
+            keys = sampling.fold_in(st["key"][None], st["out_idx"][None, :] + torch.arange(
+                T, device=dev)[:, None])
         for t in range(T):
             live = st["live"] & (st["remaining"] > 0)
             cols = st["write_col"]
@@ -783,10 +891,18 @@ class ServingEngine:
                 st["kv_valid"][rows, cols], live.to(torch.int32))
             out = self._forward(st["token"][:, None], attention_mask=ones,
                                 positions=st["pos_next"][:, None], kv_cache=cache,
-                                cache_offset=cols, kv_valid_mask=st["kv_valid"][:, :extent])
-            nxt = torch.argmax(out["logits"][:, -1, :], dim=-1)
+                                cache_offset=cols, kv_valid_mask=st["kv_valid"][:, :extent],
+                                **lora_kw)
+            logits = out["logits"][:, -1, :]
+            if self.do_sample:
+                nxt = sampling.sample_folded(keys[t], sampling.process_logits(
+                    logits, self.temperature, self.top_k, self.top_p))
+            else:
+                nxt = torch.argmax(logits, dim=-1)
             emits[t] = torch.where(live, nxt, self.pad_id)
             lives[t] = live
+            if lps is not None:
+                lps[t] = token_logprobs(logits, nxt)
             remaining = torch.where(live, st["remaining"] - 1, st["remaining"])
             still = live & (remaining > 0)
             if self.eos >= 0:
@@ -797,14 +913,17 @@ class ServingEngine:
             st["token"] = torch.where(live, nxt, st["token"])
             st["remaining"] = remaining
             st["live"] = still
-        return emits, lives
+        if self.do_sample:  # the fold index advances on live rows only
+            st["out_idx"] = st["out_idx"] + lives.sum(dim=0)
+        return (emits, lives) if lps is None else (emits, lives, lps)
 
     def _spec_decode_chunk(self):
         """``chunk`` verify rounds for every slot (the JAX engine's
         ``_make_spec_decode``): propose K tokens, verify [token, draft] with
         one chunk_decode forward, accept the matching run.  Returns the
         emitted tokens [chunk, B, K+1], how many of them count [chunk, B]
-        and whether the slot finished [chunk, B], on the device."""
+        and whether the slot finished [chunk, B], on the device, and with
+        ``logprobs`` each position's logprob [chunk, B, K+1]."""
         st, B, T, K = self._state, self.B, self.chunk, self.K
         dev = self.device
         rows = torch.arange(B, device=dev)
@@ -814,7 +933,10 @@ class ServingEngine:
         emits = torch.empty((T, B, K + 1), dtype=torch.long, device=dev)
         n_emits = torch.empty((T, B), dtype=torch.long, device=dev)
         dones = torch.empty((T, B), dtype=torch.bool, device=dev)
+        lps = (torch.empty((T, B, K + 1), dtype=torch.float32, device=dev) if self.want_lp
+               else None)
         cache = self._pool(self._table_device()) if self.page else st["cache"]
+        lora_kw = self._rows_lora_kw()
         for t in range(T):
             live = st["live"] & (st["remaining"] > 0)
             cur, pos, token = st["write_col"], st["pos_next"], st["token"]
@@ -827,10 +949,14 @@ class ServingEngine:
             out = self._forward(torch.clamp(chunk, 0, vocab - 1), attention_mask=ones,
                                 positions=pos[:, None] + ar[None, :], kv_cache=cache,
                                 cache_offset=cur_w, kv_valid_mask=st["kv_valid"],
-                                chunk_decode=True)
+                                chunk_decode=True, **lora_kw)
             preds = torch.argmax(out["logits"], dim=-1)  # [B, K+1]
-            a, n_emit, hit_eos = accept_round(chunk, preds, live, st["remaining"], st["ids_buf"],
-                                              st["kv_valid"], cur_w, self.eos)
+            acc = accept_round(chunk, preds, live, st["remaining"], st["ids_buf"],
+                               st["kv_valid"], cur_w, self.eos,
+                               logits=out["logits"] if lps is not None else None)
+            a, n_emit, hit_eos = acc[:3]
+            if lps is not None:
+                lps[t] = acc[3]
             emits[t] = torch.where(ar[None, :] < n_emit[:, None], preds, self.pad_id)
             n_emits[t] = n_emit
             remaining = st["remaining"] - n_emit
@@ -842,7 +968,7 @@ class ServingEngine:
             st["token"] = torch.where(live, preds[rows, a], token)
             st["remaining"] = remaining
             st["live"] = live & ~done
-        return emits, n_emits, dones
+        return (emits, n_emits, dones) if lps is None else (emits, n_emits, dones, lps)
 
     def _to_host(self, *tensors):
         """Start copying a chunk's outputs to the host; returns a callable
@@ -871,9 +997,20 @@ class ServingEngine:
     # ------------------------------------------------------------- host
     def submit(self, prompt_ids, max_new_tokens: int, pixel_values=None, draft_ref=None,
                sample_seed=None, prefix=None, adapter=None, stop=None) -> Request:
-        if adapter is not None:
-            raise NotImplementedError("adapter needs multi-LoRA serving, which is not ported yet")
-        del sample_seed  # greedy decoding only: a sampling seed changes nothing
+        """Queue a request.  ``adapter``: a name of ``adapters`` (an unknown
+        one is a KeyError); a prefix request runs its prefix's adapter, and
+        naming another raises ValueError.  ``sample_seed``: its stream's
+        seed under sampling (default: its uid)."""
+        if adapter is not None and adapter not in self._adapter_ids:
+            raise KeyError(f"unknown adapter {adapter!r}; registered: "
+                           f"{[k for k in self._adapter_ids if k]}")
+        if prefix is not None:
+            pre_ad = self._prefixes[prefix]["adapter"]
+            if adapter is None:
+                adapter = pre_ad
+            elif adapter != pre_ad:
+                raise ValueError(f"prefix {prefix} was prefilled with adapter {pre_ad!r}; "
+                                 f"request asks for {adapter!r}")
         if pixel_values is not None and not self.is_vlm:
             raise ValueError("pixel_values given to a text-only model")
         sp = _bucket(len(prompt_ids), self.bucket_multiple)
@@ -899,6 +1036,8 @@ class ServingEngine:
         self._uid += 1
         req = Request(self._uid, list(prompt_ids), max_new_tokens, pixel_values)
         req.prefix = prefix
+        req.lora_id = self._adapter_ids[adapter]
+        req.sample_seed = self._uid if sample_seed is None else int(sample_seed)
         req.draft_ref = list(draft_ref or [])[: self.R]
         # stop sequences: token-id lists checked on the emitted stream (the
         # matched suffix is cut away)
@@ -931,13 +1070,13 @@ class ServingEngine:
             if req.prefix is not None:
                 self._fill_with_prefix(req, slot)
                 continue
-            first = self._prefill_insert(req, slot)
-            self._after_insert(req, slot, first)
+            first, lp = self._prefill_insert(req, slot)
+            self._after_insert(req, slot, first, lp)
 
     def _apply_stop(self, req, old_len: int) -> bool:
         """Scan tokens appended since ``old_len`` for a stop sequence (which
         may reach back across the boundary); on a match, cut the stream
-        before it."""
+        before it (tokens and logprobs)."""
         if not req.stop:
             return False
         toks = req.tokens
@@ -946,6 +1085,7 @@ class ServingEngine:
                 n = len(s)
                 if end >= n and toks[end - n: end] == s:
                     del toks[end - n:]
+                    del req.logprobs[end - n:]
                     return True
         return False
 
@@ -987,7 +1127,7 @@ class ServingEngine:
                 return True
         return False
 
-    def _after_insert(self, req, slot, first: int):
+    def _after_insert(self, req, slot, first: int, lp0=None):
         self._n_prefill += 1
         now = time.monotonic()
         if not req.first_t:  # a preempted request keeps its first TTFT
@@ -999,6 +1139,8 @@ class ServingEngine:
             self._release_slot(slot)
             return
         req.tokens.append(first)
+        if lp0 is not None:
+            req.logprobs.append(lp0)
         if self._apply_stop(req, len(req.tokens) - 1):
             # the insert armed the slot on the device; disarm it
             self._slot_req[slot] = req
@@ -1029,7 +1171,8 @@ class ServingEngine:
         device state may already be a chunk further)."""
         if self.K:
             return self._consume_spec(wait, snapshot)
-        emits, lives = wait()  # [T, B]
+        emits, lives, *lps = wait()  # [T, B] (and logprobs [T, B])
+        lps = lps[0] if lps else None
         self._n_live_rounds += int(lives.sum())
         for b, req in enumerate(snapshot):
             if req is None or req.done:
@@ -1043,6 +1186,8 @@ class ServingEngine:
                     hit_eos = True
                     break
                 req.tokens.append(tok)
+                if lps is not None:
+                    req.logprobs.append(float(lps[t, b]))
                 self._n_emitted += 1
                 if self._apply_stop(req, len(req.tokens) - 1):
                     self._retire(req, b, "stop", kill_device=True)
@@ -1057,7 +1202,8 @@ class ServingEngine:
         tokens for slot b (an eos is never emitted); ``dones`` marks the
         eos or budget retirement decided on the device, which the host
         replays."""
-        emits, n_emits, dones = wait()  # [T, B, K+1], [T, B], [T, B]
+        emits, n_emits, dones, *lps = wait()  # [T, B, K+1], [T, B], [T, B] (, [T, B, K+1])
+        lps = lps[0] if lps else None
         self._n_live_rounds += int((n_emits > 0).sum())
         for b, req in enumerate(snapshot):
             if req is None or req.done:
@@ -1065,6 +1211,8 @@ class ServingEngine:
             for t in range(self.chunk):
                 old = len(req.tokens)
                 req.tokens.extend(int(x) for x in emits[t, b, :n_emits[t, b]])
+                if lps is not None:
+                    req.logprobs.extend(float(x) for x in lps[t, b, :n_emits[t, b]])
                 self._n_emitted += int(n_emits[t, b])
                 if self._apply_stop(req, old):
                     self._retire(req, b, "stop", kill_device=True)

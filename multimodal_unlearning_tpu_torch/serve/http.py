@@ -11,19 +11,20 @@ thread owns the engine exclusively: it admits queued submissions, calls
 ``engine.step()`` while anything is in flight, and sets each item's event
 when its request completes.  The engine itself stays single-threaded, the
 handlers are thin, and throughput properties (continuous batching,
-speculation, the prefix cache, the paged KV cache) are exactly the
-engine's.
+speculation, the prefix cache, the paged KV cache, multi-LoRA, sampling)
+are exactly the engine's.
 
 Endpoints:
-  POST /v1/completions   {"prompt": str, "max_tokens"?, "stop"?, "draft"?,
-                          "stream"?}  -> {"text", "tokens", "adapter",
-                          "ttft_s", "latency_s"} (or an SSE stream)
+  POST /v1/completions   {"prompt": str, "max_tokens"?, "adapter"?,
+                          "sample_seed"?, "stop"?, "draft"?, "stream"?}
+                          -> {"text", "tokens", "adapter", "ttft_s",
+                          "latency_s"} (+ "logprobs": {"token_logprobs"}
+                          when the engine keeps them), or an SSE stream
   GET  /v1/stats         engine.stats() + queue depth
   GET  /health           200 once the engine thread is live
 
-Options the port does not have yet raise as the engine raises them: an
-"adapter" (multi-LoRA serving) and a "temperature" above 0 (sampling)
-answer 501; "sample_seed" changes nothing under greedy decoding.
+Sampling is the engine's setting: a request's "temperature" is ignored, as
+in the JAX package.  An unknown "adapter" answers 400.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ class _Work:
 
 
 class EngineServer:
-    """Own an engine on a engine thread; serve HTTP on a ThreadingHTTPServer.
+    """Own an engine on an engine thread; serve HTTP on a ThreadingHTTPServer.
 
     Args:
       engine: a ServingEngine.
@@ -90,9 +91,6 @@ class EngineServer:
             for w in fresh:
                 try:
                     p = w.payload
-                    if float(p.get("temperature") or 0.0) > 0.0:
-                        raise NotImplementedError(
-                            "sampled decoding (temperature > 0) is not ported yet")
                     ids = self.encode(str(p["prompt"]))
                     dref = self.encode(str(p["draft"])) if p.get("draft") else None
                     w.request = self.engine.submit(
@@ -170,6 +168,9 @@ class EngineServer:
             "ttft_s": round(r.first_t - r.submit_t, 4),
             "latency_s": round(r.done_t - r.submit_t, 4),
         }
+        if self.engine.want_lp:
+            # OpenAI-completions shape: one logprob per emitted token
+            out["logprobs"] = {"token_logprobs": [round(x, 6) for x in r.logprobs]}
         return out
 
     def stats(self) -> dict:

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["propose_drafts", "accept_round"]
+__all__ = ["propose_drafts", "accept_round", "token_logprobs"]
 
 
 def propose_drafts(draft_ref, ids_buf, token, cur, K: int):
@@ -41,7 +41,16 @@ def propose_drafts(draft_ref, ids_buf, token, cur, K: int):
     return torch.where(known, vals, -4)
 
 
-def accept_round(chunk, preds, live, cap, ids_buf, kv_valid, write_col, eos: int):
+def token_logprobs(logits, tokens):
+    """The raw ``log_softmax`` of ``logits`` [..., V] (in f32) at
+    ``tokens`` [...]: the logprob of each emitted token, whatever the
+    sampling settings."""
+    lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return torch.gather(lp, -1, tokens[..., None])[..., 0]
+
+
+def accept_round(chunk, preds, live, cap, ids_buf, kv_valid, write_col, eos: int,
+                 logits=None):
     """What one verify round keeps.  ``chunk`` [B, K+1] is [token | drafts]
     as verified, ``preds`` [B, K+1] the argmax after each of its positions.
     The run of drafts equal to the argmax is accepted (``a``, 0..K), and the
@@ -49,7 +58,9 @@ def accept_round(chunk, preds, live, cap, ids_buf, kv_valid, write_col, eos: int
     ``cap`` [B] tokens; a row that is not ``live`` emits nothing.  The
     accepted context chunk[0..a] extends the row's history ``ids_buf`` and
     its validity ``kv_valid`` (both [B, Smax], in place) from column
-    ``write_col`` [B] on.  Returns (a, n_emit, hit_eos), each [B]."""
+    ``write_col`` [B] on.  Returns (a, n_emit, hit_eos), each [B], and with
+    the verify forward's ``logits`` [B, K+1, V] also the logprob of each
+    position's argmax [B, K+1] (emitted tokens are preds[0..n_emit))."""
     B, C = chunk.shape
     dev = chunk.device
     ar = torch.arange(C, device=dev)[None, :]
@@ -67,4 +78,6 @@ def accept_round(chunk, preds, live, cap, ids_buf, kv_valid, write_col, eos: int
     cols = torch.where(acc, write_col[:, None] + ar, ids_buf.shape[1] - 1)
     ids_buf[rows, cols] = torch.where(acc, chunk, ids_buf[rows, cols])
     kv_valid[rows, cols] = torch.maximum(kv_valid[rows, cols], acc.to(torch.int32))
+    if logits is not None:
+        return a, n_emit, hit_eos, token_logprobs(logits, preds)
     return a, n_emit, hit_eos

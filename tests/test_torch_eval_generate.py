@@ -10,9 +10,10 @@ JAX tree, and back through ``models/convert.py``).  Token ids must be IDENTICAL 
 - an int8 KV cache;
 - LLaVA prompts with an image (``pixel_values``), plain and speculative.
 
-``do_sample=True`` raises.  Identity holds because both sides compute in
-f32 with the same weights; a difference in the last bits of a logit could
-flip only an exact tie, which random f32 logits do not produce here.
+``do_sample=True`` with speculation raises (``test_torch_sampling.py``
+holds the sampled route).  Identity holds because both sides compute in f32
+with the same weights; a difference in the last bits of a logit could flip
+only an exact tie, which random f32 logits do not produce here.
 """
 
 import jax
@@ -156,10 +157,12 @@ def test_image_prompts_match_jax():
 
 
 def test_sampling_and_mesh_raise(llama_setup):
+    """Sampling with speculation raises as in the JAX package (the verify
+    round checks drafts against the argmax); mesh is not ported."""
     _, _, tcfg, model, ids, mask = llama_setup
-    with pytest.raises(NotImplementedError, match="sampling"):
+    with pytest.raises(ValueError, match="speculate_k"):
         tgen.greedy_generate(model, tcfg, ids, mask, max_new_tokens=2, pad_token_id=0,
-                             do_sample=True)
+                             do_sample=True, speculate_k=2)
     with pytest.raises(NotImplementedError, match="mesh"):
         tgen.greedy_generate(model, tcfg, ids, mask, max_new_tokens=2, pad_token_id=0,
                              mesh=object())

@@ -1,8 +1,8 @@
 """Rules of the PyTorch port: it imports neither ``jax`` nor the JAX
 package (an AST scan, and an import of every module in a subprocess with
 both blocked); its entry points refuse to run without a card unless the
-caller asks for the CPU; options it has not ported raise; its presets equal
-the YAML registry."""
+caller asks for the CPU; options it has not ported raise (of the engine's,
+``mesh`` alone); its presets equal the YAML registry."""
 
 import ast
 import json
@@ -129,7 +129,6 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    {"temperature": 0.7}, {"logprobs": True}, {"adapters": {"a": None}},
     {"mesh": object()}, {"cache_dtype": torch.float64},
 ], ids=lambda o: next(iter(o)))
 def test_unported_engine_options_raise(option):
@@ -144,14 +143,21 @@ def test_unported_engine_options_raise(option):
 
 @pytest.mark.parametrize("option", [
     {"speculate_k": 2}, {"prefill_chunk": 64}, {"cache_dtype": torch.int8}, {"page_size": 16},
+    {"temperature": 0.7}, {"logprobs": True}, {"adapters": "one"},
 ], ids=lambda o: next(iter(o)))
 def test_ported_engine_options_construct(option):
-    from multimodal_unlearning_tpu_torch.models import llava
+    from multimodal_unlearning_tpu_torch.models import llava, lora
     from multimodal_unlearning_tpu_torch.serve import ServingEngine
 
     cfg = tconfig.build_model_config(tconfig.get_model_identifiers("tiny-llava-test"))
     model = llava.init_params(cfg, device="cpu")
+    if option.get("adapters"):
+        tree = lora.init_model_lora(model, 2, torch.Generator().manual_seed(0))
+        option = {"adapters": {"one": (tree, 2.0)}}
     ServingEngine(model, cfg, "llava", device="cpu", **option)
+    if option.get("temperature"):  # speculation verifies against the argmax
+        with pytest.raises(ValueError, match="speculate_k"):
+            ServingEngine(model, cfg, "llava", device="cpu", speculate_k=2, **option)
 
 
 @pytest.mark.parametrize("key", ["processor_path"])

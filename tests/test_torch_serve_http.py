@@ -3,8 +3,9 @@
 The server is a thin shell over the engine: handlers enqueue, one engine
 thread owns the engine.  Held here: concurrent completions equal direct
 drains of a second engine on the same weights (a paged one behind the
-server, a dense one as the reference), bad payloads answer 400 and options
-the port lacks (an adapter, temperature > 0) 501 without stopping the loop,
+server, a dense one as the reference), bad payloads and an unknown adapter
+answer 400 and a per-request temperature is ignored (sampling is the
+engine's setting, as in the JAX package) without stopping the loop,
 a stop string cuts the text, stats and health answer, and
 ``cli.serve_http.make_server`` builds a server from a serve config.
 """
@@ -88,11 +89,13 @@ def test_completions_match_direct_engine(server):
 def test_bad_payloads_and_unported_options_keep_the_loop(server):
     _, url, *_ = server
     for payload, code in (({"max_tokens": 4}, 400), ({"prompt": "x", "max_tokens": 500}, 400),
-                          ({"prompt": "x", "adapter": "npo"}, 501),
-                          ({"prompt": "x", "temperature": 0.7}, 501)):
+                          ({"prompt": "x", "adapter": "npo"}, 400)):
         with pytest.raises(urllib.error.HTTPError) as e:
             _post(f"{url}/v1/completions", payload)
         assert e.value.code == code, payload
+    greedy = _post(f"{url}/v1/completions", {"prompt": "x", "max_tokens": 3})
+    assert _post(f"{url}/v1/completions", {"prompt": "x", "max_tokens": 3,
+                                           "temperature": 0.7})["text"] == greedy["text"]
     assert _post(f"{url}/v1/completions", {"prompt": "still alive?", "max_tokens": 3})[
         "tokens"] == 3
 

@@ -172,7 +172,9 @@ def test_unported_training_options_raise(decoder):
     with pytest.raises(ValueError):
         model(tids, remat=True, remat_policy="everything", compute_dtype=torch.float32)
     bank = {"layers": {"q_proj": {"a": torch.zeros(2, 3, 256, 4), "b": torch.zeros(2, 3, 4, 256)}}}
-    with pytest.raises(NotImplementedError, match="bank"):
+    # a bank is ported (multi-LoRA serving); without per-row ids it raises,
+    # as in the JAX package
+    with pytest.raises(ValueError, match="lora_ids"):
         model(tids, lora=bank, lora_scale=1.0, compute_dtype=torch.float32)
 
 
