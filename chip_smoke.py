@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA card (H100) end to end.
 
-    python3 chip_smoke.py [--kernels-only]
+    python3 chip_smoke.py [--kernels-only | --qwen-only | --nlp-only]
 
 (``--kernels-only`` stops after phase 2 and prints its numbers instead of
-a result line.)
+a result line; ``--qwen-only`` runs phases 1, 2 and 8, ``--nlp-only`` phase
+1, phase 2's text-stack cases and phase 9, and print theirs.)
 
 1. Prints the card's name and power limit, builds the kernels from
    ``multimodal_unlearning_tpu_torch/ops/csrc`` with nvcc (sm_90a) and
@@ -47,7 +48,11 @@ a result line.)
    (8, 16, 576, 80) without a mask and (8 x 9, 16, 64, 80) with ragged
    window padding; B4, B4q, B6, B6q at B 8, 12 q-heads on 2 kv-heads (GQA
    group 6), D 128; B5, B5q, B7, B7q at the verify round at group 6; B2 and
-   B3 at (2, 12/2, 512, 128) causal with left padding.
+   B3 at (2, 12/2, 512, 128) causal with left padding.  Then B1, B2 and B3
+   at phase 9's shapes (``check_nlp``): Llama-2-7B's training batch
+   (4, 32, 500, 128), causal and right-padded with rows of 200-500 tokens
+   (500 is no multiple of a tile: a partial last tile under the causal
+   cut), and B1 at its teacher-forced eval batch (8, 32, 1024, 128).
 3. Serves LLaVA-1.5-7B at full width (random weights from a seed, bf16)
    through ``cli.serve.build_engine`` + ``ServingEngine``: ten requests of
    mixed prompt lengths, two with synthetic 336x336 pixels, 32..64 new
@@ -98,8 +103,8 @@ a result line.)
    gives, and the loss and LoRA gradients must agree with the same step on
    the plain attention versions.  Then one step under the profiler.
 Phases 5-7 run LLaVA-1.5-7B at full width with its decoder cut to
-``LLAVA_CLI_DEPTH`` (16) of its 32 layers, so that the script with phase 8
-stays within its time limit.
+``LLAVA_CLI_DEPTH`` (8) of its 32 layers, so that the script with phases 8
+and 9 (each at full depth) stays within its time limit.
 5. Frees that model and runs the forget CLI as a user runs it:
    ``cli.mm_forget.main`` on ``configs/mm/forget.yaml`` with ``FORGET_CLI_ARGS``
    (LLaVA-1.5-7B at full width from seed 42, synthetic CLEAR data:
@@ -131,7 +136,8 @@ stays within its time limit.
    loss and gradient norm finite, no step skipped, NPO's loss moving, the
    trainable leaves moved and the vision tower equal bit for bit to the loaded
    one, B1/B2/B3 launched exactly as each loss's splits give, peak memory under
-   ``PEAK_BOUND_GIB`` (set for the cut depth) and printed; steps/s and tok/s per CLI step, ms and launches per loss.
+   ``PEAK_BOUND_GIB`` (each reading at ``LLAVA_CLI_DEPTH`` layers with ~15%
+   room) and printed; steps/s and tok/s per CLI step, ms and launches per loss.
 7. CLEAR's evaluation of phase 6a's checkpoint through the CLIs (kept until
    this phase ends): 7a ``cli.mm_eval.main`` on ``configs/mm/eval.yaml`` as
    it ships (bf16, the plain ``greedy_generate`` route, 300 new tokens, batch
@@ -153,7 +159,7 @@ stays within its time limit.
    tokens per verify round and peak memory.
 8. Qwen2-VL, the family every shipped mm config names (``run_qwen_path``):
    8a ``cli.mm_finetune.main`` on ``configs/mm/finetune.yaml`` as it ships
-   (qwen-vl2-2b at full width and depth from seed 42, bf16, LoRA r 8 with
+   (qwen-vl2-2b at full width and depth, from seed 42, bf16, LoRA r 8 with
    the merger's adapters, batch 4, accumulation 2; ``QWEN_DATA``, 3 steps,
    merged save); 8b ``cli.mm_forget.main`` on ``configs/mm/forget.yaml`` as
    it ships from 8a's checkpoint (``LoRA.r=0``, batch 2, accumulation 4,
@@ -187,12 +193,41 @@ stays within its time limit.
    micro-batches, teacher-forced forwards, the engine's prompt, image,
    decode and chunk forwards).  ``--qwen-only`` runs phases 1, 2 and 8 and
    prints their numbers instead of a result line.
-9. Prints one ``{"eval": ...}`` line (phase 7's numbers, 8c's and 8f's), one
-   ``{"kernels": [...]}`` line (twelve kernels; B1-B3 with phase 6's
-   launches, B1, B4 and B5 with phase 7's, each with a ``qwen2vl`` entry:
-   phase 2's numbers at the Qwen shapes and phase 8's launches, 8f's
-   included), the card's name and power limit, and as the last line
-   ``{"ok": true, "device": {...}}``.
+9. CLEAR's text-only stack, ``configs/nlp/*.yaml``, on Llama-2-7B at full
+   width and depth from seed 42, bf16, synthetic TOFU-style rows
+   (``run_nlp_path``): 9a ``cli.nlp_finetune.main`` on finetune.yaml (LoRA
+   r 8, max_length 500; its 128-row batch as 16 accumulated micro-batches of
+   8; 2 steps; merged and saved in bf16); 9b ``cli.nlp_forget.main`` on
+   forget.yaml as it ships (RMU, LoRA r 8, batch 4, accumulation 2, AdamW)
+   from 9a's checkpoint, 3 steps, saved; at 9b's loop's end, on its student
+   (9c): RMU's first batch on the kernels and on plain attention (loss
+   within 0.05, cosine >= 0.95 on every LoRA leaf), then one step each of
+   idk (one concatenated forward), dpo, npo (the text trainer's form) and
+   grad_ascent with L1 of the adapters; 9c grad_proj (full parameters, SGD,
+   two backward passes) and grad_proj_l2 (second order, on plain attention,
+   one row a split) through the CLI from 9b's checkpoint; 9d
+   ``cli.nlp_eval.main`` on eval_everything.yaml with 9b's checkpoint (four
+   tasks, ``ds_size`` 8, max_length 1024, 200 new tokens, greedy: B1, B4);
+   9e the same on 9a's checkpoint (the retain model's stand-in) with
+   ``engine_generate=true speculative_k=4`` (B1, B5); 9f
+   ``cli.nlp_aggregate.main`` on 9d's and 9e's aggregates; 9g
+   ``inspect_runs`` sweep and gens over the runs, ``build_tables`` over
+   phase 7's two aggregates, ``push_model``'s layout check.  Every loss and
+   gradient norm finite, no step skipped, RMU's loss moving and the LoRA b
+   leaves off zero, the launches of B1-B5 exactly as each run's structure
+   gives (none in grad_proj_l2), the checkpoints holding exactly
+   ``llama_to_hf``'s names in bf16, the eval files in the JAX schema, every
+   generated token within ``TIE_MARGIN`` of a teacher-forced argmax, the CSV
+   with the JAX CLI's columns, all finite.  Prints seconds per sub-phase,
+   steps/s and tok/s per step, peaks, eval seconds per task, tok/s and ms
+   per decode step (per verify round in 9e), merge, save and load seconds.
+10. Prints one ``{"eval": ...}`` line (phase 7's numbers, 8c's, 8f's and
+   9d/9e's), one ``{"kernels": [...]}`` line (twelve kernels; B1-B3 with
+   phase 6's launches, B1, B4 and B5 with phase 7's, each with a
+   ``qwen2vl`` entry: phase 2's numbers at the Qwen shapes and phase 8's
+   launches, 8f's included, and B1-B5 with an ``nlp`` entry: phase 2's
+   numbers at phase 9's shapes and phase 9's launches), the card's name and
+   power limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; without a CUDA device it exits 1 before doing anything.
@@ -200,6 +235,7 @@ result; without a CUDA device it exits 1 before doing anything.
 
 from __future__ import annotations
 
+import bisect
 import collections
 import contextlib
 import gc
@@ -862,9 +898,7 @@ def device_ms_cycle(fns, iters=24) -> float:
             for _ in range(iters):
                 next(calls)()
             torch.cuda.synchronize()
-        total = sum(e.device_time_total for e in prof.events()
-                    if str(getattr(e, "device_type", "")).endswith("CUDA")
-                    and not getattr(e, "is_user_annotation", False))
+        total = sum(ns for _, ns, _ in _device_events(prof)) / 1e3
         if total > 0:
             totals.append(total)
         if len(totals) == 2:
@@ -1382,6 +1416,123 @@ def check_qwen(dev, gen):
     return worst, record
 
 
+# ------------------------------------------------------------- phase 2, text stack
+# The shapes phase 9 (Llama-2-7B, configs/nlp) gives the kernels: B1, B2 and
+# B3 at the training batch (4, 32, 500, 128), causal, right-padded with rows
+# of 200-500 tokens (500 is no multiple of any tile: the last tile is
+# partial under the causal cut), and B1 at the teacher-forced evaluation
+# batch (8, 32, 1024, 128), right-padded.  B4 and B5 run there at phase 2's
+# own decode and verify shapes (32 heads on 32 kv-heads, D 128, 8 rows).
+NLP_TRAIN = (4, 32, 500, 128)  # B, H, S, D
+NLP_EVAL = (8, 32, 1024, 128)
+
+
+def _right_padded(B, S, lo, rng, dev):
+    """[B, S] validity of right-padded rows of lo..S tokens (the first full)."""
+    lens = rng.integers(lo, S + 1, B)
+    lens[0] = S
+    return (torch.arange(S)[None, :] < torch.from_numpy(lens)[:, None]).to(dev, torch.int32)
+
+
+def _causal_pairs(mask):
+    """[B, S, S] visible (query, key) pairs: the key valid and not after the
+    query (every query row, the padding rows too, as the kernels run them)."""
+    S = mask.shape[1]
+    ar = torch.arange(S, device=mask.device)
+    return mask.bool()[:, None, :] & (ar[:, None] >= ar[None, :])
+
+
+def _nlp_b1(dev, gen, worst, record):
+    rng = np.random.default_rng(8)
+    for name, (B, H, S, D), lo in (("train", NLP_TRAIN, 200), ("eval", NLP_EVAL, 60)):
+        q, k, v = (randn(gen, (B, H, S, D), dev) for _ in range(3))
+        mask = _right_padded(B, S, lo, rng, dev)
+        o, lse = flash_attention_lse(q, k, v, mask, causal=True)
+        torch.cuda.synchronize()
+        ref, lse_ref = flash_attention_lse(q, k, v, mask, causal=True, impl="plain")
+        err = (o.float() - ref.float()).abs().max().item()
+        lse_err = (lse - lse_ref).abs().max().item()
+        if err > KERNEL_TOL or lse_err > 1e-3:
+            raise AssertionError(f"B1 nlp {name}: max |err| {err} (tol {KERNEL_TOL}), lse "
+                                 f"{lse_err}")
+        worst["flash_fwd"] = max(worst["flash_fwd"], err)
+        vis = _causal_pairs(mask)
+        pairs = H * int(vis.sum().item())
+        nbytes = 2 * 4 * q.numel() + 4 * (lse.numel() + mask.numel())
+        copies = [(q, k, v)] + [tuple(t.clone() for t in (q, k, v))
+                                for _ in range(n_cold(nbytes) - 1)]
+        record["flash_fwd"][name] = dict(max_abs_err=err, **_timed_case(
+            f"B1 nlp {name} B{B} H{H} S{S} D{D} causal, right-padded (rows of "
+            f"{int(mask.sum(1).min())}-{S}): max|err| {err:.3e} lse {lse_err:.2e}",
+            [lambda c=c: flash_attention_lse(*c, mask, causal=True) for c in copies],
+            lambda: flash_attention_lse(q, k, v, mask, causal=True, impl="plain"),
+            [lambda c=c: F.scaled_dot_product_attention(*c, attn_mask=vis[:, None])
+             for c in copies], nbytes, 4.0 * D * pairs))
+        del q, k, v, o, lse, ref, lse_ref, copies, vis
+
+
+def _nlp_bwd(dev, gen, worst, record):
+    B, H, S, D = NLP_TRAIN
+    rng = np.random.default_rng(9)
+    q, do = randn(gen, (B, H, S, D), dev), randn(gen, (B, S, H, D), dev).transpose(1, 2)
+    k, v = randn(gen, (B, H, S, D), dev), randn(gen, (B, H, S, D), dev)
+    mask = _right_padded(B, S, 200, rng, dev)
+    o, lse = flash_attention_lse(q, k, v, mask, causal=True)
+    delta = (do.float() * o.float()).sum(-1)
+    got = (flash_bwd_dq(q, k, v, mask, do, lse, delta, causal=True),
+           *flash_bwd_dkv(q, k, v, mask, do, lse, delta, causal=True))
+    torch.cuda.synchronize()
+    want = (flash_bwd_dq(q, k, v, mask, do, lse, delta, causal=True, impl="plain"),
+            *flash_bwd_dkv(q, k, v, mask, do, lse, delta, causal=True, impl="plain"))
+    errs = {}
+    for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        err = (g - w).abs()
+        if not torch.isfinite(g).all() or torch.any(err > BWD_REL_TOL * w.abs().max()
+                                                    + BWD_ULP * w.abs()):
+            raise AssertionError(f"B2/B3 nlp train: {gname} max |err| {err.max().item():.4e}")
+        errs[gname] = err.max().item()
+    worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs["dq"])
+    worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], errs["dk"], errs["dv"])
+    vis = _causal_pairs(mask)
+    pairs = H * int(vis.sum().item())
+    small = 4 * (lse.numel() + delta.numel() + mask.numel())
+    copies = [(q, k, v, do)] + [tuple(t.clone() for t in (q, k, v, do))
+                                for _ in range(n_cold(2 * 4 * q.numel()) - 1)]
+    graphs = []
+    for c in copies:
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in c[:3])
+        ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=vis[:, None])
+        graphs.append((ol, (ql, kl, vl), c[3]))
+    lib = [lambda g=g: torch.autograd.grad(g[0], g[1], g[2], retain_graph=True) for g in graphs]
+    for kname, fn, nbytes, flops, err in (
+            ("flash_bwd_dq", flash_bwd_dq,
+             2 * (2 * q.numel() + do.numel() + k.numel() + v.numel()) + small, 6.0 * D * pairs,
+             errs["dq"]),
+            ("flash_bwd_dkv", flash_bwd_dkv,
+             2 * (q.numel() + do.numel() + 2 * (k.numel() + v.numel())) + small,
+             8.0 * D * pairs, max(errs["dk"], errs["dv"]))):
+        record[kname]["train"] = dict(max_abs_err=err, **_timed_case(
+            f"{kname} nlp train (B{B} H{H} S{S} D{D} causal, right-padded rows of "
+            f"{int(mask.sum(1).min())}-{S}): max|err| {err:.3e}; sdpa is the whole backward "
+            f"(dq, dk and dv)",
+            [lambda c=c, fn=fn: fn(*c[:3], mask, c[3], lse, delta, causal=True)
+             for c in copies],
+            lambda fn=fn: fn(q, k, v, mask, do, lse, delta, causal=True, impl="plain"),
+            lib, nbytes, flops))
+    del copies, graphs
+
+
+def check_nlp(dev, gen):
+    """B1, B2 and B3 at the shapes phase 9 (Llama-2-7B) gives them; returns
+    ({kernel: max error}, {kernel: {case: numbers}})."""
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    worst, record = dict.fromkeys(names, 0.0), {n: {} for n in names}
+    _nlp_b1(dev, gen, worst, record)
+    _nlp_bwd(dev, gen, worst, record)
+    return worst, record
+
+
 # ------------------------------------------------------------- phase 3
 def make_requests(processor, image_size):
     rng = np.random.default_rng(0)
@@ -1503,6 +1654,49 @@ def run_main_path(cfg):
     return engine, launches, specs, kern, [r.tokens for r in reqs]
 
 
+def _device_events(prof):
+    """The device kernels (and copies) of a profiled window as (name, ns,
+    the id of the host op that launched it), read from the profiler's raw
+    events: its own per-event processing (``prof.events()``) took ~6 s per
+    40,000 device kernels on the H100's host, ~12 s with host ops.  Device
+    events of ``record_function`` ranges are left out: they span the
+    range's kernels and would count them twice."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.duration_ns(), e.linked_correlation_id())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
+            and not e.is_hidden_event()]
+
+
+def _in_ranges(prof, ranges):
+    """{range: the ids of the host ops run inside a host op or
+    ``record_function`` range of that name (on its thread), itself
+    included}."""
+    from torch.autograd import DeviceType
+
+    host = [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CPU and e.linked_correlation_id() == 0]
+    out = {}
+    for r in ranges:
+        spans: dict[int, list] = {}  # thread -> disjoint (start, end) of the range
+        for e in sorted((e for e in host if e.name() == r), key=lambda e: e.start_ns()):
+            t = spans.setdefault(e.start_thread_id(), [])
+            if t and e.start_ns() <= t[-1][1]:
+                t[-1][1] = max(t[-1][1], e.end_ns())
+            else:
+                t.append([e.start_ns(), e.end_ns()])
+        starts = {th: [a for a, _ in t] for th, t in spans.items()}
+        out[r] = set()
+        for e in host:
+            t = spans.get(e.start_thread_id())
+            if t:
+                i = bisect.bisect_right(starts[e.start_thread_id()], e.start_ns()) - 1
+                if i >= 0 and e.start_ns() <= t[i][1]:
+                    out[r].add(e.correlation_id())
+    return out
+
+
 def profiled(fn, ranges=()):
     """Run ``fn`` once under torch.profiler; returns (wall ms, device ms,
     device kernels, the kernels taking most device time as text) and, with
@@ -1512,8 +1706,7 @@ def profiled(fn, ranges=()):
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     # host ops only when a range is asked for (or in a rehearsal without a
-    # card): the profiler's processing of a 16-step decode chunk's host
-    # events took ~20 s a window
+    # card)
     activities = [ProfilerActivity.CUDA] + (
         [ProfilerActivity.CPU] if ranges or not torch.cuda.is_available() else [])
     with torch_profile(activities=activities) as prof:
@@ -1521,24 +1714,20 @@ def profiled(fn, ranges=()):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device activities only: a record_function range also appears on the
-    # device timeline (first to last kernel under it) and would count twice
-    events = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")
-              and not getattr(e, "is_user_annotation", False)]
-    dev_ms = sum(e.device_time_total for e in events) / 1e3
+    events = _device_events(prof)
+    dev_ms = sum(ns for _, ns, _ in events) / 1e6
     by_name: dict[str, list] = {}
-    for e in events:
-        t = by_name.setdefault(e.name, [0.0, 0])
-        t[0] += e.device_time_total / 1e3
+    for name, ns, _ in events:
+        t = by_name.setdefault(name, [0.0, 0])
+        t[0] += ns / 1e6
         t[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    top_txt = "; ".join(f"{name[:70]} x{n}: {ms / dev_ms:.3f}" for name, (ms, n) in top)
+    top_txt = "; ".join(f"{name[:70]} x{n}: {ms / max(dev_ms, 1e-9):.3f}"
+                        for name, (ms, n) in top)
     if not ranges:
         return wall_ms, dev_ms, len(events), top_txt
-    by_range = {r: 0.0 for r in ranges}
-    for e in prof.events():
-        if e.name in by_range and str(getattr(e, "device_type", "")).endswith("CPU"):
-            by_range[e.name] += e.device_time_total / 1e3
+    inside = _in_ranges(prof, ranges)
+    by_range = {r: sum(ns for _, ns, op in events if op in inside[r]) / 1e6 for r in ranges}
     for r in ranges:
         by_range[r] += sum(ms for name, (ms, _) in by_name.items() if r in name)
     return wall_ms, dev_ms, len(events), top_txt, by_range
@@ -2163,8 +2352,9 @@ def _forget_path(model, timed_steps):
 # ------------------------------------------------------------- phases 5-7
 # Phases 5-7 drive LLaVA-1.5-7B through the CLIs at full width with its
 # decoder cut to LLAVA_CLI_DEPTH of its 32 layers (the vision tower whole),
-# so that the whole script, phase 8 included, stays within its time limit
-LLAVA_CLI_DEPTH = 16
+# so that the whole script, phases 8 and 9 at full depth included, stays
+# within its time limit
+LLAVA_CLI_DEPTH = 8
 
 
 @contextlib.contextmanager
@@ -2373,16 +2563,16 @@ R0_FORGET_CLI_ARGS = [
     "num_epochs=0.4",  # 16 forget rows, 2 a step: 3 steps, no train-state save
 ]
 OTHER_LOSSES = ("scrub", "KL", "llmu", "rmu", "dpo", "sku", "idk", "eco_ft")
-# peak device memory per sub-phase (GiB) at LLAVA_CLI_DEPTH (16) decoder
-# layers: 6a the bf16 model, f32 adapters and activations (read 9.36 on an
+# peak device memory per sub-phase (GiB) at LLAVA_CLI_DEPTH (8) decoder
+# layers: 6a the bf16 model, f32 adapters and activations (read 5.76 on an
 # H100 80GB HBM3 at 700 W); 6b the student, a bf16 teacher, gradients,
-# adamw_q8's moments and activations (read 33.33); 6c a loss's gradients and
+# adamw_q8's moments and activations (read 21.22); 6c a loss's gradients and
 # activations on 6b's resident state (SKU: five student forwards), or the
 # student, its gradients, the initial copy and plain AdamW's bf16 moments
-# once the teacher and the int8 state are gone (read 36.39).  Each bound is
+# once the teacher and the int8 state are gone (read 21.32).  Each bound is
 # its reading with ~15% room.  At 32 layers 6b read 57.54: that r=0 fits
 # one card at full depth is shown by r0_memory.py, not here
-PEAK_BOUND_GIB = {"6a finetune": 11.0, "6b forget r0": 38.5, "6c losses": 42.0}
+PEAK_BOUND_GIB = {"6a finetune": 6.6, "6b forget r0": 24.4, "6c losses": 24.5}
 
 
 def _splits(loss: str, batch: dict) -> tuple[int, int, int]:
@@ -2404,7 +2594,10 @@ def _splits(loss: str, batch: dict) -> tuple[int, int, int]:
 def vision_launches(vis) -> int:
     """B1 launches of one image forward of a vision tower: one a layer
     (LLaVA's ViT), one a block (Qwen2-VL's tower; Qwen2.5-VL's windowed
-    blocks fold their windows into one launch)."""
+    blocks fold their windows into one launch); none without a tower (a
+    text model, ``vis`` None)."""
+    if vis is None:
+        return 0
     return vis.num_layers if hasattr(vis, "num_layers") else vis.depth
 
 
@@ -2428,23 +2621,27 @@ class _CliRecorder:
     """While active, records what a CLI run builds and does: the arguments
     of ``make_apply_fn`` and ``make_train_step``, every step's metrics
     (floats), wall time and tokens (every split, as the loop counts them),
-    and ``train_loop``'s frozen tree, teacher and final state."""
+    and ``train_loop``'s frozen tree, teacher and final state.
+    ``after_loop(recorder)``, if given, runs when ``train_loop`` returns,
+    before the CLI merges and saves."""
 
-    def __init__(self, cli):
+    def __init__(self, cli, after_loop=None):
         from multimodal_unlearning_tpu_torch.cli import mm_forget
         from multimodal_unlearning_tpu_torch.train import trainer
 
         self.cli, self.mm_forget, self.trainer = cli, mm_forget, trainer
         self.steps, self.loop, self.apply_kw, self.step_args = [], {}, None, None
+        self.after_loop = after_loop
 
     def __enter__(self):
         rec = self
+        # every training CLI runs its loop through cli.common.run_train_loop
         make_step, make_apply, loop = (self.trainer.make_train_step,
-                                       self.mm_forget.make_apply_fn, self.cli.train_loop)
+                                       self.mm_forget.make_apply_fn, common.train_loop)
         self._saved = [(self.trainer, "make_train_step", make_step),
                        (self.mm_forget, "make_apply_fn", make_apply),
                        (self.cli, "make_apply_fn", getattr(self.cli, "make_apply_fn")),
-                       (self.cli, "train_loop", loop)]
+                       (common, "train_loop", loop)]
 
         def apply_wrapper(*a, **kw):
             rec.apply_kw = (a, kw)
@@ -2471,12 +2668,14 @@ class _CliRecorder:
             rec.loop.update(frozen=kw["frozen"], teacher=kw["teacher_params"])
             state, history = loop(**kw)
             rec.loop["state"] = state
+            if rec.after_loop is not None:
+                rec.after_loop(rec)
             return state, history
 
         self.trainer.make_train_step = step_wrapper
         self.mm_forget.make_apply_fn = apply_wrapper
         self.cli.make_apply_fn = apply_wrapper
-        self.cli.train_loop = loop_wrapper
+        common.train_loop = loop_wrapper
         return self
 
     def __exit__(self, *exc):
@@ -2764,27 +2963,31 @@ EVAL_TF_TOL = 1e-5
 
 
 class _EvalRecorder:
-    """While active, records what ``cli.mm_eval.run`` does: the model it
-    loads, the tokens a stream may end at (eos, pad), and per task its wall
-    time, its teacher-forced forwards (count and seconds) and its generation
-    (seconds, decode forwards, each row's token stream and prompt; the
-    engine's counters under ``engine_generate``)."""
+    """While active, records what ``cli.mm_eval.run`` (or, with ``text``,
+    ``cli.nlp_eval.run``) does: the model it loads, the tokens a stream may
+    end at (eos, pad), and per task its wall time, its teacher-forced
+    forwards (count and seconds) and its generation (seconds, decode
+    forwards, each row's token stream and prompt; the engine's counters
+    under ``engine_generate``)."""
 
-    def __init__(self, sync, max_new):
-        from multimodal_unlearning_tpu_torch.cli import mm_eval
+    def __init__(self, sync, max_new, text=False):
+        from multimodal_unlearning_tpu_torch.cli import mm_eval, nlp_eval
         from multimodal_unlearning_tpu_torch.evaluation import evaluator
 
-        self.mm_eval, self.evaluator, self.sync = mm_eval, evaluator, sync
+        self.cli, self.evaluator, self.sync = nlp_eval if text else mm_eval, evaluator, sync
+        # the evaluator's per-task entry point and its engine drain
+        self.names = ("nlp_get_all_evals", "_nlp_pregenerate") if text else (
+            "get_all_evals", "_pregenerate")
         self.model, self.tasks, self.max_new, self.ends = None, [], max_new, ()
 
     def __enter__(self):
         rec, ev, sync = self, self.evaluator, self.sync
-        load, get_all, losses = (common.init_or_load_params, ev.get_all_evals,
+        load, get_all, losses = (common.init_or_load_params, getattr(ev, self.names[0]),
                                  ev._model_losses)
-        greedy, pregen = self.mm_eval.greedy_generate, ev._pregenerate
-        self._saved = [(common, "init_or_load_params", load), (ev, "get_all_evals", get_all),
-                       (ev, "_model_losses", losses), (self.mm_eval, "greedy_generate", greedy),
-                       (ev, "_pregenerate", pregen)]
+        greedy, pregen = self.cli.greedy_generate, getattr(ev, self.names[1])
+        self._saved = [(common, "init_or_load_params", load), (ev, self.names[0], get_all),
+                       (ev, "_model_losses", losses), (self.cli, "greedy_generate", greedy),
+                       (ev, self.names[1], pregen)]
 
         def load_wrapper(*a, **kw):
             out = load(*a, **kw)
@@ -2860,10 +3063,10 @@ class _EvalRecorder:
             return texts
 
         common.init_or_load_params = load_wrapper
-        ev.get_all_evals = get_all_wrapper
+        setattr(ev, self.names[0], get_all_wrapper)
         ev._model_losses = losses_wrapper
-        self.mm_eval.greedy_generate = greedy_wrapper
-        ev._pregenerate = pregen_wrapper
+        self.cli.greedy_generate = greedy_wrapper
+        setattr(ev, self.names[1], pregen_wrapper)
         return self
 
     def __exit__(self, *exc):
@@ -2956,10 +3159,11 @@ def hold_streams(model, label, streams, prompts, max_new, ends, dtype=torch.bflo
     extras = extras or [{}] * len(streams)
     for i, (s, (ids, pix), kw) in enumerate(zip(streams, prompts, extras)):
         seq = torch.tensor([list(ids) + list(s)], device=dev)
-        pv = None if pix is None else torch.from_numpy(np.asarray(pix)[None]).to(dev, dtype)
+        if pix is not None:  # a text model takes no pixel argument
+            kw = dict(kw, pixel_values=torch.from_numpy(np.asarray(pix)[None]).to(dev, dtype))
         with torch.inference_mode():
-            logits = model(seq, pixel_values=pv, compute_dtype=dtype,
-                           positions=_tf_positions(model, ids, len(s)), **kw)["logits"][0].float()
+            logits = model(seq, compute_dtype=dtype, positions=_tf_positions(model, ids, len(s)),
+                           **kw)["logits"][0].float()
         lg = logits[len(ids) - 1:]  # lg[j] predicts token j of the stream
         if logprobs is not None:
             tok = torch.tensor(s, dtype=torch.long, device=dev)
@@ -3116,9 +3320,10 @@ QWEN_FORGET_ARGS = [f"forget_data_path={QWEN_DATA}", f"retain_data_path={QWEN_DA
                     "num_epochs=0.75"]  # 32 forget rows, 8 a step: 3 steps, no state save
 QWEN_EVAL_ARGS = ["model_family=qwen-vl2-2b", "ds_size=8",
                   f"data_path=[{','.join([EVAL_DATA] * 6)}]"]
-# 8a: the bf16 model (4.9 GB), f32 adapters, activations of 4 rows; 8b: the
-# model, its bf16 gradients, the f32 accumulator, AdamW's bf16 moments
-# (~24 GB) and activations of 2 rows
+# 8a: the bf16 model (4.9 GB), f32 adapters, activations of 4 rows (read
+# 13.97 on an H100 80GB HBM3 at 700 W); 8b: the model, its bf16 gradients,
+# the f32 accumulator, AdamW's bf16 moments (~24 GB) and activations of 2
+# rows (read 26.69)
 QWEN_PEAK_BOUND_GIB = {"8a finetune": 24.0, "8b forget r0": 40.0}
 QWEN_TIGHT_POOL = 17  # pages of 128: six requests that grow to 3-4 pages each
 QWEN_NEW = 160  # tokens a served request asks for: past its first pages
@@ -3786,6 +3991,453 @@ def run_qwen_path(sync=torch.cuda.synchronize, finetune_args=QWEN_FINETUNE_ARGS,
     return out
 
 
+# ------------------------------------------------------------- phase 9
+# CLEAR's text-only stack (TOFU unlearning) through the CLIs a user calls:
+# configs/nlp/{finetune,forget,eval_everything,aggregate_eval_stat}.yaml on
+# Llama-2-7B (llama2-7b) at full width and depth from seed 42, bf16, on
+# synthetic TOFU-style rows instead of locuslab/TOFU (256 text rows, so that
+# the shipped 128-row finetune batch gives two steps an epoch); then the
+# results CLIs over what the runs wrote.  "synthetic:n_persons=64" (4 QA a
+# person) has no comma, so that eval's list override parses as four entries.
+NLP_DATA = "synthetic:n_persons=64"
+# finetune.yaml as shipped but for the data and one epoch: its 128 rows of
+# 500 tokens as 16 accumulated micro-batches of 8 (128 rows at once would need
+# ~285 GB of activations), merged and saved in bf16
+NLP_FINETUNE_ARGS = [f"data_path={NLP_DATA}", "batch_size=8", "gradient_accumulation_steps=16",
+                     "merge_dtype=bfloat16", "num_epochs=1"]
+# forget.yaml as shipped (RMU, LoRA r 8, batch 4, accumulation 2, AdamW at lr
+# 1e-5) but for the data and one epoch: 25 forget rows, 8 a step: 3 steps
+NLP_FORGET_ARGS = [f"data_path={NLP_DATA}", "merge_dtype=bfloat16", "num_epochs=1"]
+# 9c: one step of each projection method from 9b's checkpoint (8 rows a step:
+# 25 // 8 = 3 steps an epoch, one taken), no save.  grad_proj_l2 at one row of
+# each split, padded to 128 tokens (the rows hold ~85): beside the weights,
+# g_neg / v, g_pos and the sum of each stacked leaf's per-layer gradients in
+# a Hessian-vector product (12.55 GiB each), the graphs of its two first
+# backward passes hold the plain attention's f32 scores, which at 500 tokens
+# took the card past its 80 GB
+NLP_PROJ_ARGS = {"grad_proj": ["num_epochs=0.33"],
+                 "grad_proj_l2": ["num_epochs=0.04", "batch_size=1",
+                                  "gradient_accumulation_steps=1", "max_length=128"]}
+NLP_EVAL_ARGS = ["ds_size=8", f"data_path=[{','.join([NLP_DATA] * 4)}]"]
+NLP_EVAL_RUNS = {"9d eval": [], "9e eval, engine + speculation": ["engine_generate=true",
+                                                                   "speculative_k=4"]}
+# one step each on 9b's student at its loop's end (idk: its concatenated
+# forward as retain_ft; grad_ascent: L1 of the adapters, l_norm_from auto)
+NLP_OTHER_LOSSES = ("idk", "dpo", "npo", "grad_ascent")
+# peak device memory per run (GiB): each bound is its reading on an H100 80GB
+# HBM3 at 700 W with ~15% room (9a 38.49: the bf16 weights, 12.55 GiB, and 8
+# rows of activations of 500 tokens; 9b 27.77; 9c's other losses 38.44, idk's
+# 8 concatenated rows; grad_proj 64.37: the weights, two gradient trees and
+# 8 rows; grad_proj_l2 69.14: the weights, three trees and the graphs of two
+# first backward passes at one row of 128 tokens)
+NLP_PEAK_BOUND_GIB = {"9a finetune": 45.0, "9b forget rmu": 34.0, "9c losses": 45.0,
+                      "9c grad_proj": 75.0, "9c grad_proj_l2": 78.0}
+
+
+def _nlp_batch(loss, tok, tags, dev, rows=4, max_length=500):
+    """The first micro-batch the nlp forget CLI draws for ``loss`` (DPO's
+    triplets; idk's rows concatenated), on the device."""
+    from multimodal_unlearning_tpu_torch.data import DataLoader
+    from multimodal_unlearning_tpu_torch.data import nlp as nlp_data
+    from multimodal_unlearning_tpu_torch.train.loop import to_device
+
+    kw = dict(max_length=max_length, split="forget10", seed=42)
+    ds = (nlp_data.TextForgetDatasetDPOQA(NLP_DATA, tok, tags, **kw) if loss == "dpo" else
+          nlp_data.TextForgetDatasetQA(NLP_DATA, tok, tags, loss_type=loss, **kw))
+    batch = next(iter(DataLoader(ds, rows, nlp_data.text_collator, shuffle=True, seed=42)))
+    if loss == "idk":
+        batch = {"retain": {k: np.concatenate([batch["idk"][k], batch["retain"][k]])
+                            for k in batch["idk"]}}
+    return to_device(batch, dev)
+
+
+def _check_saved_llama(label, path, mcfg):
+    """``model.safetensors`` holds exactly ``llama_to_hf``'s names, in bf16
+    (read from the header: no tensor loaded)."""
+    from safetensors import safe_open
+
+    from multimodal_unlearning_tpu_torch.models import hf_bridge, llama
+
+    meta = llama.Llama(mcfg, device="meta", dtype=torch.bfloat16)
+    names = set(hf_bridge.llama_to_hf(common.model_tree(meta)))
+    with safe_open(path, framework="pt") as f:
+        got = set(f.keys())
+        dtypes = {f.get_slice(k).get_dtype() for k in got}
+    if got != names or dtypes != {"BF16"}:
+        raise AssertionError(f"{label}: {len(got ^ names)} names differ from llama_to_hf's, "
+                             f"dtypes {dtypes}")
+    return len(got), os.path.getsize(path)
+
+
+class _ProjRecorder:
+    """While active, records each ``train.grad_proj`` step of a CLI run:
+    its metrics (floats), wall time and tokens, and the arguments of the
+    CLI's ``make_apply_fn``."""
+
+    def __init__(self, sync):
+        from multimodal_unlearning_tpu_torch.cli import nlp_forget
+        from multimodal_unlearning_tpu_torch.train import grad_proj
+
+        self.cli, self.gp, self.sync = nlp_forget, grad_proj, sync
+        self.steps, self.apply_kw = [], None
+
+    def __enter__(self):
+        rec, make, make_apply = self, self.gp.make_grad_proj_step, self.cli.make_apply_fn
+        self._saved = [(self.gp, "make_grad_proj_step", make),
+                       (self.cli, "make_apply_fn", make_apply)]
+
+        def apply_wrapper(*a, **kw):
+            rec.apply_kw = (a, kw)
+            return make_apply(*a, **kw)
+
+        def make_wrapper(*a, **kw):
+            step = make(*a, **kw)
+
+            def timed(trainable, opt_state, frozen, batch):
+                rec.sync()
+                t0 = time.perf_counter()
+                out = step(trainable, opt_state, frozen, batch)
+                m = {k: float(v) for k, v in out[2].items()}
+                rec.steps.append(dict(m, wall=time.perf_counter() - t0, tokens=sum(
+                    int(p["input_ids"].numel()) for p in batch.values())))
+                return out
+            return timed
+
+        self.gp.make_grad_proj_step = make_wrapper
+        self.cli.make_apply_fn = apply_wrapper
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def _nlp_other_losses(rec, processor, tags, dec, sync):
+    """9c.1 and 9c.2, at the end of 9b's loop (its student, the frozen base
+    that is also RMU's teacher, its AdamW state): RMU's first batch on the
+    kernels and on plain attention, then one step of each other loss."""
+    from multimodal_unlearning_tpu_torch.cli import nlp_forget
+    from multimodal_unlearning_tpu_torch.config import load_config
+    from multimodal_unlearning_tpu_torch.config.registry import config_dir
+    from multimodal_unlearning_tpu_torch.train import trainer
+
+    dev = next(rec.loop["frozen"].parameters()).device
+    sync()
+    # 9b's own steps, their launches and their peak
+    rec.loop_steps, rec.loop_launches = list(rec.steps), dict(kernels.LAUNCHES)
+    rec.loop_peak = torch.cuda.max_memory_allocated() / 2**30
+    state, frozen, teacher = rec.loop["state"], rec.loop["frozen"], rec.loop["teacher"]
+    (apply_fn, tx), step_kw = rec.step_args[0][:2], rec.step_args[1]
+    tok = processor.tokenizer
+    b_max = max(float(b.detach().abs().max())
+                for p, b in tree_leaves_with_path(state.trainable) if p[-1] == "b")
+    if not b_max > 0:
+        raise AssertionError(f"9b: the LoRA b leaves are all zero after the steps ({b_max})")
+    # 9c.1: RMU's first batch on the kernels and on plain attention
+    batch = _nlp_batch("rmu", tok, tags, dev)
+    plain_fn = nlp_forget.make_apply_fn(*rec.apply_kw[0], **dict(rec.apply_kw[1],
+                                                                 attn_impl="plain"))
+    grad_of = lambda fn: trainer.make_train_step(  # noqa: E731
+        fn, tx, **dict(step_kw, grad_accum=1)).grad_fn(state.trainable, frozen, teacher, batch,
+                                                       state.control_vec)
+    (lk, _), gk = grad_of(apply_fn)
+    (lp, _), gp = grad_of(plain_fn)
+    cos = {"/".join(p): _cos(g, w) for (p, g), (_, w) in zip(tree_leaves_with_path(gk),
+                                                            tree_leaves_with_path(gp))}
+    worst = min(cos, key=cos.get)
+    print(f"9c RMU's first batch, kernels vs plain attention: loss {float(lk):.5f} vs "
+          f"{float(lp):.5f} (tol {STEP_LOSS_TOL}); LoRA gradient cosine min {cos[worst]:.5f} "
+          f"at {worst}, median {statistics.median(cos.values()):.5f} over {len(cos)} leaves "
+          f"(tol {STEP_GRAD_COS}); max |b| after 9b's steps {b_max:.3e}", flush=True)
+    if abs(float(lk) - float(lp)) > STEP_LOSS_TOL or cos[worst] < STEP_GRAD_COS:
+        raise AssertionError(f"9c: kernels vs plain attention: loss {float(lk)} vs {float(lp)}, "
+                             f"cosine {cos[worst]} at {worst}")
+    del gk, gp
+    # 9c.2: one step of each other loss with its own splits, its keywords as
+    # the CLI makes them from forget.yaml (grad_ascent with L1: l_norm_from
+    # auto, under LoRA the raw adapters)
+    per_loss, total, peak_c = {}, dict.fromkeys(kernels.LAUNCHES, 0), 0.0
+    for loss in NLP_OTHER_LOSSES:
+        batch = _nlp_batch(loss, tok, tags, dev)
+        over = [f"forget_loss={loss}"] + (["l1_lambda=1e-4"] if loss == "grad_ascent" else [])
+        cfg = load_config(config_dir() / "nlp", "forget", NLP_FORGET_ARGS + over)
+        kw = {**step_kw, **nlp_forget.step_kwargs(cfg, use_lora=True), "grad_accum": 1}
+        if loss == "grad_ascent" and (kw["l_norm_from"], kw["l1_lambda"]) != ("zero", 1e-4):
+            raise AssertionError(f"9c grad_ascent: l_norm_from auto gave {kw['l_norm_from']}")
+        step = trainer.make_train_step(apply_fn, tx, **kw)
+        t0 = time.perf_counter()
+        (_, m), peak, launches = _measured(lambda: step(state, frozen, teacher, batch))
+        ms = (time.perf_counter() - t0) * 1e3
+        m = {k: float(v) for k, v in m.items()}
+        _check_steps(f"9c {loss}", [m])
+        want = _expected_launches(kw["loss_type"], batch, dec, None)
+        if launches != want:
+            raise AssertionError(f"9c {loss} launches {launches}, expected {want}")
+        per_loss[loss] = dict(ms=round(ms, 1), loss=round(m["loss"], 5),
+                              grad_norm=round(m["grad_norm"], 4), peak_gib=round(peak, 2),
+                              rows=int(next(iter(batch.values()))["input_ids"].shape[0]),
+                              launches={k: v for k, v in launches.items() if v})
+        peak_c = max(peak_c, peak)
+        for k, v in launches.items():
+            total[k] += v
+        del batch, step
+    print(f"9c losses, one step each on 9b's student: {json.dumps(per_loss)}; peak "
+          f"{peak_c:.2f} GiB (bound {NLP_PEAK_BOUND_GIB['9c losses']})", flush=True)
+    if peak_c > NLP_PEAK_BOUND_GIB["9c losses"]:
+        raise AssertionError(f"9c losses: peak {peak_c:.2f} GiB above the bound")
+    rec.other_launches = total
+    sync()
+
+
+def _nlp_proj_run(label, argv, dec, sync):
+    """One projection method through ``cli.nlp_forget.main``; checks its
+    steps and launches.  Returns its launches."""
+    from multimodal_unlearning_tpu_torch.cli import nlp_forget
+
+    method = _arg(argv, "forget_loss")
+    with _ProjRecorder(sync) as rec:
+        t0 = time.perf_counter()
+        history, peak, launches = _measured(lambda: nlp_forget.main(argv))
+        wall = time.perf_counter() - t0
+    attn = rec.apply_kw[1]["attn_impl"]
+    for m in rec.steps:
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{label}: non-finite step {m}")
+    if [h["step"] for h in history] != list(range(1, len(rec.steps) + 1)) or not rec.steps:
+        raise AssertionError(f"{label}: history {history}, {len(rec.steps)} steps")
+    n = len(rec.steps)
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    if method == "grad_proj":  # two forwards with their backwards, two after the update
+        want.update(flash_fwd=4 * n * dec.num_layers, flash_bwd_dq=2 * n * dec.num_layers,
+                    flash_bwd_dkv=2 * n * dec.num_layers)
+    if attn != ("auto" if method == "grad_proj" else "plain") or launches != want:
+        raise AssertionError(f"{label}: attention {attn}, launches {launches}, expected {want}")
+    per = [f"{m['wall'] * 1e3:.0f} ms ({m['tokens'] / m['wall']:.0f} tok/s), neg "
+           f"{m['neg_loss']:.5f} pos {m['pos_loss']:.5f}" for m in rec.steps]
+    print(f"{label}: main() {wall:.1f} s (load, steps); attention {attn}; {n} step(s): "
+          f"{'; '.join(per)}; launches {({k: v for k, v in launches.items() if v})}; "
+          f"max_memory_allocated {peak:.2f} GiB (bound {NLP_PEAK_BOUND_GIB[label]})", flush=True)
+    if peak > NLP_PEAK_BOUND_GIB[label]:
+        raise AssertionError(f"{label}: peak {peak:.2f} GiB above the bound")
+    return launches
+
+
+def _nlp_eval_run(label, argv, sync):
+    """One ``cli.nlp_eval.main`` run under the recorder: its files, its
+    launches and every token of its streams against teacher-forced
+    forwards of the model it loaded.  Returns (aggregate, save dir,
+    numbers)."""
+    from multimodal_unlearning_tpu_torch.cli import nlp_eval
+    from multimodal_unlearning_tpu_torch.config import load_config
+    from multimodal_unlearning_tpu_torch.config.registry import config_dir
+
+    cfg = load_config(config_dir() / "nlp", "eval_everything", argv)
+    rows = int(cfg.ds_size)
+    with _EvalRecorder(sync, int(cfg.generation.max_new_tokens), text=True) as rec:
+        t0 = time.perf_counter()
+        agg, peak, launches = _measured(lambda: nlp_eval.main(argv))
+        wall = time.perf_counter() - t0
+    _check_eval_files(label, cfg.save_dir, agg, rows, 4)
+    want = _eval_launches(rec, rec.model.cfg, None, speculative=bool(cfg.speculative_k))
+    if launches != want:
+        raise AssertionError(f"{label} launches {launches}, expected {want}")
+    numbers = dict(_report_eval(label, rec, wall, peak),
+                   launches={k: v for k, v in launches.items() if v})
+    t0 = time.perf_counter()
+    gap, n, off, _ = hold_streams(rec.model, label,
+                                  [s for t in rec.tasks for s in t["streams"]],
+                                  [p for t in rec.tasks for p in t["prompts"]], rec.max_new,
+                                  rec.ends)
+    numbers["teacher_forced"] = dict(tokens=n, not_argmax=off, max_gap=round(gap, 4))
+    print(f"{label[:2]} streams vs teacher-forced forwards: {n} tokens, {off} not the argmax, "
+          f"largest gap {gap:.4f} (tie margin {TIE_MARGIN}; {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    rec.model = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return agg, cfg.save_dir, numbers
+
+
+def run_nlp_path(mm_results=None, sync=torch.cuda.synchronize, finetune_args=NLP_FINETUNE_ARGS,
+                 forget_args=NLP_FORGET_ARGS, proj_args=NLP_PROJ_ARGS, eval_args=NLP_EVAL_ARGS):
+    """9a ``cli.nlp_finetune.main`` (finetune.yaml), 9b ``cli.nlp_forget.main``
+    (forget.yaml, RMU) from 9a's checkpoint with 9c's checks at its loop's
+    end (kernels vs plain attention, one step of each other loss), 9c the
+    projection methods from 9b's checkpoint, 9d ``cli.nlp_eval.main``
+    (eval_everything.yaml) on 9b's checkpoint and 9e on 9a's with the engine
+    and K 4 (the retain model's stand-in), 9f ``cli.nlp_aggregate.main``,
+    9g the results CLIs (``build_tables`` over ``mm_results``, phase 7's
+    aggregates, when given).  Returns each sub-phase's launch counts and the
+    evaluations' numbers."""
+    import csv
+    import io
+    import shutil
+    import tempfile
+
+    from multimodal_unlearning_tpu_torch.cli import (
+        build_tables, inspect_runs, nlp_aggregate, nlp_finetune, nlp_forget, push_model)
+    from multimodal_unlearning_tpu_torch.config.registry import get_model_identifiers
+    from multimodal_unlearning_tpu_torch.evaluation.metrics import METRIC_NAMES, TOFU_TASK_DICT
+    from multimodal_unlearning_tpu_torch.models import lora
+
+    model_cfg = get_model_identifiers("llama2-7b")
+    mcfg = common.build_model_config(model_cfg)
+    processor = common.build_processor(model_cfg)
+    tags = nlp_finetune.text_tags(model_cfg)
+    root = tempfile.mkdtemp(prefix="nlp_runs_")
+    ft_dir = os.path.join(root, "ft_full")
+    fg_dir = os.path.join(root, "RMU_beta1.0_lr1e-05_5_L10.0_L00.0")
+    seconds: dict = {}
+    saved = [(owner, name, _timed(owner, name, seconds)) for owner, name in (
+        (common, "save_model"), (lora, "merge_model"), (common, "init_or_load_params"))]
+    out, numbers, phase_s = {}, {}, {}
+    try:
+        # 9a: finetune.yaml, LoRA r 8 over the random bf16 base, merged in bf16
+        seconds.clear()
+        with _CliRecorder(nlp_finetune) as rec:
+            t0 = time.perf_counter()
+            _, peak, launches = _measured(lambda: nlp_finetune.main(
+                finetune_args + [f"save_dir={ft_dir}"]))
+            phase_s["9a"] = wall = time.perf_counter() - t0
+        accum = int(_arg(finetune_args, "gradient_accumulation_steps"))
+        _check_steps("9a finetune", rec.steps)
+        losses = [m["loss"] for m in rec.steps]
+        if len(rec.steps) != 2 or len(set(losses)) < 2:
+            raise AssertionError(f"9a: {len(rec.steps)} steps, losses {losses}")
+        want = _expected_launches("retain_ft", {}, mcfg, None, steps=len(rec.steps) * accum)
+        if launches != want:
+            raise AssertionError(f"9a finetune launches {launches}, expected {want}")
+        n_t, size = _check_saved_llama("9a", os.path.join(ft_dir, "model.safetensors"), mcfg)
+        print(f"9a finetune: main() {wall:.1f} s = init {seconds['init_or_load_params']:.1f} s + "
+              f"steps + merge {seconds['merge_model']:.1f} s + save {seconds['save_model']:.1f} s "
+              f"({size / 1e9:.2f} GB, {n_t} tensors, bf16: "
+              f"{size / 1e9 / seconds['save_model']:.2f} GB/s)", flush=True)
+        _report_steps("9a finetune", rec.steps, launches, peak, NLP_PEAK_BOUND_GIB)
+        out["9a"] = launches
+        del rec
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 9b: forget.yaml as shipped (RMU) from 9a's checkpoint; 9c's checks at
+        # its loop's end, on its student
+        seconds.clear()
+        rec = _CliRecorder(nlp_forget, after_loop=lambda r: _nlp_other_losses(
+            r, processor, tags, mcfg, sync))
+        with rec:
+            t0 = time.perf_counter()
+            _measured(lambda: nlp_forget.main(
+                forget_args + [f"model_path={ft_dir}", f"save_dir={fg_dir}"]))
+            phase_s["9b+9c.1-2"] = wall = time.perf_counter() - t0
+        launches, peak, steps = rec.loop_launches, rec.loop_peak, rec.loop_steps
+        _check_steps("9b forget rmu", steps)
+        losses = [m["loss"] for m in steps]
+        if len(steps) != 3 or len(set(losses)) < 2:
+            raise AssertionError(f"9b: {len(steps)} steps, losses {losses}")
+        accum = int(_arg(forget_args, "gradient_accumulation_steps", 2))
+        want = _expected_launches("rmu", {}, mcfg, None, steps=len(steps) * accum)
+        if launches != want:
+            raise AssertionError(f"9b forget launches {launches}, expected {want}")
+        n_t, size = _check_saved_llama("9b", os.path.join(fg_dir, "model.safetensors"), mcfg)
+        print(f"9b forget: main() {wall:.1f} s = load {seconds['init_or_load_params']:.1f} s + "
+              f"steps + 9c's checks + merge {seconds['merge_model']:.1f} s + save "
+              f"{seconds['save_model']:.1f} s ({size / 1e9:.2f} GB: "
+              f"{size / 1e9 / seconds['save_model']:.2f} GB/s)", flush=True)
+        _report_steps("9b forget rmu", steps, launches, peak, NLP_PEAK_BOUND_GIB)
+        out["9b"], out["9c_losses"] = launches, rec.other_launches
+        del rec
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 9c: the projection methods from 9b's checkpoint, full parameters
+        for method, extra in proj_args.items():
+            label = f"9c {method}"
+            t0 = time.perf_counter()
+            out[f"9c_{method}"] = _nlp_proj_run(label, forget_args + extra + [
+                f"forget_loss={method}", f"model_path={fg_dir}", "save_model=false",
+                f"save_dir={os.path.join(root, method)}"], mcfg, sync)
+            phase_s[label[:2] + " " + method] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # 9d / 9e: eval_everything.yaml on 9b's checkpoint (plain greedy) and on
+        # 9a's (the engine with K 4): each into its ${model_path}/eval_results/
+        aggs = {}
+        for (label, extra), ckpt in zip(NLP_EVAL_RUNS.items(), (fg_dir, ft_dir)):
+            t0 = time.perf_counter()
+            aggs[label], _, numbers[label] = _nlp_eval_run(
+                label, eval_args + [f"model_path={ckpt}"] + extra, sync)
+            phase_s[label[:2]] = time.perf_counter() - t0
+            out[label[:2]] = numbers[label]["launches"]
+
+        # 9f: aggregate_eval_stat.yaml, 9d's aggregate as the checkpoint, 9e's
+        # as the retain model's
+        t0 = time.perf_counter()
+        csv_path = os.path.join(root, "aggr_result.csv")
+        row = nlp_aggregate.main([
+            f"ckpt_result={fg_dir}/eval_results/eval_log_aggregated.json",
+            f"retain_result={ft_dir}/eval_results/eval_log_aggregated.json",
+            f"save_file={csv_path}", "method_name=RMU"])
+        with open(csv_path) as f:
+            header, values = list(csv.reader(f))
+        want_cols = ([f"{m} {t}" for t in TOFU_TASK_DICT.values() for m in METRIC_NAMES]
+                     + ["Model Utility", "Forget Quality", "Method", "Submitted By"])
+        nums = [float(v) for v in values[:-2]]
+        if header != want_cols or list(row) != want_cols or not np.isfinite(nums).all():
+            raise AssertionError(f"9f aggregate: {header} / {values}")
+        print(f"9f nlp_aggregate: {dict(zip(header, values))}", flush=True)
+
+        # 9g: the results CLIs over the runs' directories
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            sweep = inspect_runs.sweep_summary(root)
+            inspect_runs.main(["gens", f"a={fg_dir}", f"b={ft_dir}", "n=2"])
+        gens = buf.getvalue()
+        rmu_row = next((r for r in sweep if r["run"].startswith("RMU")), {})
+        if (len(sweep) != 2 or rmu_row.get("lr") != "1e-05"
+                or not all(np.isfinite(v) for r in sweep for k, v in r.items()
+                           if k.endswith(("loss", "rougeL")))
+                or gens.count("=== ") != 4):
+            raise AssertionError(f"9g inspect_runs: sweep {sweep}, gens {gens[:400]!r}")
+        print(f"9g inspect_runs sweep: {json.dumps(sweep)}; gens: {gens.count(' a: ')} pairs "
+              f"over 4 tasks", flush=True)
+        if mm_results is not None:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                table = build_tables.main([f"base_model={mm_results}/base",
+                                           f"gold_model={mm_results}/gold",
+                                           f"out={mm_results}/tables"])
+            tex = buf.getvalue()
+            methods = [m.replace("\\rowcolor{papergray} ", "") for m in table["Method"]]
+            if methods != ["Gold", "Base"] or "\\begin{tabular}" not in tex or not \
+                    os.path.exists(f"{mm_results}/tables/mm_results.json"):
+                raise AssertionError(f"9g build_tables: {tex}")
+            print(f"9g build_tables over phase 7's two aggregates:\n{tex}", flush=True)
+        else:
+            print("9g build_tables: no phase 7 aggregates in this run (--nlp-only)", flush=True)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            push_model.main([ft_dir, "local/llama2-7b-ft"])
+            try:
+                push_model.main([root, "local/none"])
+                code = 0
+            except SystemExit as e:
+                code = e.code
+        if code != 1 or "Would push" not in buf.getvalue():
+            raise AssertionError(f"9g push_model: exit {code}, {buf.getvalue()!r}")
+        print(f"9g push_model: {buf.getvalue().strip()}", flush=True)
+        phase_s["9f-9g"] = time.perf_counter() - t0
+        print(f"phase 9 seconds by sub-phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}",
+              flush=True)
+        out["numbers"] = numbers
+        return out
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3802,6 +4454,11 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
+    if "--nlp-only" in sys.argv[1:]:  # phase 2 at the nlp shapes and phase 9: no result line
+        nlp_err, nlp_rec = check_nlp(dev, gen)
+        torch.cuda.empty_cache()
+        print(json.dumps({"phase9": run_nlp_path(), "nlp_phase2": nlp_rec}))
+        return 0
     b1_err, b1 = check_b1(dev, gen)
     b4_err, b4 = check_b4(dev, gen)
     b4q_err, b4q = check_b4q(dev, gen)
@@ -3811,10 +4468,11 @@ def main() -> int:
     bwd_err, bwd = check_bwd(dev, gen)
     b8_err, b8_rec = check_b8(dev, gen)
     qwen_err, qwen_rec = check_qwen(dev, gen)
+    nlp_err, nlp_rec = check_nlp(dev, gen)
     torch.cuda.empty_cache()
     if "--kernels-only" in sys.argv[1:]:  # phases 1-2 alone: no main path, no result line
         print(json.dumps({"phase2": dict(b1=b1, b4=b4, b4q=b4q, b5=b5, b6=b6, b7=b7, bwd=bwd,
-                                         b8=b8_rec, qwen=qwen_rec)}))
+                                         b8=b8_rec, qwen=qwen_rec, nlp=nlp_rec)}))
         return 0
     if "--qwen-only" in sys.argv[1:]:  # phases 1-2 and 8 alone: no result line
         print(json.dumps({"phase8": run_qwen_path(), "qwen_phase2": qwen_rec}))
@@ -3878,9 +4536,16 @@ def main() -> int:
         # CLEAR's recipe: finetune -> forget at LoRA.r=0 -> the other losses,
         # then the evaluation of the finetuned checkpoint
         ft_dir = tempfile.mkdtemp(prefix="recipe_finetune_")
+        mm_results = tempfile.mkdtemp(prefix="mm_results_")
         try:
             recipe_launches = run_recipe_path(ft_dir)
             evals = run_eval_path(ft_dir)
+            # phase 7's two aggregates (7b's as the gold model's), for phase
+            # 9's build_tables
+            for name, sub in (("gold", "eval_spec"), ("base", "eval_results")):
+                os.makedirs(os.path.join(mm_results, name, "eval_results"))
+                shutil.copy(os.path.join(ft_dir, sub, "eval_log_aggregated.json"),
+                            os.path.join(mm_results, name, "eval_results"))
         finally:
             shutil.rmtree(ft_dir, ignore_errors=True)
     ev_a, ev_b, ev_d = (evals[k] for k in EVAL_RUNS)
@@ -3888,6 +4553,20 @@ def main() -> int:
     qwen = run_qwen_path()
     qwen_eval = qwen.pop("8c_numbers")
     qwen_serving = qwen.pop("8f_numbers")
+    # CLEAR's text stack on Llama-2-7B at full depth, then the results CLIs
+    try:
+        nlp = run_nlp_path(mm_results)
+    finally:
+        shutil.rmtree(mm_results, ignore_errors=True)
+    nlp_eval = nlp.pop("numbers")
+
+    def nlp_row(name, *subphases, **extra):
+        """A kernel's text-stack numbers: phase 2's at phase 9's shapes where
+        it has a case there, and its launches in phase 9's sub-phases."""
+        row = {c: n for c, n in nlp_rec.get(name, {}).items()}
+        if name in nlp_err:
+            row["max_abs_err"] = nlp_err[name]
+        return dict(row, **extra, launches={k: nlp[k].get(name, 0) for k in subphases})
 
     def q_row(name, *subphases):
         """A kernel's Qwen2-VL numbers: phase 2's at phase 8's shapes, its
@@ -3916,21 +4595,28 @@ def main() -> int:
                             "7d": ev_d["launches"]["flash_fwd"]},
              # Qwen2-VL (phase 8): head dim 80 in the towers, group 6 in the decoder
              qwen2vl=q_row("flash_fwd", "8a", "8b", "8c", "8d_shipped", "8d_int8_cache",
-                           "8d_int8_paged", "8d_int8_paged_spec", "8e", *QWEN_8F_RUNS)),
+                           "8d_int8_paged", "8d_int8_paged_spec", "8e", *QWEN_8F_RUNS),
+             # the text stack (phase 9): Llama-2-7B's training and eval shapes
+             nlp=nlp_row("flash_fwd", "9a", "9b", "9c_losses", "9c_grad_proj",
+                         "9c_grad_proj_l2", "9d", "9e")),
         dict(name="flash_bwd_dq (B2)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_bwd_dq.cu",
              replaces="multimodal_unlearning_tpu/ops/attention.py:219",
              launches=step_launches["flash_bwd_dq"], max_abs_err=bwd_err["dq"], **bwd["dq"],
              forget_cli_launches=cli_launches["flash_bwd_dq"],
              recipe_launches={k: v["flash_bwd_dq"] for k, v in recipe_launches.items()},
-             qwen2vl=q_row("flash_bwd_dq", "8a", "8b")),
+             qwen2vl=q_row("flash_bwd_dq", "8a", "8b"),
+             nlp=nlp_row("flash_bwd_dq", "9a", "9b", "9c_losses", "9c_grad_proj",
+                         "9c_grad_proj_l2")),
         dict(name="flash_bwd_dkv (B3)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
              replaces="multimodal_unlearning_tpu/ops/attention.py:268",
              launches=step_launches["flash_bwd_dkv"], max_abs_err=bwd_err["dkv"],
              forget_cli_launches=cli_launches["flash_bwd_dkv"],
              recipe_launches={k: v["flash_bwd_dkv"] for k, v in recipe_launches.items()},
-             qwen2vl=q_row("flash_bwd_dkv", "8a", "8b"), **bwd["dkv"]),
+             qwen2vl=q_row("flash_bwd_dkv", "8a", "8b"),
+             nlp=nlp_row("flash_bwd_dkv", "9a", "9b", "9c_losses", "9c_grad_proj",
+                         "9c_grad_proj_l2"), **bwd["dkv"]),
         dict(name="flash_decode (B4)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/decode_attention.py:51",
@@ -3939,7 +4625,9 @@ def main() -> int:
              eval_launches={"7a": ev_a["launches"]["flash_decode"]},
              qwen2vl=q_row("flash_decode", "8c", "8d_shipped", "8e", "8f_mixed",
                            "8f_only_base", "8f_only_ft", "8f_only_rnd", "8f_sampled",
-                           "8f_sampled_reversed", "8f_generate")),
+                           "8f_sampled_reversed", "8f_generate"),
+             # phase 9's decode: 32 heads on 32, D 128, 8 rows, as phase 2's case
+             nlp=nlp_row("flash_decode", "9d", shape="phase 2's case (B 8, 32 heads on 32)")),
         dict(name="flash_decode_q8 (B4q)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/decode_attention.py:71",
@@ -3955,7 +4643,8 @@ def main() -> int:
              eval_verify=b5["chunk_decode"]["eval_verify"],
              eval_launches={"7b": ev_b["launches"]["chunk_decode"],
                             "7d": ev_d["launches"]["chunk_decode"]},
-             qwen2vl=q_row("chunk_decode")),
+             qwen2vl=q_row("chunk_decode"),
+             nlp=nlp_row("chunk_decode", "9e", shape="phase 2's verify case (B 8, C 5)")),
         dict(name="chunk_decode_q8 (B5q)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/chunk_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/decode_attention.py:267",
@@ -4005,7 +4694,8 @@ def main() -> int:
              cases={k: v for k, v in b8_rec.items()
                     if k not in ("gate_up_m8", "decode_step_ms", "host_us_m8")}),
     ]
-    print(json.dumps({"eval": evals, "qwen_eval": qwen_eval, "qwen_serving": qwen_serving}))
+    print(json.dumps({"eval": evals, "qwen_eval": qwen_eval, "qwen_serving": qwen_serving,
+                      "nlp_eval": nlp_eval}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

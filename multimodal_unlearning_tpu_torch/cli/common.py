@@ -8,25 +8,34 @@ wait for multi-GPU.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from pathlib import Path
 
 import torch
 from torch import nn
 
-from multimodal_unlearning_tpu_torch.config import build_model_config, model_kind
+from multimodal_unlearning_tpu_torch.config import build_model_config, model_kind, save_config
 from multimodal_unlearning_tpu_torch.data import ByteTokenizer, MMProcessor
 from multimodal_unlearning_tpu_torch.data.processor import format_qwen
 from multimodal_unlearning_tpu_torch.device import resolve_device
 from multimodal_unlearning_tpu_torch.models import (
     VLM_KINDS, convert, decoder_module, hf_bridge, vlm_module)
-from multimodal_unlearning_tpu_torch.train import checkpoints
+from multimodal_unlearning_tpu_torch.models import lora as lora_mod
+from multimodal_unlearning_tpu_torch.train import checkpoints, optim
+from multimodal_unlearning_tpu_torch.train.loop import train_loop
+from multimodal_unlearning_tpu_torch.utils.pytree import (
+    merge_trees, param_tree, partition_tree, path_predicate, print_trainable_parameters,
+    tree_leaves, tree_map)
 from multimodal_unlearning_tpu_torch.utils.quantize import (
     QTensor, QTensor4, is_qtensor, quantize_tree_inplace)
 
 __all__ = ["max_grad_norm_of", "dtype_of", "parse_dtype", "model_kind", "is_vlm",
            "build_model_config", "quantize_base_params", "init_or_load_params", "save_model",
-           "build_processor", "model_tree", "rank_suffix", "make_tail_padder", "pad_width"]
+           "build_processor", "model_tree", "rank_suffix", "make_tail_padder", "pad_width",
+           "qspec", "freezes_vision", "check_ported", "start_run", "train_flags", "make_tx",
+           "dense_trainable", "dense_model_tree", "Trainable", "make_trainable",
+           "run_train_loop", "save_final"]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
@@ -276,3 +285,175 @@ def pad_width(a, multiple: int, fill):
     if Wp == W:
         return a
     return np.concatenate([a, np.full((a.shape[0], Wp - W), fill, a.dtype)], axis=1)
+
+
+# ------------------------------------------------------------------ training
+# The set-up that the finetune and forget CLIs (mm and nlp) share; each CLI
+# keeps its dataset, collator, loss and teacher.
+
+
+def qspec(v) -> str:
+    """``quantize_base`` / ``quantize_teacher``'s precision: int4 or int8."""
+    return "int4" if str(v).strip().lower().startswith("int4") else "int8"
+
+
+def freezes_vision(cfg) -> bool:
+    return str(cfg.get("freeze_vision_module", "true")).lower() == "true"
+
+
+def check_ported(cfg, use_lora: bool, kind: str) -> None:
+    """Training options of the JAX CLIs that the port does not have yet
+    raise before any work is done."""
+    if use_lora and cfg.get("quantize_base") and qspec(cfg.quantize_base) == "int4":
+        raise NotImplementedError("quantize_base=int4 under LoRA needs int4 training "
+                                  "(dx through the W4A16 product), which is not ported yet")
+    if not use_lora and is_vlm(kind) and not freezes_vision(cfg):
+        raise NotImplementedError("a trainable vision tower (LoRA.r=0 with "
+                                  "freeze_vision_module=false) is not ported yet: the port's "
+                                  "VLM forward runs its vision tower without gradients")
+    mesh = cfg.get("mesh") or {}
+    big = {k: v for k, v in mesh.items() if v is not None and int(v) > 1}
+    if big:
+        raise NotImplementedError(f"mesh axes above 1 ({big}) need multi-GPU, which is not "
+                                  "ported yet")
+
+
+def start_run(cfg, model_cfg, use_lora: bool, device):
+    """The training CLIs' opening: unported options raise, the device is
+    printed, ``save_dir`` is made and the config written there.  Returns
+    ``save_dir``, or None when it exists and ``overwrite_dir`` is false."""
+    check_ported(cfg, use_lora, model_kind(model_cfg))
+    print(f"device: {device}")
+    save_dir = Path(cfg.save_dir)
+    if save_dir.exists() and not cfg.get("overwrite_dir", True):
+        print("Directory already exists")
+        return None
+    save_dir.mkdir(parents=True, exist_ok=True)
+    save_config(cfg, save_dir / "config.yaml")
+    return save_dir
+
+
+def train_flags(cfg, model_cfg) -> dict:
+    """``make_apply_fn``'s remat, remat_policy and attn_impl: the registry's
+    ``gradient_checkpointing`` (``remat`` in the config overrides it),
+    ``remat_policy``, and the attention kernels unless the registry's
+    ``flash_attention2`` is false."""
+    remat = str(model_cfg.get("gradient_checkpointing", "false")) == "true"
+    if cfg.get("remat") is not None:
+        remat = bool(cfg.remat)
+    attn = "auto" if str(model_cfg.get("flash_attention2", "true")) == "true" else "plain"
+    return dict(remat=remat, remat_policy=cfg.get("remat_policy") or None, attn_impl=attn)
+
+
+def make_tx(cfg, kind, mcfg, steps_per_epoch: int, max_steps: int, *, optimizer=None,
+            forget_loss=None):
+    """The config's optimizer (``optimizer`` overrides its name), warmed up
+    over one epoch.  LLaVA reads the vision tower's
+    hidden_states[vision_feature_layer]: the layers above it get no
+    gradients and no weight decay."""
+    reach = (lambda p: vlm_module(kind).reachable_mask(p, mcfg)) if kind == "llava" else None
+    return optim.make_optimizer(
+        optimizer or cfg.get("optimizer", "adamw"), float(cfg.lr),
+        weight_decay=float(cfg.get("weight_decay", 0.0)),
+        warmup_steps=max(1, steps_per_epoch), total_steps=max_steps,
+        max_grad_norm=max_grad_norm_of(cfg, forget_loss), reachable_mask=reach)
+
+
+def dense_trainable(model, kind, model_cfg, cfg):
+    """(trainable, frozen) for full-parameter training: the model's own
+    parameters (views, no copy) at the JAX tree's paths, the vision tower
+    in ``frozen`` under ``freeze_vision_module`` (``None`` slots on the
+    other side), else everything trainable and ``frozen`` None.  The
+    trainable leaves get ``requires_grad``."""
+    tree = param_tree(model)
+    if is_vlm(kind) and freezes_vision(cfg):
+        frozen, trainable = partition_tree(
+            tree, path_predicate(str(model_cfg.get("vision_module", "vision_tower"))))
+    else:
+        trainable, frozen = tree, None
+    for p in tree_leaves(trainable):
+        p.requires_grad_(True)
+    return trainable, frozen
+
+
+def dense_model_tree(trainable, frozen, out_dtype=None) -> dict:
+    """The model's own parameters, trainable and frozen at their paths, for
+    a save: detached, in ``out_dtype`` if one is set (``merge_dtype``; the
+    JAX CLI saves a full-parameter run as it is)."""
+    full = trainable if frozen is None else merge_trees(trainable, frozen)
+    return tree_map(lambda t: t.detach() if out_dtype is None else t.detach().to(out_dtype),
+                    full)
+
+
+@dataclasses.dataclass
+class Trainable:
+    """What a training CLI trains: ``trainable`` (LoRA adapters, or the
+    model's own parameters at LoRA.r=0), the ``frozen`` rest that the step
+    gets beside it, ``combine`` (the LoRA step's (base, adapters) pair) and
+    the adapters' ``scale``."""
+    model: nn.Module
+    trainable: dict
+    frozen: object
+    use_lora: bool
+    scale: float = 0.0
+    combine: object = None
+
+    def merged(self, trainable, out_dtype=None, consume=False) -> dict:
+        """The whole model with ``trainable`` in it, as a dense tree for a
+        save.  LoRA with ``consume=True`` merges leaf by leaf to the host,
+        freeing the base (and a teacher sharing it) as it goes."""
+        if self.use_lora:
+            return lora_mod.merge_model(self.model, trainable, self.scale, consume=consume,
+                                        out_dtype=out_dtype)
+        return dense_model_tree(trainable, self.frozen, out_dtype)
+
+
+def make_trainable(model, kind, model_cfg, cfg, use_lora: bool, device) -> Trainable:
+    """LoRA adapters of rank ``LoRA.r`` from the seed (projector adapters
+    unless ``LoRA.projector`` is false) over the base, quantized in place
+    under ``quantize_base``; or, without LoRA, the model's own parameters
+    (``dense_trainable``)."""
+    if not use_lora:
+        trainable, frozen = dense_trainable(model, kind, model_cfg, cfg)
+        print_trainable_parameters(trainable, frozen or {})
+        return Trainable(model, trainable, frozen, use_lora=False)
+    trainable = lora_mod.init_model_lora(
+        model, cfg.LoRA.r, torch.Generator(device=device).manual_seed(int(cfg.seed)),
+        projector=bool(cfg.LoRA.get("projector", True)))
+    print_trainable_parameters(trainable, model)
+    if cfg.get("quantize_base"):
+        model = quantize_base_params(model, kind, cfg.quantize_base)
+    return Trainable(model, trainable, model, use_lora=True,
+                     scale=lora_mod.lora_scale(cfg.LoRA.r, cfg.LoRA.alpha),
+                     combine=lambda tr, fr: (fr, tr))
+
+
+def run_train_loop(cfg, step_fn, state, frozen, teacher, loader, device, *, max_steps: int,
+                   save_steps: int, logging_steps: int, save_dir: Path, on_save=None):
+    """``train_loop`` with the config's accumulation, train-state saves
+    under ``save_dir/train_state`` (``ckpt_async``, ``ckpt_keep``,
+    ``resume_from_checkpoint``) and ``profile``."""
+    return train_loop(
+        train_step=step_fn, state=state, frozen=frozen, teacher_params=teacher,
+        dataloader=loader, device=device, grad_accum=cfg.gradient_accumulation_steps,
+        max_steps=max_steps, logging_steps=logging_steps, on_save=on_save,
+        save_steps=save_steps, state_ckpt_dir=str(save_dir / "train_state"),
+        ckpt_async=bool(cfg.get("ckpt_async", True)),
+        ckpt_keep=int(cfg.get("ckpt_keep", 0) or 0) or None,
+        resume=bool(cfg.get("resume_from_checkpoint")),
+        profile_dir=str(save_dir / "profile") if cfg.get("profile") else None)
+
+
+def save_final(cfg, save_dir: Path, model_cfg, run: Trainable, trainable, merge_dtype,
+               adapter_meta: dict | None = None) -> None:
+    """The trained model merged in ``merge_dtype`` and saved in HF layout
+    (unless ``save_model`` is false), and under LoRA with
+    ``save_adapters`` the raw adapters beside it, for multi-LoRA serving."""
+    if cfg.get("save_model", True):
+        final = run.merged(trainable, merge_dtype, consume=True)
+        save_model(save_dir, model_cfg, final)
+        del final
+        print(f"Saved model to {save_dir}")
+    if run.use_lora and cfg.get("save_adapters"):
+        checkpoints.save_adapter(save_dir / "adapter", trainable, run.scale, meta=adapter_meta)
+        print(f"Saved raw LoRA adapter to {save_dir / 'adapter'}")

@@ -50,6 +50,30 @@ def get_dataloader(quest_strat, quest_key, cap_key, fold, split, bs, ds_size, co
     return DataLoader(ds, bs, collate, drop_last=False)
 
 
+def eval_engine(cfg, model, mcfg, kind, tok, cache_dtype, dtype, device):
+    """With ``engine_generate``, the serving engine that generates each
+    task's texts in ONE continuous-batching drain (the same texts as the
+    per-batch route), sized from the eval config; else None."""
+    if not cfg.get("engine_generate"):
+        return None
+    from multimodal_unlearning_tpu_torch.serve import ServingEngine
+
+    speculate_k = int(cfg.get("speculative_k", 0) or 0)
+    slack = 2 * speculate_k + 2 if speculate_k else 0
+    return ServingEngine(
+        model, mcfg, kind,
+        num_slots=int(cfg.get("engine_slots", cfg.batch_size)),
+        max_len=-(-(cfg.max_length + cfg.generation.max_new_tokens + slack) // 128) * 128,
+        chunk=int(cfg.get("engine_chunk", 16)),
+        pad_token_id=tok.pad_token_id, eos_token_id=tok.eos_token_id,
+        cache_dtype=cache_dtype, compute_dtype=dtype,
+        speculate_k=speculate_k,
+        spec_ref_len=int(cfg.get("spec_ref_len", 128) or 0) if speculate_k else 0,
+        page_size=int(cfg.get("page_size", 0) or 0),
+        kv_pool_pages=int(cfg.get("kv_pool_pages", 0) or 0) or None,
+        device=device)
+
+
 def run(cfg):
     # int8_compute is a module-global switch: give the caller's value back
     prev = llama.INT8_COMPUTE
@@ -136,25 +160,7 @@ def _run(cfg):
                 common.pad_width(np.asarray(dref), 64, -2), to))
         return [tok.decode(row, skip_special_tokens=True) for row in gen.cpu().numpy()[:B]]
 
-    # engine_generate: each task's generations as ONE continuous-batching
-    # drain over the serving engine (evaluator._pregenerate); same texts
-    gen_engine = None
-    if cfg.get("engine_generate"):
-        from multimodal_unlearning_tpu_torch.serve import ServingEngine
-
-        slack = 2 * speculate_k + 2 if speculate_k else 0
-        gen_engine = ServingEngine(
-            model, mcfg, kind,
-            num_slots=int(cfg.get("engine_slots", cfg.batch_size)),
-            max_len=-(-(cfg.max_length + cfg.generation.max_new_tokens + slack) // 128) * 128,
-            chunk=int(cfg.get("engine_chunk", 16)),
-            pad_token_id=tok.pad_token_id, eos_token_id=tok.eos_token_id,
-            cache_dtype=cache_dtype, compute_dtype=dtype,
-            speculate_k=speculate_k,
-            spec_ref_len=int(cfg.get("spec_ref_len", 128) or 0) if speculate_k else 0,
-            page_size=int(cfg.get("page_size", 0) or 0),
-            kv_pool_pages=int(cfg.get("kv_pool_pages", 0) or 0) or None,
-            device=device)
+    gen_engine = eval_engine(cfg, model, mcfg, kind, tok, cache_dtype, dtype, device)
 
     aggregated = {}
     zipped = zip(cfg.data_path, cfg.split_list, cfg.question_key, cfg.question_strategy,

@@ -24,19 +24,14 @@ from pathlib import Path
 import torch
 
 from multimodal_unlearning_tpu_torch.cli import common
-from multimodal_unlearning_tpu_torch.cli.mm_forget import (
-    _check_ported, dense_model_tree, dense_trainable, make_apply_fn)
-from multimodal_unlearning_tpu_torch.config import main as config_main, save_config
+from multimodal_unlearning_tpu_torch.cli.mm_forget import make_apply_fn
+from multimodal_unlearning_tpu_torch.config import main as config_main
 from multimodal_unlearning_tpu_torch.config.registry import config_dir, get_model_identifiers
 from multimodal_unlearning_tpu_torch.data import DataLoader, MMMixedDataset
 from multimodal_unlearning_tpu_torch.data.prefetch import PrefetchLoader
 from multimodal_unlearning_tpu_torch.device import resolve_device
-from multimodal_unlearning_tpu_torch.models import vlm_module
-from multimodal_unlearning_tpu_torch.models import lora as lora_mod
-from multimodal_unlearning_tpu_torch.train import optim, trainer
-from multimodal_unlearning_tpu_torch.train.checkpoints import save_adapter
-from multimodal_unlearning_tpu_torch.train.loop import compute_steps, train_loop
-from multimodal_unlearning_tpu_torch.utils.pytree import print_trainable_parameters
+from multimodal_unlearning_tpu_torch.train import trainer
+from multimodal_unlearning_tpu_torch.train.loop import compute_steps
 
 
 def run(cfg):
@@ -45,11 +40,9 @@ def run(cfg):
     dtype = common.dtype_of(cfg)
     merge_dtype = common.parse_dtype(cfg.get("merge_dtype"))
     use_lora = cfg.LoRA.r != 0
-    _check_ported(cfg, use_lora, common.model_kind(model_cfg))
-    print(f"device: {device}")
-    save_dir = Path(cfg.save_dir)
-    save_dir.mkdir(parents=True, exist_ok=True)
-    save_config(cfg, save_dir / "config.yaml")
+    save_dir = common.start_run(cfg, model_cfg, use_lora, device)
+    if save_dir is None:
+        return None
 
     processor = common.build_processor(model_cfg, cfg)
     dataset = MMMixedDataset(cfg.data_path, cfg.split, seed=cfg.seed)
@@ -66,66 +59,18 @@ def run(cfg):
 
     kind, mcfg, model = common.init_or_load_params(model_cfg, cfg.get("model_path"),
                                                    seed=cfg.seed, dtype=dtype, device=device)
-    remat = str(model_cfg.get("gradient_checkpointing", "false")) == "true"
-    if cfg.get("remat") is not None:  # the config overrides the registry's flag
-        remat = bool(cfg.remat)
-    remat_policy = cfg.get("remat_policy") or None
-    attn_impl = "auto" if str(model_cfg.get("flash_attention2", "true")) == "true" else "plain"
-
-    # vision layers above vision_feature_layer get no gradients and no decay
-    reach = (lambda p: vlm_module(kind).reachable_mask(p, mcfg)) if kind == "llava" else None
-    tx = optim.make_optimizer(
-        cfg.get("optimizer", "adamw"), float(cfg.lr),
-        weight_decay=float(cfg.get("weight_decay", 0.0)),
-        warmup_steps=max(1, steps_per_epoch), total_steps=max_steps,
-        max_grad_norm=common.max_grad_norm_of(cfg), reachable_mask=reach)
-
-    scale = lora_mod.lora_scale(cfg.LoRA.r, cfg.LoRA.alpha) if use_lora else 0.0
-    combine = None
-    if use_lora:
-        # projector adapters are on by default; LoRA.projector=false opts out
-        trainable = lora_mod.init_model_lora(
-            model, cfg.LoRA.r, torch.Generator(device=device).manual_seed(int(cfg.seed)),
-            projector=bool(cfg.LoRA.get("projector", True)))
-        print_trainable_parameters(trainable, model)
-        if cfg.get("quantize_base"):
-            model = common.quantize_base_params(model, kind, cfg.quantize_base)
-        frozen = model
-        combine = lambda tr, fr: (fr, tr)  # noqa: E731
-    else:
-        trainable, frozen = dense_trainable(model, kind, model_cfg, cfg)
-        print_trainable_parameters(trainable, frozen or {})
-    apply_fn = make_apply_fn(kind, mcfg, lora_cfg=scale, remat=remat,
-                             remat_policy=remat_policy, attn_impl=attn_impl,
-                             compute_dtype=dtype, model=model)
+    tx = common.make_tx(cfg, kind, mcfg, steps_per_epoch, max_steps)
+    tr = common.make_trainable(model, kind, model_cfg, cfg, use_lora, device)
+    apply_fn = make_apply_fn(kind, mcfg, lora_cfg=tr.scale, compute_dtype=dtype, model=tr.model,
+                             **common.train_flags(cfg, model_cfg))
     step_fn = trainer.make_train_step(apply_fn, tx, loss_type="retain_ft",
                                       grad_accum=cfg.gradient_accumulation_steps,
-                                      combine=combine)
-    state = trainer.create_train_state(trainable, tx)
-
-    state, history = train_loop(
-        train_step=step_fn, state=state, frozen=frozen, teacher_params=None,
-        dataloader=loader, device=device, grad_accum=cfg.gradient_accumulation_steps,
-        max_steps=max_steps, logging_steps=max(1, max_steps // 20),
-        state_ckpt_dir=str(save_dir / "train_state"),
-        ckpt_async=bool(cfg.get("ckpt_async", True)),
-        ckpt_keep=int(cfg.get("ckpt_keep", 0) or 0) or None,
-        save_steps=steps_per_epoch,
-        resume=bool(cfg.get("resume_from_checkpoint")),
-        profile_dir=str(save_dir / "profile") if cfg.get("profile") else None)
-
-    if use_lora:
-        # consume=True: merge one leaf at a time to the host, freeing the base
-        final = lora_mod.merge_model(model, state.trainable, scale, consume=True,
-                                     out_dtype=merge_dtype)
-    else:
-        final = dense_model_tree(state.trainable, frozen, merge_dtype)
-    common.save_model(save_dir, model_cfg, final)
-    del final
-    if use_lora and cfg.get("save_adapters"):
-        save_adapter(save_dir / "adapter", state.trainable, scale)
-        print(f"Saved raw LoRA adapter to {save_dir / 'adapter'}")
-    print(f"Saved model to {save_dir}")
+                                      combine=tr.combine)
+    state, history = common.run_train_loop(
+        cfg, step_fn, trainer.create_train_state(tr.trainable, tx), tr.frozen, None, loader,
+        device, max_steps=max_steps, save_steps=steps_per_epoch,
+        logging_steps=max(1, max_steps // 20), save_dir=save_dir)
+    common.save_final(cfg, save_dir, model_cfg, tr, state.trainable, merge_dtype)
     return history
 
 

@@ -32,25 +32,20 @@ from __future__ import annotations
 
 import copy
 from functools import partial
-from pathlib import Path
 
 import torch
 
 from multimodal_unlearning_tpu_torch.cli import common
-from multimodal_unlearning_tpu_torch.config import main as config_main, save_config
+from multimodal_unlearning_tpu_torch.cli.common import dense_trainable  # noqa: F401
+from multimodal_unlearning_tpu_torch.config import main as config_main
 from multimodal_unlearning_tpu_torch.config.registry import config_dir, get_model_identifiers
 from multimodal_unlearning_tpu_torch.data import DataLoader, MMMixedForgetDataset
 from multimodal_unlearning_tpu_torch.data.prefetch import PrefetchLoader
 from multimodal_unlearning_tpu_torch.device import resolve_device
-from multimodal_unlearning_tpu_torch.models import VLM_KINDS, llama, vlm_module
-from multimodal_unlearning_tpu_torch.models import lora as lora_mod
+from multimodal_unlearning_tpu_torch.models import VLM_KINDS, llama
 from multimodal_unlearning_tpu_torch.models.params import check_tree_of
-from multimodal_unlearning_tpu_torch.train import losses as L, optim, trainer
-from multimodal_unlearning_tpu_torch.train.checkpoints import save_adapter
-from multimodal_unlearning_tpu_torch.train.loop import compute_steps, train_loop
-from multimodal_unlearning_tpu_torch.utils.pytree import (
-    merge_trees, param_tree, partition_tree, path_predicate, print_trainable_parameters,
-    tree_leaves, tree_map)
+from multimodal_unlearning_tpu_torch.train import losses as L, trainer
+from multimodal_unlearning_tpu_torch.train.loop import compute_steps
 from multimodal_unlearning_tpu_torch.utils.quantize import enable_int8_bwd
 
 # SKU's loss weights (the reference's mm/forget.py)
@@ -114,57 +109,6 @@ def run(cfg):
         enable_int8_bwd(False)
 
 
-def _qspec(v) -> str:
-    return "int4" if str(v).strip().lower().startswith("int4") else "int8"
-
-
-def _check_ported(cfg, use_lora: bool, kind: str) -> None:
-    """Options of the JAX CLI that the port does not have yet raise before
-    any work is done."""
-    if use_lora and cfg.get("quantize_base") and _qspec(cfg.quantize_base) == "int4":
-        raise NotImplementedError("quantize_base=int4 under LoRA needs int4 training "
-                                  "(dx through the W4A16 product), which is not ported yet")
-    if not use_lora and common.is_vlm(kind) and not freezes_vision(cfg):
-        raise NotImplementedError("a trainable vision tower (LoRA.r=0 with "
-                                  "freeze_vision_module=false) is not ported yet: the port's "
-                                  "VLM forward runs its vision tower without gradients")
-    mesh = cfg.get("mesh") or {}
-    big = {k: v for k, v in mesh.items() if v is not None and int(v) > 1}
-    if big:
-        raise NotImplementedError(f"mesh axes above 1 ({big}) need multi-GPU, which is not "
-                                  "ported yet")
-
-
-def freezes_vision(cfg) -> bool:
-    return str(cfg.get("freeze_vision_module", "true")).lower() == "true"
-
-
-def dense_trainable(model, kind, model_cfg, cfg):
-    """(trainable, frozen) for full-parameter training: the model's own
-    parameters (views, no copy) at the JAX tree's paths, the vision tower
-    in ``frozen`` under ``freeze_vision_module`` (``None`` slots on the
-    other side), else everything trainable and ``frozen`` None.  The
-    trainable leaves get ``requires_grad``."""
-    tree = param_tree(model)
-    if common.is_vlm(kind) and freezes_vision(cfg):
-        frozen, trainable = partition_tree(
-            tree, path_predicate(str(model_cfg.get("vision_module", "vision_tower"))))
-    else:
-        trainable, frozen = tree, None
-    for p in tree_leaves(trainable):
-        p.requires_grad_(True)
-    return trainable, frozen
-
-
-def dense_model_tree(trainable, frozen, out_dtype=None) -> dict:
-    """The model's own parameters, trainable and frozen at their paths, for
-    a save: detached, in ``out_dtype`` if one is set (``merge_dtype``; the
-    JAX CLI saves a full-parameter run as it is)."""
-    full = trainable if frozen is None else merge_trees(trainable, frozen)
-    return tree_map(lambda t: t.detach() if out_dtype is None else t.detach().to(out_dtype),
-                    full)
-
-
 def _run(cfg):
     device = resolve_device(cfg.get("device"))
     model_cfg = get_model_identifiers(cfg.model_family)
@@ -174,15 +118,9 @@ def _run(cfg):
     # LoRA gating rule (mm/forget.py:126): L1 from zero means full parameters
     use_lora = cfg.LoRA.r != 0 and (cfg.get("l_norm_from") != "zero"
                                    or cfg.get("l1_lambda", 0) == 0)
-    _check_ported(cfg, use_lora, common.model_kind(model_cfg))
-    print(f"device: {device}")
-
-    save_dir = Path(cfg.save_dir)
-    if save_dir.exists() and not cfg.get("overwrite_dir", True):
-        print("Directory already exists")
-        return
-    save_dir.mkdir(parents=True, exist_ok=True)
-    save_config(cfg, save_dir / "config.yaml")
+    save_dir = common.start_run(cfg, model_cfg, use_lora, device)
+    if save_dir is None:
+        return None
 
     processor = common.build_processor(model_cfg, cfg)
     dataset = MMMixedForgetDataset(
@@ -206,7 +144,7 @@ def _run(cfg):
     # precision, the teacher IS the quantized base (no second copy)
     share_teacher = bool(needs_teacher and use_lora and cfg.get("quantize_base")
                          and cfg.get("quantize_teacher")
-                         and _qspec(cfg.quantize_base) == _qspec(cfg.quantize_teacher))
+                         and common.qspec(cfg.quantize_base) == common.qspec(cfg.quantize_teacher))
     teacher = None
     if needs_teacher and not share_teacher:
         # a copy of the initial model, taken before any leaf is made trainable
@@ -214,46 +152,17 @@ def _run(cfg):
         if cfg.get("quantize_teacher"):
             teacher = common.quantize_base_params(teacher, kind, cfg.quantize_teacher)
 
-    remat = str(model_cfg.get("gradient_checkpointing", "false")) == "true"
-    if cfg.get("remat") is not None:  # the config overrides the registry's flag
-        remat = bool(cfg.remat)
-    remat_policy = cfg.get("remat_policy") or None
-    attn_impl = "auto" if str(model_cfg.get("flash_attention2", "true")) == "true" else "plain"
-
-    # LLaVA reads the vision tower's hidden_states[vision_feature_layer]: the
-    # layers above it get no gradients and no weight decay
-    reach = (lambda p: vlm_module(kind).reachable_mask(p, mcfg)) if kind == "llava" else None
-    tx = optim.make_optimizer(
-        cfg.get("optimizer", "adamw"), float(cfg.lr),
-        weight_decay=float(cfg.get("weight_decay", 0.0)),
-        warmup_steps=max(1, steps_per_epoch), total_steps=max_steps,
-        max_grad_norm=common.max_grad_norm_of(cfg), reachable_mask=reach)
-
-    scale = lora_mod.lora_scale(cfg.LoRA.r, cfg.LoRA.alpha) if use_lora else 0.0
-    combine = None
-    if use_lora:
-        # projector adapters are on by default (every linear but lm_head);
-        # LoRA.projector=false opts out
-        trainable = lora_mod.init_model_lora(
-            model, cfg.LoRA.r, torch.Generator(device=device).manual_seed(int(cfg.seed)),
-            projector=bool(cfg.LoRA.get("projector", True)))
-        print_trainable_parameters(trainable, model)
-        if cfg.get("quantize_base"):
-            model = common.quantize_base_params(model, kind, cfg.quantize_base)
-            if cfg.get("int8_compute"):
-                llama.enable_int8_compute(True)  # W8A8 on the frozen matmuls
-            if cfg.get("int8_bwd"):
-                enable_int8_bwd(True)  # the dx backward as an int8 product too
-        if share_teacher:
-            teacher = model
-        frozen = model
-        combine = lambda tr, fr: (fr, tr)  # noqa: E731
-    else:
-        trainable, frozen = dense_trainable(model, kind, model_cfg, cfg)
-        print_trainable_parameters(trainable, frozen or {})
-    apply_fn = make_apply_fn(kind, mcfg, lora_cfg=scale, remat=remat,
-                             remat_policy=remat_policy, attn_impl=attn_impl,
-                             compute_dtype=dtype, model=model)
+    tx = common.make_tx(cfg, kind, mcfg, steps_per_epoch, max_steps)
+    tr = common.make_trainable(model, kind, model_cfg, cfg, use_lora, device)
+    if use_lora and cfg.get("quantize_base"):
+        if cfg.get("int8_compute"):
+            llama.enable_int8_compute(True)  # W8A8 on the frozen matmuls
+        if cfg.get("int8_bwd"):
+            enable_int8_bwd(True)  # the dx backward as an int8 product too
+    if share_teacher:
+        teacher = tr.model
+    apply_fn = make_apply_fn(kind, mcfg, lora_cfg=tr.scale, compute_dtype=dtype, model=tr.model,
+                             **common.train_flags(cfg, model_cfg))
 
     control_vec = None
     if str(cfg.forget_loss).lower() == "rmu":
@@ -266,48 +175,23 @@ def _run(cfg):
         l1_lambda=float(cfg.get("l1_lambda", 0.0)), l0_lambda=float(cfg.get("l0_lambda", 0.0)),
         l_norm_from=str(cfg.get("l_norm_from", "zero")), loss_args=SKU_LOSS_ARGS,
         dpo_fix=bool(cfg.get("dpo_fix", False)),
-        grad_accum=cfg.gradient_accumulation_steps, combine=combine)
+        grad_accum=cfg.gradient_accumulation_steps, combine=tr.combine)
     keep_init = l_reg and cfg.get("l_norm_from") == "init"
-    state = trainer.create_train_state(trainable, tx, control_vec=control_vec,
+    state = trainer.create_train_state(tr.trainable, tx, control_vec=control_vec,
                                        keep_init=keep_init)
-
-    def snapshot(trainable_now, out_dtype=None, consume=False):
-        if use_lora:
-            return lora_mod.merge_model(model, trainable_now, scale, consume=consume,
-                                        out_dtype=out_dtype)
-        return dense_model_tree(trainable_now, frozen, out_dtype)
 
     def on_save(state_snapshot, step_i):
         # model-only checkpoints once per epoch, in merge_dtype like the last
         common.save_model(save_dir / f"checkpoint-{step_i}", model_cfg,
-                          snapshot(state_snapshot.trainable, merge_dtype))
+                          tr.merged(state_snapshot.trainable, merge_dtype))
 
-    state, history = train_loop(
-        train_step=step_fn, state=state, frozen=frozen, teacher_params=teacher,
-        dataloader=loader, device=device, grad_accum=cfg.gradient_accumulation_steps,
-        max_steps=max_steps, logging_steps=max(1, int(0.01 * max_steps)),
-        on_save=on_save if cfg.get("save_ckpts") else None,
-        save_steps=max(1, steps_per_epoch),
-        state_ckpt_dir=str(save_dir / "train_state"),
-        ckpt_async=bool(cfg.get("ckpt_async", True)),
-        ckpt_keep=int(cfg.get("ckpt_keep", 0) or 0) or None,
-        resume=bool(cfg.get("resume_from_checkpoint")),
-        profile_dir=str(save_dir / "profile") if cfg.get("profile") else None)
-
-    if cfg.get("save_model", True):
-        # LoRA: consume=True merges leaf by leaf to the host, freeing the base
-        # (and the teacher sharing it) as it goes; full parameters save the
-        # model's own tensors
-        del teacher
-        final = snapshot(state.trainable, merge_dtype, consume=True)
-        common.save_model(save_dir, model_cfg, final)
-        del final
-        print(f"Saved model to {save_dir}")
-    if use_lora and cfg.get("save_adapters"):
-        # the raw adapters beside the merged model, for multi-LoRA serving
-        save_adapter(save_dir / "adapter", state.trainable, scale,
-                     meta={"forget_loss": str(cfg.forget_loss)})
-        print(f"Saved raw LoRA adapter to {save_dir / 'adapter'}")
+    state, history = common.run_train_loop(
+        cfg, step_fn, state, tr.frozen, teacher, loader, device, max_steps=max_steps,
+        save_steps=max(1, steps_per_epoch), logging_steps=max(1, int(0.01 * max_steps)),
+        save_dir=save_dir, on_save=on_save if cfg.get("save_ckpts") else None)
+    del teacher  # a LoRA merge frees the base as it goes, the teacher sharing it with it
+    common.save_final(cfg, save_dir, model_cfg, tr, state.trainable, merge_dtype,
+                      adapter_meta={"forget_loss": str(cfg.forget_loss)})
     return history
 
 

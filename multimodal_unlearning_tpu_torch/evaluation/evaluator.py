@@ -18,7 +18,13 @@ Kept from the reference, on purpose:
 
 Losses are per-sequence summed CE over the -100-masked labels
 (``train/losses.seq_sum_ce``).  ROUGE is ``evaluation/rouge.py``'s copy of
-``rouge_score``.  The nlp half waits for the port's nlp stack.
+``rouge_score``.
+
+The nlp half (``nlp_get_all_evals``) recovers the prompt and the ROUGE
+ground truth from the decoded input split at the family's split symbol
+(``nlp_split_symbol``): the ground truth is the decoded text after the
+symbol, not the dataset's answer column, which only a row without the
+symbol falls back to.
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ from multimodal_unlearning_tpu_torch.evaluation.rouge import RougeScorer
 from multimodal_unlearning_tpu_torch.train.losses import seq_sum_ce
 
 __all__ = ["rouge_scorer", "eval_accuracy", "eval_rouge_recall", "eval_perturbation_ratio",
-           "get_all_evals", "save_eval_logs", "save_aggregated"]
+           "get_all_evals", "nlp_split_symbol", "nlp_get_all_evals", "save_eval_logs",
+           "save_aggregated"]
 
 rouge_scorer = RougeScorer(["rouge1", "rougeL"], use_stemmer=True)
 
@@ -201,14 +208,109 @@ def get_all_evals(eval_task: str, eval_loader, base_loader, perturb_loader, *, a
         logs["generated_text"].update(dict(zip(indices, zip(questions, gen_texts, answers))))
 
     logs.update(eval_rouge_recall(gen_answers, true_ans, all_indices))
-
     if "eval_log" not in eval_task:
-        normalized = {}
-        for idx, gl in logs["avg_gt_loss"].items():
-            truth_prob = np.exp(-gl)
-            perturb_prob = np.exp(-np.asarray(logs["average_perturb_loss"][idx]))
-            normalized[idx] = float(-np.log(truth_prob / (perturb_prob.sum() + truth_prob)))
-        logs["normalized_gt_loss"] = normalized
+        logs["normalized_gt_loss"] = _normalized_gt_loss(logs)
+    return logs
+
+
+def _normalized_gt_loss(logs) -> dict:
+    normalized = {}
+    for idx, gl in logs["avg_gt_loss"].items():
+        truth_prob = np.exp(-gl)
+        perturb_prob = np.exp(-np.asarray(logs["average_perturb_loss"][idx]))
+        normalized[idx] = float(-np.log(truth_prob / (perturb_prob.sum() + truth_prob)))
+    return normalized
+
+
+def nlp_split_symbol(tags: dict) -> tuple[str, bool]:
+    """(split symbol, re-append) of the text stack's prompt recovery: an
+    empty ``answer_tag`` is the instruction format, split at
+    ``question_end_tag`` and re-append it to the prompt; otherwise split at
+    ``answer_tag`` and do not (the model emits the tag itself)."""
+    answer_tag = tags.get("answer_tag", "") or ""
+    if answer_tag:
+        return answer_tag, False
+    return tags.get("question_end_tag", "") or "", True
+
+
+def _nlp_split_questions(dec, answers, split_symbol, reappend):
+    """(prompts, ground truths) from the decoded inputs; a row without the
+    symbol keeps its whole text as the prompt and its dataset answer."""
+    q_texts, gts = [], []
+    for s, fallback in zip(dec, answers):
+        parts = s.split(split_symbol) if split_symbol else [s]
+        if len(parts) > 1:
+            q_texts.append(parts[0] + (split_symbol if reappend else ""))
+            gts.append(parts[1])
+        else:
+            q_texts.append(s)
+            gts.append(fallback)
+    return q_texts, gts
+
+
+def _nlp_pregenerate(gen_engine, eval_loader, tok, tags, max_new_tokens):
+    """The text stack's ``_pregenerate``: every recovered prompt submitted
+    to the serving engine, its ground truth as the speculative draft
+    corpus, one drain."""
+    split_symbol, reappend = nlp_split_symbol(tags)
+    reqs = []
+    for batch in eval_loader:
+        answers = batch.get("answers_text", [""] * len(batch["input_ids"]))
+        dec = [tok.decode(r, skip_special_tokens=True) for r in batch["input_ids"]]
+        q_texts, gts = _nlp_split_questions(dec, answers, split_symbol, reappend)
+        for q, gt in zip(q_texts, gts):
+            dref = tok.encode(gt, add_special_tokens=False) if gen_engine.K else None
+            reqs.append(gen_engine.submit(tok.encode(q, add_special_tokens=True),
+                                          max_new_tokens, draft_ref=dref))
+    gen_engine.drain(reqs)
+    return [tok.decode(r.tokens, skip_special_tokens=True) for r in reqs]
+
+
+def nlp_get_all_evals(eval_task: str, eval_loader, base_loader, perturb_loader, *, apply_fn,
+                      generate_fn, tok, tags: dict, normalize_gt: bool | None = None,
+                      gen_engine=None, max_new_tokens: int | None = None):
+    """One text task's logs.  ``generate_fn(prompt_texts, ref_texts=None)
+    -> texts`` encodes, pads, generates and decodes (``ref_texts``, the
+    ground truths, seed the speculative draft corpus); ``gen_engine``: a
+    ``ServingEngine`` that generates the whole task in one drain instead.
+    ``normalize_gt`` defaults to every task but the ``eval_log*`` ones."""
+    logs = defaultdict(dict)
+    logs.update(eval_perturbation_ratio(base_loader, perturb_loader, apply_fn))
+
+    split_symbol, reappend = nlp_split_symbol(tags)
+    gen_cache = (_nlp_pregenerate(gen_engine, eval_loader, tok, tags, max_new_tokens)
+                 if gen_engine is not None else None)
+    gen_cursor = 0
+    gen_answers, true_ans, all_indices = [], [], []
+    for batch in eval_loader:
+        indices = [int(i) for i in batch.pop("indices")]
+        batch.pop("questions", None)
+        answers = batch.pop("answers_text", [""] * len(indices))
+
+        gt_loss, num_token_gt = _model_losses(apply_fn, batch)
+
+        dec = [tok.decode(r, skip_special_tokens=True) for r in batch["input_ids"]]
+        q_texts, gts = _nlp_split_questions(dec, answers, split_symbol, reappend)
+        if gen_cache is not None:
+            gen_texts = gen_cache[gen_cursor: gen_cursor + len(q_texts)]
+            gen_cursor += len(q_texts)
+        else:
+            gen_texts = generate_fn(q_texts, ref_texts=gts)
+
+        gen_answers.extend(gen_texts)
+        true_ans.extend(gts)
+        all_indices.extend(indices)
+        gt_loss_pt = gt_loss / num_token_gt
+        logs["avg_gt_loss"].update(dict(zip(indices, gt_loss_pt.tolist())))
+        logs["gt_loss"].update(dict(zip(indices, gt_loss.tolist())))
+        logs["num_token_gt"].update(dict(zip(indices, num_token_gt.tolist())))
+        logs["generated_text"].update(dict(zip(indices, zip(q_texts, gen_texts, gts))))
+
+    logs.update(eval_rouge_recall(gen_answers, true_ans, all_indices))
+    if normalize_gt is None:
+        normalize_gt = "eval_log" not in eval_task
+    if normalize_gt:
+        logs["normalized_gt_loss"] = _normalized_gt_loss(logs)
     return logs
 
 

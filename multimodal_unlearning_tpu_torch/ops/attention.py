@@ -286,7 +286,14 @@ class FlashAttention(torch.autograd.Function):
     """(o, lse) with gradients for q, k and v (counterpart of the JAX
     package's ``_flash`` custom_vjp).  The forward keeps q, k, v, the mask, o
     and lse; the backward runs B2 and B3 on CUDA tensors and their plain
-    version on CPU tensors.  lse is not differentiable."""
+    version on CPU tensors.  lse is not differentiable.  The backward is
+    differentiable once: the kernels' outputs carry no graph, so a backward
+    that builds a graph for a second derivative (``create_graph=True``: grad
+    mode on inside the backward) raises rather than losing terms.
+    ``torch.autograd.function.once_differentiable`` would not do: it raises
+    only where autograd runs its error node, which ``autograd.grad`` with
+    ``inputs`` prunes (no edge leads from it to the inputs).
+    ``impl="plain"`` is the route for second order."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, causal, q_offset, sm_scale):
@@ -298,6 +305,10 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do, _dlse):
+        if torch.is_grad_enabled():  # only under create_graph=True
+            raise RuntimeError("FlashAttention's backward is differentiable once (the kernels' "
+                               "outputs carry no graph): take second derivatives through "
+                               "impl='plain'")
         q, k, v, kv_mask, o, lse = ctx.saved_tensors
         causal, q_offset, sm_scale = ctx.args
         dq, dk, dv = flash_attention_bwd(q, k, v, kv_mask, do, o, lse, causal=causal,

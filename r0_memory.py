@@ -66,7 +66,7 @@ def main(argv) -> int:
     model_cfg = get_model_identifiers(family)
     kind, mcfg, model = common.init_or_load_params(model_cfg, None, seed=42,
                                                    dtype=torch.bfloat16, device=device)
-    trainable, frozen = mm_forget.dense_trainable(model, kind, model_cfg, {})
+    trainable, frozen = common.dense_trainable(model, kind, model_cfg, {})
     apply_fn = mm_forget.make_apply_fn(kind, mcfg, remat=True, remat_policy="save_attn",
                                        compute_dtype=torch.bfloat16, model=model)
     processor = common.build_processor(model_cfg)
