@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--kernels-only | --qwen-only | --nlp-only]
 
 (``--kernels-only`` stops after phase 2 and prints its numbers instead of
-a result line; ``--qwen-only`` runs phases 1, 2 and 8, ``--nlp-only`` phase
-1, phase 2's text-stack cases and phase 9, and print theirs.)
+a result line; ``--qwen-only`` runs phases 1, 2 and 8 (8g-8i included),
+``--nlp-only`` phase 1, phase 2's text-stack cases and phase 9 (9c's
+grad_proj_l2 at 500 tokens included), and print theirs.)
 
 1. Prints the card's name and power limit, builds the kernels from
    ``multimodal_unlearning_tpu_torch/ops/csrc`` with nvcc (sm_90a) and
@@ -48,12 +49,17 @@ a result line; ``--qwen-only`` runs phases 1, 2 and 8, ``--nlp-only`` phase
    (8, 16, 576, 80) without a mask and (8 x 9, 16, 64, 80) with ragged
    window padding; B4, B4q, B6, B6q at B 8, 12 q-heads on 2 kv-heads (GQA
    group 6), D 128; B5, B5q, B7, B7q at the verify round at group 6; B2 and
-   B3 at (2, 12/2, 512, 128) causal with left padding.  Then B1, B2 and B3
+   B3 at (2, 12/2, 512, 128) causal with left padding, and at head dim 80
+   for the trainable towers: Qwen2-VL-2B's (2, 16, 576, 80) without a mask
+   and Qwen2.5-VL-3B's windows (2 x 9, 16, 64, 80) with ragged right
+   padding, each against its plain version within ``BWD_REL_TOL`` and timed
+   beside its bound, the plain version and SDPA's whole backward.  Then B1, B2 and B3
    at phase 9's shapes (``check_nlp``): Llama-2-7B's training batch
    (4, 32, 500, 128), causal and right-padded with rows of 200-500 tokens
    (500 is no multiple of a tile: a partial last tile under the causal
    cut), and B1 at its teacher-forced eval batch (8, 32, 1024, 128).
-3. Serves LLaVA-1.5-7B at full width (random weights from a seed, bf16)
+3. Serves LLaVA-1.5-7B at full width with its decoder cut to
+   ``LLAVA_SERVE_DEPTH`` (16) of its 32 layers (random weights from a seed, bf16)
    through ``cli.serve.build_engine`` + ``ServingEngine``: ten requests of
    mixed prompt lengths, two with synthetic 336x336 pixels, 32..64 new
    tokens each.  Every request must finish with its budget (or an eos), and
@@ -93,7 +99,8 @@ a result line; ``--qwen-only`` runs phases 1, 2 and 8, ``--nlp-only`` phase
    3e. The quantized model with the int8 cache on a paged60 pool, plain and
    speculative, held against the dense int8 runs; B6q and B7q launch, B4q
    and B5q never.
-4. Takes forget steps on the same (now int8) model at full width and depth through
+4. Takes forget steps on LLaVA-1.5-7B at full width and depth (a model of
+   its own from seed 0, int8-quantized by the bench's set-up) through
    ``cli.mm_forget.make_apply_fn`` + ``train.trainer.make_train_step`` at the
    operating point of the port's bench (int8 decoder, W8A8 forward and int8
    dx backward, bf16 LoRA r=8, remat with ``save_attn``, AdamW, batch 2,
@@ -101,7 +108,11 @@ a result line; ``--qwen-only`` runs phases 1, 2 and 8, ``--nlp-only`` phase
    norm must be finite, no step skipped, the LoRA ``b`` leaves off zero, the
    loss moving, B1/B2/B3 launched exactly as often as the step's structure
    gives, and the loss and LoRA gradients must agree with the same step on
-   the plain attention versions.  Then one step under the profiler.
+   the plain attention versions.  4b: the same micro-batch under
+   ``remat_policy`` null, ``dots`` and ``dots_no_batch``: each dots policy's
+   loss and LoRA gradients held against null's (``STEP_LOSS_TOL``,
+   ``STEP_GRAD_COS``), each policy's peak and ms printed.  Then one step
+   under the profiler.
 Phases 5-7 run LLaVA-1.5-7B at full width with its decoder cut to
 ``LLAVA_CLI_DEPTH`` (8) of its 32 layers, so that the script with phases 8
 and 9 (each at full depth) stays within its time limit.
@@ -138,6 +149,13 @@ and 9 (each at full depth) stays within its time limit.
    one, B1/B2/B3 launched exactly as each loss's splits give, peak memory under
    ``PEAK_BOUND_GIB`` (each reading at ``LLAVA_CLI_DEPTH`` layers with ~15%
    room) and printed; steps/s and tok/s per CLI step, ms and launches per loss.
+   6d ``cli.mm_finetune.main`` from 6a's checkpoint at ``LoRA.r=0`` with
+   ``freeze_vision_module=false`` (two steps: the warmup's first runs at lr
+   0): the ViT trains at D 64 (``_tower_cli_run``: its leaves move, the
+   block above ``vision_feature_layer`` and ``post_ln`` stay bit for bit --
+   no gradient, no decay --, B2/B3 at D 64 once per reached block and
+   backward pass, the kernel route's gradient against plain attention's on
+   every leaf, the peak printed).
 7. CLEAR's evaluation of phase 6a's checkpoint through the CLIs (kept until
    this phase ends): 7a ``cli.mm_eval.main`` on ``configs/mm/eval.yaml`` as
    it ships (bf16, the plain ``greedy_generate`` route, 300 new tokens, batch
@@ -173,7 +191,15 @@ and 9 (each at full depth) stays within its time limit.
    held against teacher-forced forwards; then on the same model the int8
    cache dense (B4q), paged on a 17-page pool (B6q; a preemption asserted)
    and paged with speculation (B7q), held against the dense run up to
-   near-ties; 8e Qwen2.5-VL-3B (qwen-vl-3b, the windowed tower) from its
+   near-ties; 8g ``cli.mm_forget.main`` on forget.yaml as it ships from
+   8a's checkpoint with ``freeze_vision_module=false``, three steps: the
+   tower trains, B2/B3 at D 80 (``_tower_cli_run``'s checks); 8h the same
+   with ``LoRA.r=8 quantize_base=int4`` (QLoRA over grouped int4): the first
+   batch's loss and adapter gradients against the same over the base's
+   dequantized bf16 copy (``STEP_LOSS_TOL``, cosine ``QLORA_GRAD_COS``),
+   three steps, the rows and route (B8 or the dequant) of every int4 product
+   printed, the merge saved in bf16, reloaded by ``build_engine`` and four
+   tokens served; 8e Qwen2.5-VL-3B (qwen-vl-3b, the windowed tower) from its
    seed in bf16: prefill logits against plain attention and four image
    requests served, streams held against teacher-forced forwards; 8f (after
    8d, on its model) the rest of ``serve.yaml``: 8b's checkpoint quantized
@@ -191,8 +217,11 @@ and 9 (each at full depth) stays within its time limit.
    kernels and device ms with 0, 1 and 2 adapters live and sampled.  Every
    run's launches asserted from its structure (training steps and
    micro-batches, teacher-forced forwards, the engine's prompt, image,
-   decode and chunk forwards).  ``--qwen-only`` runs phases 1, 2 and 8 and
-   prints their numbers instead of a result line.
+   decode and chunk forwards).  8i (last) one ``cli.mm_finetune.main`` run of
+   qwen-vl-3b at ``LoRA.r=0`` with ``freeze_vision_module=false``, two steps:
+   the windowed tower trains (its permutation and merger too), B2/B3 at D
+   80 once per block and backward pass.  ``--qwen-only`` runs phases 1, 2
+   and 8 and prints their numbers instead of a result line.
 9. CLEAR's text-only stack, ``configs/nlp/*.yaml``, on Llama-2-7B at full
    width and depth from seed 42, bf16, synthetic TOFU-style rows
    (``run_nlp_path``): 9a ``cli.nlp_finetune.main`` on finetune.yaml (LoRA
@@ -204,8 +233,11 @@ and 9 (each at full depth) stays within its time limit.
    within 0.05, cosine >= 0.95 on every LoRA leaf), then one step each of
    idk (one concatenated forward), dpo, npo (the text trainer's form) and
    grad_ascent with L1 of the adapters; 9c grad_proj (full parameters, SGD,
-   two backward passes) and grad_proj_l2 (second order, on plain attention,
-   one row a split) through the CLI from 9b's checkpoint; 9d
+   two backward passes) and grad_proj_l2 (second order: first-order passes
+   on the kernels, its two Hessian-vector products a layer at a time on the
+   plain attention) through the CLI from 9b's checkpoint as forget.yaml
+   ships them (8 rows of 500 tokens a step), each one step, its peak
+   printed; 9d
    ``cli.nlp_eval.main`` on eval_everything.yaml with 9b's checkpoint (four
    tasks, ``ds_size`` 8, max_length 1024, 200 new tokens, greedy: B1, B4);
    9e the same on 9a's checkpoint (the retain model's stand-in) with
@@ -215,7 +247,7 @@ and 9 (each at full depth) stays within its time limit.
    phase 7's two aggregates, ``push_model``'s layout check.  Every loss and
    gradient norm finite, no step skipped, RMU's loss moving and the LoRA b
    leaves off zero, the launches of B1-B5 exactly as each run's structure
-   gives (none in grad_proj_l2), the checkpoints holding exactly
+   gives, the checkpoints holding exactly
    ``llama_to_hf``'s names in bf16, the eval files in the JAX schema, every
    generated token within ``TIE_MARGIN`` of a teacher-forced argmax, the CSV
    with the JAX CLI's columns, all finite.  Prints seconds per sub-phase,
@@ -225,7 +257,8 @@ and 9 (each at full depth) stays within its time limit.
    9d/9e's), one ``{"kernels": [...]}`` line (twelve kernels; B1-B3 with
    phase 6's launches, B1, B4 and B5 with phase 7's, each with a
    ``qwen2vl`` entry: phase 2's numbers at the Qwen shapes and phase 8's
-   launches, 8f's included, and B1-B5 with an ``nlp`` entry: phase 2's
+   launches, 8f's included; B2 and B3 with their head-dim-80 launches in 8g
+   and 8i; B8 with 8h's), and B1-B5 with an ``nlp`` entry: phase 2's
    numbers at phase 9's shapes and phase 9's launches), the card's name and
    power limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -1350,39 +1383,47 @@ def _qwen_chunk(dev, gen, worst, record):
         del dense, pool
 
 
-def _qwen_bwd(dev, gen, worst, record):
-    B, Hq, Hkv, S, D, pad = 2, QWEN_HQ, 2, 512, 128, 37
+def _bwd_case(dev, gen, worst, record, label, key, B, Hq, Hkv, S, D, mask, causal):
+    """B2 and B3 at one shape against their plain versions (from the same
+    saved o and lse), within ``BWD_REL_TOL`` of the largest entry plus
+    ``BWD_ULP`` of each; then their device times beside the bound, the plain
+    versions' and SDPA's whole backward (dq, dk and dv in one call) on the
+    same inputs, recorded under ``record[kernel][key]``."""
     q, do = randn(gen, (B, Hq, S, D), dev), randn(gen, (B, S, Hq, D), dev).transpose(1, 2)
     k, v = randn(gen, (B, Hkv, S, D), dev), randn(gen, (B, Hkv, S, D), dev)
-    mask = torch.ones((B, S), dtype=torch.int32, device=dev)
-    mask[:, :pad] = 0
-    o, lse = flash_attention_lse(q, k, v, mask, causal=True)
+    kw = dict(causal=causal)
+    o, lse = flash_attention_lse(q, k, v, mask, **kw)
     delta = (do.float() * o.float()).sum(-1)
-    got = (flash_bwd_dq(q, k, v, mask, do, lse, delta, causal=True),
-           *flash_bwd_dkv(q, k, v, mask, do, lse, delta, causal=True))
+    got = (flash_bwd_dq(q, k, v, mask, do, lse, delta, **kw),
+           *flash_bwd_dkv(q, k, v, mask, do, lse, delta, **kw))
     torch.cuda.synchronize()
-    want = (flash_bwd_dq(q, k, v, mask, do, lse, delta, causal=True, impl="plain"),
-            *flash_bwd_dkv(q, k, v, mask, do, lse, delta, causal=True, impl="plain"))
+    want = (flash_bwd_dq(q, k, v, mask, do, lse, delta, impl="plain", **kw),
+            *flash_bwd_dkv(q, k, v, mask, do, lse, delta, impl="plain", **kw))
     errs = {}
     for gname, g, w in zip(("dq", "dk", "dv"), got, want):
         g, w = g.float(), w.float()
         err = (g - w).abs()
         if not torch.isfinite(g).all() or torch.any(err > BWD_REL_TOL * w.abs().max()
                                                     + BWD_ULP * w.abs()):
-            raise AssertionError(f"B2/B3 group 6: {gname} max |err| {err.max().item():.4e}")
+            raise AssertionError(f"B2/B3 {label}: {gname} max |err| {err.max().item():.4e}")
         errs[gname] = err.max().item()
     worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs["dq"])
     worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], errs["dk"], errs["dv"])
-    vis = mask.bool()[:, None, :] & (torch.arange(S, device=dev)[:, None]
-                                     >= torch.arange(S, device=dev)[None, :])
+    vis = torch.ones((B, S, S), dtype=torch.bool, device=dev)
+    if mask is not None:
+        vis &= mask.bool()[:, None, :]
+    if causal:
+        vis &= torch.arange(S, device=dev)[:, None] >= torch.arange(S, device=dev)[None, :]
     pairs = Hq * int(vis.sum().item())
-    small = 4 * (lse.numel() + delta.numel() + mask.numel())
+    small = 4 * (lse.numel() + delta.numel() + (0 if mask is None else mask.numel()))
     copies = [(q, k, v, do)] + [tuple(t.clone() for t in (q, k, v, do))
                                 for _ in range(n_cold(2 * 4 * q.numel()) - 1)]
+    sdpa_mask = None if mask is None and not causal else vis[:, None]
     graphs = []
     for c in copies:
         ql, kl, vl = (t.detach().clone().requires_grad_() for t in c[:3])
-        ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=vis[:, None], enable_gqa=True)
+        ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=sdpa_mask,
+                                            enable_gqa=Hq != Hkv)
         graphs.append((ol, (ql, kl, vl), c[3]))
     lib = [lambda g=g: torch.autograd.grad(g[0], g[1], g[2], retain_graph=True) for g in graphs]
     for kname, fn, nbytes, flops, err in (
@@ -1392,14 +1433,33 @@ def _qwen_bwd(dev, gen, worst, record):
             ("flash_bwd_dkv", flash_bwd_dkv,
              2 * (q.numel() + do.numel() + 2 * (k.numel() + v.numel())) + small,
              8.0 * D * pairs, max(errs["dk"], errs["dv"]))):
-        record[kname]["qwen_group6"] = dict(max_abs_err=err, **_timed_case(
-            f"{kname} group 6 (B{B} Hq{Hq} Hkv{Hkv} S{S} D{D} causal, left pad {pad}): max|err| "
-            f"{err:.3e}; sdpa is the whole backward (dq, dk and dv)",
-            [lambda c=c, fn=fn: fn(*c[:3], mask, c[3], lse, delta, causal=True)
-             for c in copies],
-            lambda fn=fn: fn(q, k, v, mask, do, lse, delta, causal=True, impl="plain"),
+        record[kname][key] = dict(max_abs_err=err, **_timed_case(
+            f"{kname} {label} (B{B} Hq{Hq} Hkv{Hkv} S{S} D{D}): max|err| {err:.3e}; sdpa is the "
+            "whole backward (dq, dk and dv)",
+            [lambda c=c, fn=fn: fn(*c[:3], mask, c[3], lse, delta, **kw) for c in copies],
+            lambda fn=fn: fn(q, k, v, mask, do, lse, delta, impl="plain", **kw),
             lib, nbytes, flops))
     del copies, graphs
+
+
+def _qwen_bwd(dev, gen, worst, record):
+    """B2 and B3 at Qwen2-VL-2B's decoder (group 6, D 128, causal, left
+    padding) and, since its towers train (``freeze_vision_module=false``), at
+    D 80: the tower's (2, 16, 576, 80) without a mask and Qwen2.5-VL-3B's
+    windows (2 x 9, 16, 64, 80) with ragged right padding."""
+    B, S, pad = 2, 512, 37
+    mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+    mask[:, :pad] = 0
+    _bwd_case(dev, gen, worst, record, f"group 6, causal, left pad {pad}", "qwen_group6", B,
+              QWEN_HQ, 2, S, 128, mask, True)
+    _bwd_case(dev, gen, worst, record, "Qwen2-VL tower, D 80", "qwen_tower_d80", 2, 16, 16,
+              576, 80, None, False)
+    W, Lw = 2 * 9, 64
+    lens = np.random.default_rng(6).integers(16, Lw + 1, W)
+    lens[::9] = Lw  # the first window of each row is full
+    wmask = (torch.arange(Lw)[None, :] < torch.from_numpy(lens)[:, None]).to(dev, torch.int32)
+    _bwd_case(dev, gen, worst, record, "Qwen2.5-VL windows, D 80, ragged",
+              "qwen25_windows_d80", W, 16, 16, Lw, 80, wmask, False)
 
 
 def check_qwen(dev, gen):
@@ -2244,8 +2304,10 @@ def _cos(a, b):
 
 
 def run_forget_path(model, timed_steps=4):
-    """Forget steps on ``model`` (the served LLaVA, quantized here) through
-    the port's bench set-up; returns the launch counts of the timed steps."""
+    """Forget steps on ``model`` (LLaVA-1.5-7B from the seed at full depth
+    when None; quantized here) through the port's bench set-up, then 4b, the
+    dots remat policies; returns the launch counts of the timed steps and
+    4b's numbers."""
     try:
         return _forget_path(model, timed_steps)
     finally:
@@ -2334,6 +2396,7 @@ def _forget_path(model, timed_steps):
         raise AssertionError(f"LoRA gradient of {worst}: cosine {cos[worst]:.4f} between the "
                              f"kernel and the plain attention step (tol {STEP_GRAD_COS})")
     del gk, gp
+    dots = _dots_policies(grad_of, b.make_step)
 
     def one_step():
         b.state, _ = b.step(b.state, b.model, None, b.batch)
@@ -2346,7 +2409,49 @@ def _forget_path(model, timed_steps):
           f"{dev_ms:.1f} ms of device time (busy share {dev_ms / wall_p:.3f} under the "
           f"profiler, {dev_ms / step_ms:.3f} of an unprofiled step); by range: {shares}; "
           f"device time by kernel: {top}", flush=True)
-    return launches
+    return launches, dots
+
+
+def _dots_policies(grad_of, make_step):
+    """4b: the same micro-batch and state under ``remat_policy`` null,
+    ``dots`` and ``dots_no_batch``: each dots policy's loss within
+    ``STEP_LOSS_TOL`` of null's and every LoRA gradient leaf at cosine
+    ``STEP_GRAD_COS`` or more (the values are the same up to the order of
+    the W8A8 rescales; only memory changes); each policy's peak and wall
+    time of one gradient printed."""
+    ref, numbers = None, {}
+    for policy in (None, "dots", "dots_no_batch"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (loss, m), g = grad_of(make_step(remat_policy=policy))
+        torch.cuda.synchronize()
+        numbers[str(policy)] = dict(ms=round((time.perf_counter() - t0) * 1e3, 1),
+                                    peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2),
+                                    loss=round(float(loss), 5))
+        if ref is None:
+            ref = (float(loss), g)
+            continue
+        cos = _grad_cosines(g, ref[1])  # the a leaves: 0 while b is 0
+        worst = min(cos, key=cos.get)
+        numbers[policy]["min_cos"] = round(cos[worst], 5)
+        if abs(float(loss) - ref[0]) > STEP_LOSS_TOL or cos[worst] < STEP_GRAD_COS:
+            raise AssertionError(f"4b remat_policy {policy}: loss {float(loss)} against null's "
+                                 f"{ref[0]}, cosine {cos[worst]} at {worst}")
+        del g
+    print(f"4b remat policies at this operating point, one micro-batch's gradient each (ms, "
+          f"peak GiB, loss, min LoRA-gradient cosine against null): {json.dumps(numbers)} "
+          f"(tol {STEP_LOSS_TOL}, {STEP_GRAD_COS})", flush=True)
+    return numbers
+
+
+# Phase 3 serves LLaVA-1.5-7B at full width with its decoder cut to
+# LLAVA_SERVE_DEPTH of its 32 layers, so that the script with this slice's
+# training sub-phases stays within its time limit; phase 4's forget step
+# runs at full depth on a model of its own
+LLAVA_SERVE_DEPTH = 16
 
 
 # ------------------------------------------------------------- phases 5-7
@@ -2363,8 +2468,10 @@ def cut_depth(family, layers):
     (every CLI reads the registry when it builds its model)."""
     from multimodal_unlearning_tpu_torch.config import registry
 
-    dec = dict.__getitem__(dict.__getitem__(dict.__getitem__(registry.PRESETS, family), "arch"),
-                           "decoder")
+    # through Config's accessors: each wraps a nested dict once and stores the
+    # wrapper back, and a dict taken from under it would be replaced by a copy
+    # at the first access inside this block
+    dec = registry.PRESETS[family]["arch"]["decoder"]
     full = dec["num_layers"]
     dec["num_layers"] = layers
     try:
@@ -2569,10 +2676,12 @@ OTHER_LOSSES = ("scrub", "KL", "llmu", "rmu", "dpo", "sku", "idk", "eco_ft")
 # adamw_q8's moments and activations (read 21.22); 6c a loss's gradients and
 # activations on 6b's resident state (SKU: five student forwards), or the
 # student, its gradients, the initial copy and plain AdamW's bf16 moments
-# once the teacher and the int8 state are gone (read 21.32).  Each bound is
-# its reading with ~15% room.  At 32 layers 6b read 57.54: that r=0 fits
+# once the teacher and the int8 state are gone (read 21.32); 6d the model
+# with its ViT, their gradients, AdamW's moments and the check's two
+# gradient trees (read 24.15).  Each bound is its reading with ~15% room.  At 32 layers 6b read 57.54: that r=0 fits
 # one card at full depth is shown by r0_memory.py, not here
-PEAK_BOUND_GIB = {"6a finetune": 6.6, "6b forget r0": 24.4, "6c losses": 24.5}
+PEAK_BOUND_GIB = {"6a finetune": 6.6, "6b forget r0": 24.4, "6c losses": 24.5,
+                  "6d finetune r0, trainable ViT": 27.8}
 
 
 def _splits(loss: str, batch: dict) -> tuple[int, int, int]:
@@ -2601,15 +2710,29 @@ def vision_launches(vis) -> int:
     return vis.num_layers if hasattr(vis, "num_layers") else vis.depth
 
 
-def _expected_launches(loss, batch, dec, vis, steps=1):
+def tower_backward_blocks(vis) -> int:
+    """The vision-tower blocks a trainable tower's backward runs B2 and B3
+    in: every Qwen2-VL block (the merger reads the last), LLaVA's below
+    ``vision_feature_layer`` (the blocks at and above it feed nothing)."""
+    if hasattr(vis, "depth"):
+        return vis.depth
+    return vis.num_layers + 1 + VISION_FEATURE_LAYER
+
+
+VISION_FEATURE_LAYER = -2  # LLaVA-1.5's (configs/model_config.yaml)
+
+
+def _expected_launches(loss, batch, dec, vis, steps=1, tower=False):
     """B1 in every decoder and ViT layer of every forward (save_attn keeps o
     and lse: no second forward in the backward pass); B2 and B3 in every
     decoder layer the student's backward reaches -- RMU reads layer 7's
-    output, so its backward stops there."""
+    output, so its backward stops there -- and, with a trainable ``tower``,
+    in each tower block that backward reaches."""
     from multimodal_unlearning_tpu_torch.train.losses import RMU_LAYER
 
     s, t, b = _splits(loss, batch)
     bwd_layers = RMU_LAYER + 1 if loss.lower() == "rmu" else dec.num_layers
+    bwd_layers += tower_backward_blocks(vis) if tower else 0
     expect = dict.fromkeys(kernels.LAUNCHES, 0)
     expect.update({"flash_fwd": steps * (s + t) * (dec.num_layers + vision_launches(vis)),
                    "flash_bwd_dq": steps * b * bwd_layers,
@@ -2617,21 +2740,49 @@ def _expected_launches(loss, batch, dec, vis, steps=1):
     return expect
 
 
+@contextlib.contextmanager
+def bwd_launches_by_head_dim():
+    """While active, counts the B2 and B3 launches by head dim:
+    {(kernel, D): launches} (a tower's D 80 or 64 beside the decoder's 128),
+    read off ``kernels.LAUNCHES`` around each wrapper call."""
+    from multimodal_unlearning_tpu_torch.ops import attention
+
+    seen = collections.Counter()
+    saved = {n: getattr(attention, n) for n in ("flash_bwd_dq", "flash_bwd_dkv")}
+
+    def counted(name, fn):
+        def wrapper(q, *a, **kw):
+            before = kernels.LAUNCHES[name]
+            out = fn(q, *a, **kw)
+            seen[(name, q.shape[-1])] += kernels.LAUNCHES[name] - before
+            return out
+        return wrapper
+
+    for name, fn in saved.items():
+        setattr(attention, name, counted(name, fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(attention, name, fn)
+
+
 class _CliRecorder:
     """While active, records what a CLI run builds and does: the arguments
     of ``make_apply_fn`` and ``make_train_step``, every step's metrics
     (floats), wall time and tokens (every split, as the loop counts them),
     and ``train_loop``'s frozen tree, teacher and final state.
-    ``after_loop(recorder)``, if given, runs when ``train_loop`` returns,
-    before the CLI merges and saves."""
+    ``before_loop(recorder, state)``, if given, runs when ``train_loop``
+    is called, before the first step; ``after_loop(recorder)`` when it
+    returns, before the CLI merges and saves."""
 
-    def __init__(self, cli, after_loop=None):
+    def __init__(self, cli, after_loop=None, before_loop=None):
         from multimodal_unlearning_tpu_torch.cli import mm_forget
         from multimodal_unlearning_tpu_torch.train import trainer
 
         self.cli, self.mm_forget, self.trainer = cli, mm_forget, trainer
         self.steps, self.loop, self.apply_kw, self.step_args = [], {}, None, None
-        self.after_loop = after_loop
+        self.after_loop, self.before_loop = after_loop, before_loop
 
     def __enter__(self):
         rec = self
@@ -2666,6 +2817,8 @@ class _CliRecorder:
 
         def loop_wrapper(**kw):
             rec.loop.update(frozen=kw["frozen"], teacher=kw["teacher_params"])
+            if rec.before_loop is not None:
+                rec.before_loop(rec, kw["state"])
             state, history = loop(**kw)
             rec.loop["state"] = state
             if rec.after_loop is not None:
@@ -2718,7 +2871,7 @@ def _arg(args, key, default=None):
                 default)
 
 
-def _loss_batch(loss, processor, dev, max_length=2048):
+def _loss_batch(loss, processor, dev, max_length=2048, data=RECIPE_DATA):
     """The first batch the forget CLI would draw for ``loss`` (its splits:
     idk for DPO and LLMU, SKU's random K), on the device."""
     from functools import partial
@@ -2726,12 +2879,156 @@ def _loss_batch(loss, processor, dev, max_length=2048):
     from multimodal_unlearning_tpu_torch.data import DataLoader, MMMixedForgetDataset
     from multimodal_unlearning_tpu_torch.train.loop import to_device
 
-    ds = MMMixedForgetDataset(forget_data_path=RECIPE_DATA, retain_data_path=RECIPE_DATA,
+    ds = MMMixedForgetDataset(forget_data_path=data, retain_data_path=data,
                               retain_split="retain90+tofu", forget_split="forget10+tofu",
                               forget_loss=loss, seed=42)
     loader = DataLoader(ds, 2, partial(processor.collate_forget, max_length=max_length),
                         shuffle=True, seed=42)
     return to_device(next(iter(loader)), dev)
+
+
+def _finetune_batch(processor, dev, data, rows, max_length=2048):
+    """The first micro-batch of ``rows`` the finetune CLI would draw from
+    ``data`` (split full+tofu), on the device."""
+    from multimodal_unlearning_tpu_torch.data import DataLoader, MMMixedDataset
+    from multimodal_unlearning_tpu_torch.train.loop import to_device
+
+    loader = DataLoader(MMMixedDataset(data, "full+tofu", seed=42), rows,
+                        lambda b: {"retain": processor.collate(b, max_length)}, shuffle=True,
+                        seed=42)
+    return to_device(next(iter(loader)), dev)
+
+
+def _grad_cosines(g1, g2):
+    """{leaf path: cosine} of two gradient trees; a leaf whose gradient is
+    zero on both sides (a block no loss reaches) counts as 1."""
+    out = {}
+    for (p, a), (_, b) in zip(tree_leaves_with_path(g1), tree_leaves_with_path(g2)):
+        both_zero = not a.any() and not b.any()
+        out["/".join(p)] = 1.0 if both_zero else _cos(a, b)
+    return out
+
+
+# a tower leaf of this many entries or more must move in a run: a step of
+# lr ~1e-6 moves a bf16 weight only where |w| < ~3e-4, ~1% of the entries
+# of N(0, 0.02) leaves, so a leaf as small as LLaVA's class_embed (1,024)
+# may keep every entry
+TOWER_MOVED_MIN = 4096
+
+
+def _tower_cli_run(label, cli, argv, batch_of, bounds):
+    """``cli.main(argv)`` at ``LoRA.r=0`` with ``freeze_vision_module=false``:
+    the vision tower trains.  Checked: every step finite (the loss moving
+    over more than one); the tower's leaves moved from their values at the
+    loop's start (those of ``TOWER_MOVED_MIN`` entries or more but the norm
+    scales, which a step of ~1e-6 cannot move in bf16) -- LLaVA's blocks at
+    and above ``vision_feature_layer``
+    and ``post_ln`` equal to them bit for bit instead (no gradient, no
+    decay); every launch as the structure gives, B2 and B3 at the tower's
+    head dim (80, or LLaVA's 64) once per block the backward reaches, per
+    backward pass; at the loop's end the kernel route's gradient of
+    ``batch_of()`` against plain attention's on the CLI's state (loss within
+    ``STEP_LOSS_TOL``, cosine ``STEP_GRAD_COS`` on every leaf, the tower's
+    included); the peak under ``bounds[label]``.  Returns (launches, B2/B3
+    launches by head dim)."""
+    from multimodal_unlearning_tpu_torch.cli import mm_forget
+    from multimodal_unlearning_tpu_torch.train import trainer
+
+    start, got = {}, {}
+
+    def before(rec, state):
+        start.update({p: x.detach().clone()
+                      for p, x in tree_leaves_with_path(state.trainable["vision_tower"])})
+
+    def after(rec):
+        torch.cuda.synchronize()
+        got.update(launches=dict(kernels.LAUNCHES), by_d=dict(by_d), steps=list(rec.steps),
+                   peak=torch.cuda.max_memory_allocated() / 2**30)
+        state, frozen, teacher = rec.loop["state"], rec.loop["frozen"], rec.loop["teacher"]
+        (apply_fn, tx), step_kw = rec.step_args[0][:2], rec.step_args[1]
+        mcfg = rec.apply_kw[0][1]
+        # the CLI's own settings, before the checks below build steps of their own
+        kw = rec.apply_kw[1]
+        got.update(mcfg=mcfg, loss=step_kw["loss_type"], accum=step_kw["grad_accum"],
+                   refwd=kw["remat"] and kw["remat_policy"] not in ("save_attn", "save_attn_ffn"))
+        cut = tower_backward_blocks(mcfg.vision)
+        if getattr(mcfg, "vision_feature_layer", VISION_FEATURE_LAYER) != VISION_FEATURE_LAYER:
+            raise AssertionError(f"{label}: vision_feature_layer {mcfg.vision_feature_layer}")
+        moved, still = 0, []
+        for p, x in tree_leaves_with_path(state.trainable["vision_tower"]):
+            x0, key = start[p], "/".join(p)
+            if hasattr(mcfg.vision, "num_layers") and p[0] == "layers":  # LLaVA's ViT
+                if not torch.equal(x[cut:], x0[cut:]):
+                    raise AssertionError(f"{label}: {key} moved above vision_feature_layer")
+                x, x0 = x[:cut], x0[:cut]
+            elif p[0] == "post_ln":
+                if not torch.equal(x, x0):
+                    raise AssertionError(f"{label}: {key} (feeds no loss) moved")
+                continue
+            if not torch.equal(x, x0):
+                moved += 1
+            elif p[-1] != "scale" and x.numel() >= TOWER_MOVED_MIN:
+                still.append(key)
+        if still:
+            raise AssertionError(f"{label}: tower leaves still at their loaded values: {still}")
+        batch = batch_of()
+        plain_fn = mm_forget.make_apply_fn(*rec.apply_kw[0],
+                                           **dict(rec.apply_kw[1], attn_impl="plain"))
+        grad_of = lambda fn: trainer.make_train_step(  # noqa: E731
+            fn, tx, **dict(step_kw, grad_accum=1)).grad_fn(state.trainable, frozen, teacher,
+                                                           batch)
+        (lk, _), gk = grad_of(apply_fn)
+        (lp, _), gp = grad_of(plain_fn)
+        cos = _grad_cosines(gk, gp)
+        if hasattr(mcfg.vision, "num_layers"):
+            # CLIP's key bias adds q.b to every score of a row, which the
+            # softmax cancels: its gradient is 0 but for rounding, on both
+            # routes, and has no direction to compare
+            cos.pop("vision_tower/layers/k_bias")
+        tower_cos = {k: v for k, v in cos.items() if k.startswith("vision_tower")}
+        worst = min(cos, key=cos.get)
+        print(f"{label}: {moved} of {len(start)} tower leaves moved from their loaded "
+              f"values; first batch, "
+              f"kernels vs plain attention: loss {float(lk):.5f} vs {float(lp):.5f} (tol "
+              f"{STEP_LOSS_TOL}); gradient cosine min {cos[worst]:.5f} at {worst}, tower min "
+              f"{min(tower_cos.values()):.5f} over {len(tower_cos)} leaves, median "
+              f"{statistics.median(cos.values()):.5f} over {len(cos)} (tol {STEP_GRAD_COS})",
+              flush=True)
+        if abs(float(lk) - float(lp)) > STEP_LOSS_TOL or cos[worst] < STEP_GRAD_COS:
+            raise AssertionError(f"{label}: kernels vs plain attention: loss {float(lk)} vs "
+                                 f"{float(lp)}, cosine {cos[worst]} at {worst}")
+
+    with bwd_launches_by_head_dim() as by_d:
+        with _CliRecorder(cli, after_loop=after, before_loop=before) as rec:
+            t0 = time.perf_counter()
+            _measured(lambda: cli.main(argv))
+            wall = time.perf_counter() - t0
+    steps, mcfg = got["steps"], got["mcfg"]
+    _check_steps(label, steps)
+    losses = [m["loss"] for m in steps]
+    if len(steps) > 1 and len(set(losses)) < 2:
+        raise AssertionError(f"{label}: the loss did not move: {losses}")
+    accum = got["accum"]
+    passes = len(steps) * accum * _splits(got["loss"], {})[2]
+    want = _expected_launches(got["loss"], {}, mcfg.decoder, mcfg.vision,
+                              steps=len(steps) * accum, tower=True)
+    if got["refwd"]:  # remat without save_attn: each decoder layer's B1 runs again
+        want["flash_fwd"] += passes * mcfg.decoder.num_layers
+    _check_launches(label, got["launches"], want)
+    d = mcfg.vision.head_dim if hasattr(mcfg.vision, "head_dim") else (
+        mcfg.vision.hidden_size // mcfg.vision.num_heads)
+    tower = tower_backward_blocks(mcfg.vision)
+    want_d = collections.Counter()
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        want_d[(name, d)] += passes * tower
+        want_d[(name, mcfg.decoder.head_dim)] += passes * mcfg.decoder.num_layers
+    if got["by_d"] != want_d:
+        raise AssertionError(f"{label}: B2/B3 by head dim {got['by_d']}, expected {want_d} "
+                             f"({passes} backward passes x {tower} tower blocks at D {d})")
+    print(f"{label}: main() {wall:.1f} s; B2/B3 by head dim {got['by_d']} ({passes} backward "
+          f"passes x {tower} tower blocks at D {d})", flush=True)
+    _report_steps(label, steps, got["launches"], got["peak"], bounds)
+    return got["launches"], {f"{n} D{dim}": v for (n, dim), v in got["by_d"].items()}
 
 
 def run_recipe_path(ft_dir, finetune_args=FINETUNE_CLI_ARGS, forget_args=R0_FORGET_CLI_ARGS,
@@ -2930,6 +3227,21 @@ def run_recipe_path(ft_dir, finetune_args=FINETUNE_CLI_ARGS, forget_args=R0_FORG
         if peak_c > PEAK_BOUND_GIB["6c losses"]:
             raise AssertionError(f"6c: peak {peak_c:.2f} GiB above the bound")
         out["losses"] = total
+        del st, step, batch, trainable, frozen, apply_fn, tx
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 6d: r=0 finetune steps from 6a's checkpoint with the ViT trained: two,
+        # since the warmup's first step runs at lr 0 (lr 1e-4, as 6b, so that a
+        # bf16 weight can move in the second)
+        out["tower"], _ = _tower_cli_run(
+            "6d finetune r0, trainable ViT", mm_finetune,
+            [a for a in finetune_args if not a.startswith("+model_path")] + [
+                f"+model_path={ft_dir}", "LoRA.r=0", "freeze_vision_module=false",
+                "+save_model=false", "lr=1e-4", "num_epochs=0.03",  # 160 rows, 2 a step: 2 steps
+                f"save_dir={fg_dir}"],
+            lambda: _finetune_batch(processor, dev, RECIPE_DATA, 2, max_length),
+            PEAK_BOUND_GIB)
         return out
     finally:
         shutil.rmtree(fg_dir, ignore_errors=True)
@@ -3323,8 +3635,18 @@ QWEN_EVAL_ARGS = ["model_family=qwen-vl2-2b", "ds_size=8",
 # 8a: the bf16 model (4.9 GB), f32 adapters, activations of 4 rows (read
 # 13.97 on an H100 80GB HBM3 at 700 W); 8b: the model, its bf16 gradients,
 # the f32 accumulator, AdamW's bf16 moments (~24 GB) and activations of 2
-# rows (read 26.69)
-QWEN_PEAK_BOUND_GIB = {"8a finetune": 24.0, "8b forget r0": 40.0}
+# rows (read 26.69); 8g the same with the tower trained, its activations
+# kept, and the check's two gradient trees (read 39.68); 8h the int4 base,
+# f32 adapters and activations of 2 rows (read 9.82); 8i Qwen2.5-VL-3B's 3.8 B
+# parameters, their f32 sums over accumulation 2, AdamW's moments and the
+# check's two gradient trees (read 51.38); each with ~15% room
+QWEN_PEAK_BOUND_GIB = {"8a finetune": 24.0, "8b forget r0": 40.0,
+                       "8g forget r0, trainable tower": 45.6,
+                       "8h forget, QLoRA r 8 over an int4 base": 11.3,
+                       "8i finetune qwen-vl-3b, trainable tower": 59.1}
+# the QLoRA step's adapter gradients over the int4 base against those over
+# its dequantized bf16 copy: the same weights, rounded at other places
+QLORA_GRAD_COS = 0.99
 QWEN_TIGHT_POOL = 17  # pages of 128: six requests that grow to 3-4 pages each
 QWEN_NEW = 160  # tokens a served request asks for: past its first pages
 
@@ -3948,6 +4270,21 @@ def run_qwen_path(sync=torch.cuda.synchronize, finetune_args=QWEN_FINETUNE_ARGS,
         del rec
         gc.collect()
         torch.cuda.empty_cache()
+
+        # 8g: forget.yaml as it ships from 8a's checkpoint with the tower trained
+        processor = common.build_processor(serve.get_model_identifiers("qwen-vl2-2b"))
+        out["8g"], out["8g_by_d"] = _tower_cli_run(
+            "8g forget r0, trainable tower", mm_forget,
+            forget_args + [f"model_path={ft_dir}", "freeze_vision_module=false",
+                           "save_model=false", f"save_dir={os.path.join(tmp, 'tower')}"],
+            lambda: _loss_batch(loss, processor, "cuda", data=QWEN_DATA), QWEN_PEAK_BOUND_GIB)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 8h: forget.yaml with LoRA r 8 over a grouped-int4 base (QLoRA), merged,
+        # reloaded and served
+        out["8h"] = _qwen_qlora_int4(ft_dir, tmp, forget_args, processor)
+        gc.collect()
+        torch.cuda.empty_cache()
         shutil.rmtree(ft_dir, ignore_errors=True)
 
         # 8c: eval.yaml on 8b's checkpoint, then the metrics CLI
@@ -3988,7 +4325,149 @@ def run_qwen_path(sync=torch.cuda.synchronize, finetune_args=QWEN_FINETUNE_ARGS,
     out["8e"] = _qwen25_serve(serve_base)
     gc.collect()
     torch.cuda.empty_cache()
+    # 8i: finetune.yaml steps of Qwen2.5-VL-3B with its windowed tower trained:
+    # two, since the warmup's first step runs at lr 0
+    tmp = tempfile.mkdtemp(prefix="qwen25_")
+    try:
+        processor = common.build_processor(serve.get_model_identifiers("qwen-vl-3b"))
+        out["8i"], out["8i_by_d"] = _tower_cli_run(
+            "8i finetune qwen-vl-3b, trainable tower", mm_finetune,
+            ["model_family=qwen-vl-3b", "+model_path=null", f"data_path={QWEN_DATA}",
+             "LoRA.r=0", "freeze_vision_module=false", "+save_model=false",
+             "num_epochs=0.055", f"save_dir={tmp}"],  # 320 rows, 8 a step: 2 steps
+            lambda: _finetune_batch(processor, "cuda", QWEN_DATA, 4), QWEN_PEAK_BOUND_GIB)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
+
+
+def _dequantized(model):
+    """A copy of ``model`` whose grouped-int4 leaves are bf16 weights with
+    the values they stand for: the QLoRA step's dense reference."""
+    import copy
+
+    from torch import nn
+
+    out = copy.deepcopy(model)
+    for mod in list(out.modules()):
+        for name, child in list(mod.named_children()):
+            if isinstance(child, quantize.QTensor4):
+                delattr(mod, name)
+                mod.register_parameter(name, nn.Parameter(
+                    quantize.dequantize_leaf(child, torch.bfloat16), requires_grad=False))
+    return out
+
+
+def _qwen_qlora_int4(ft_dir, tmp, forget_args, processor, family="qwen-vl2-2b",
+                     serve_extra=()):
+    """8h: ``cli.mm_forget.main`` on forget.yaml from 8a's checkpoint with
+    ``LoRA.r=8 quantize_base=int4`` (QLoRA), three steps, merged in bf16 and
+    saved.  Before the first step: the first batch's loss and adapter
+    gradients over the int4 base against the same over its dequantized bf16
+    copy (loss within ``STEP_LOSS_TOL``, cosine ``QLORA_GRAD_COS`` on every
+    adapter leaf).  The rows of every int4 product and the route each took
+    (B8 up to ``INT4_MAX_KERNEL_ROWS``, the dequant route above; every
+    backward through one dequantizes) are printed.  Then ``build_engine``
+    reloads the merged checkpoint and serves four tokens of an image
+    request.  Returns the launches of the CLI run."""
+    from multimodal_unlearning_tpu_torch.cli import mm_forget
+    from multimodal_unlearning_tpu_torch.train import trainer
+
+    label = "8h forget, QLoRA r 8 over an int4 base"
+    save_dir = os.path.join(tmp, "qlora")
+
+    cli_kw = {}
+
+    def before(rec, state):
+        frozen = rec.loop["frozen"]
+        n4 = sum(isinstance(m, quantize.QTensor4) for m in frozen.modules())
+        if not n4:
+            raise AssertionError(f"{label}: no int4 leaf in the base")
+        (apply_fn, tx), step_kw = rec.step_args[0][:2], rec.step_args[1]
+        # the CLI's own settings, before the check builds steps of its own
+        cli_kw.update(accum=step_kw["grad_accum"], loss=step_kw["loss_type"],
+                      scale=rec.apply_kw[1]["lora_cfg"], mcfg=rec.apply_kw[0][1])
+        batch = _loss_batch(step_kw["loss_type"], processor, next(frozen.parameters()).device,
+                            data=QWEN_DATA)
+        grad_of = lambda base: trainer.make_train_step(  # noqa: E731
+            apply_fn, tx, **dict(step_kw, grad_accum=1)).grad_fn(state.trainable, base, None,
+                                                                 batch)
+        (l4, _), g4 = grad_of(frozen)
+        dense = _dequantized(frozen)
+        (lb, _), gb = grad_of(dense)
+        del dense
+        cos = _grad_cosines(g4, gb)
+        worst = min(cos, key=cos.get)
+        print(f"{label}: {n4} int4 leaves; first batch over the int4 base vs its dequantized "
+              f"bf16 copy: loss {float(l4):.5f} vs {float(lb):.5f} (tol {STEP_LOSS_TOL}); "
+              f"adapter gradient cosine min {cos[worst]:.5f} at {worst}, median "
+              f"{statistics.median(cos.values()):.5f} over {len(cos)} leaves (tol "
+              f"{QLORA_GRAD_COS})", flush=True)
+        if abs(float(l4) - float(lb)) > STEP_LOSS_TOL or cos[worst] < QLORA_GRAD_COS:
+            raise AssertionError(f"{label}: int4 vs bf16 base: loss {float(l4)} vs {float(lb)}, "
+                                 f"cosine {cos[worst]} at {worst}")
+        quantize.INT4_DEQUANT_CALLS.clear()
+        b8.INT4_BWD_CALLS.clear()
+        rows.clear()
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+
+    quantize.INT4_DEQUANT_CALLS.clear()
+    b8.INT4_BWD_CALLS.clear()
+    with b8_rows() as rows, _CliRecorder(
+            mm_forget, before_loop=before) as rec:
+        t0 = time.perf_counter()
+        _measured(lambda: mm_forget.main(forget_args + [
+            f"model_path={ft_dir}", "LoRA.r=8", "quantize_base=int4", "merge_dtype=bfloat16",
+            f"save_dir={save_dir}"]))
+        wall = time.perf_counter() - t0
+    # counts and peak from the loop's start (``before`` reset them) to the save
+    launches, peak = dict(kernels.LAUNCHES), torch.cuda.max_memory_allocated() / 2**30
+    _check_steps(label, rec.steps)
+    losses = [m["loss"] for m in rec.steps]
+    accum, loss, mcfg = cli_kw["accum"], cli_kw["loss"], cli_kw["mcfg"]
+    if len(rec.steps) != 3 or len(set(losses)) < 2 or cli_kw["scale"] != 32 / 8:
+        raise AssertionError(f"{label}: {len(rec.steps)} steps, losses {losses}")
+    # B8 launches once per forward product it takes (the backward dequantizes)
+    want = dict(_expected_launches(loss, {}, mcfg.decoder, mcfg.vision,
+                                   steps=len(rec.steps) * accum), int4_matmul=sum(rows.values()))
+    _check_launches(label, launches, want)
+    dq_rows = sorted({m for m, _, _ in quantize.INT4_DEQUANT_CALLS})
+    bwd_rows = sorted({m for m, _, _ in b8.INT4_BWD_CALLS})
+    if any(m <= quantize.INT4_MAX_KERNEL_ROWS for m in dq_rows) or any(
+            m > quantize.INT4_MAX_KERNEL_ROWS for m in rows) or not b8.INT4_BWD_CALLS:
+        raise AssertionError(f"{label}: routes: B8 rows {dict(rows)}, dequant rows {dq_rows}, "
+                             f"backward rows {bwd_rows}")
+    n_t = os.path.getsize(os.path.join(save_dir, "model.safetensors"))
+    print(f"{label}: main() {wall:.1f} s (load, quantize, the check, steps, merge, save of "
+          f"{n_t / 1e9:.2f} GB); rows per int4 product: B8 {dict(sorted(rows.items()))} "
+          f"(forward, up to {quantize.INT4_MAX_KERNEL_ROWS} rows), dequant + matmul forward "
+          f"{dq_rows} ({sum(quantize.INT4_DEQUANT_CALLS.values())} calls), dequant + matmul "
+          f"backward {bwd_rows} ({sum(b8.INT4_BWD_CALLS.values())} calls)", flush=True)
+    _report_steps(label, rec.steps, launches, peak, QWEN_PEAK_BOUND_GIB)
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the merged checkpoint reloaded and served: four tokens of an image request
+    cfg = serve.load_config([f"model_family={family}", f"model_path={save_dir}",
+                             "quantize_base=false", *serve_extra])
+    engine, proc, _, _ = serve.build_engine(cfg)
+    ids, _, pix, _, _ = _qwen_requests(proc, 1, 11)[0]
+    kernels.reset_launch_counts()
+    req = engine.submit(ids, 4, pixel_values=pix)
+    engine.run()
+    torch.cuda.synchronize()
+    served = dict(kernels.LAUNCHES)
+    if len(req.tokens) != 4 or not served["flash_fwd"] or not served["flash_decode"]:
+        raise AssertionError(f"{label}: reload served {req.tokens} ({req.finish_reason}), "
+                             f"launches {served}")
+    print(f"{label}: the merged checkpoint reloaded and served 4 tokens {req.tokens}; "
+          f"launches {({k: v for k, v in served.items() if v})}", flush=True)
+    engine._state = None
+    del engine
+    return launches
 
 
 # ------------------------------------------------------------- phase 9
@@ -4008,16 +4487,12 @@ NLP_FINETUNE_ARGS = [f"data_path={NLP_DATA}", "batch_size=8", "gradient_accumula
 # forget.yaml as shipped (RMU, LoRA r 8, batch 4, accumulation 2, AdamW at lr
 # 1e-5) but for the data and one epoch: 25 forget rows, 8 a step: 3 steps
 NLP_FORGET_ARGS = [f"data_path={NLP_DATA}", "merge_dtype=bfloat16", "num_epochs=1"]
-# 9c: one step of each projection method from 9b's checkpoint (8 rows a step:
-# 25 // 8 = 3 steps an epoch, one taken), no save.  grad_proj_l2 at one row of
-# each split, padded to 128 tokens (the rows hold ~85): beside the weights,
-# g_neg / v, g_pos and the sum of each stacked leaf's per-layer gradients in
-# a Hessian-vector product (12.55 GiB each), the graphs of its two first
-# backward passes hold the plain attention's f32 scores, which at 500 tokens
-# took the card past its 80 GB
-NLP_PROJ_ARGS = {"grad_proj": ["num_epochs=0.33"],
-                 "grad_proj_l2": ["num_epochs=0.04", "batch_size=1",
-                                  "gradient_accumulation_steps=1", "max_length=128"]}
+# 9c: one step of each projection method from 9b's checkpoint as forget.yaml
+# ships them (8 rows of 500 tokens a step: 25 // 8 = 3 steps an epoch, one
+# taken), no save.  grad_proj_l2 takes its Hessian-vector products a layer at
+# a time (``train/grad_proj._hvp_``): whole second-order graphs of 500 tokens
+# took the card past its 80 GB even at one row
+NLP_PROJ_ARGS = {"grad_proj": ["num_epochs=0.33"], "grad_proj_l2": ["num_epochs=0.33"]}
 NLP_EVAL_ARGS = ["ds_size=8", f"data_path=[{','.join([NLP_DATA] * 4)}]"]
 NLP_EVAL_RUNS = {"9d eval": [], "9e eval, engine + speculation": ["engine_generate=true",
                                                                    "speculative_k=4"]}
@@ -4028,10 +4503,11 @@ NLP_OTHER_LOSSES = ("idk", "dpo", "npo", "grad_ascent")
 # HBM3 at 700 W with ~15% room (9a 38.49: the bf16 weights, 12.55 GiB, and 8
 # rows of activations of 500 tokens; 9b 27.77; 9c's other losses 38.44, idk's
 # 8 concatenated rows; grad_proj 64.37: the weights, two gradient trees and
-# 8 rows; grad_proj_l2 69.14: the weights, three trees and the graphs of two
-# first backward passes at one row of 128 tokens)
+# 8 rows; grad_proj_l2: its first-order passes are grad_proj's, and its
+# products a layer at a time hold the weights, g_pos and v and one layer's
+# graphs)
 NLP_PEAK_BOUND_GIB = {"9a finetune": 45.0, "9b forget rmu": 34.0, "9c losses": 45.0,
-                      "9c grad_proj": 75.0, "9c grad_proj_l2": 78.0}
+                      "9c grad_proj": 75.0, "9c grad_proj_l2": 75.0}
 
 
 def _nlp_batch(loss, tok, tags, dev, rows=4, max_length=500):
@@ -4206,11 +4682,11 @@ def _nlp_proj_run(label, argv, dec, sync):
     if [h["step"] for h in history] != list(range(1, len(rec.steps) + 1)) or not rec.steps:
         raise AssertionError(f"{label}: history {history}, {len(rec.steps)} steps")
     n = len(rec.steps)
-    want = dict.fromkeys(kernels.LAUNCHES, 0)
-    if method == "grad_proj":  # two forwards with their backwards, two after the update
-        want.update(flash_fwd=4 * n * dec.num_layers, flash_bwd_dq=2 * n * dec.num_layers,
-                    flash_bwd_dkv=2 * n * dec.num_layers)
-    if attn != ("auto" if method == "grad_proj" else "plain") or launches != want:
+    # two forwards with their backwards, two after the update (grad_proj_l2's
+    # products a layer at a time run the plain attention)
+    want = dict(dict.fromkeys(kernels.LAUNCHES, 0), flash_fwd=4 * n * dec.num_layers,
+                flash_bwd_dq=2 * n * dec.num_layers, flash_bwd_dkv=2 * n * dec.num_layers)
+    if attn != "auto" or launches != want:
         raise AssertionError(f"{label}: attention {attn}, launches {launches}, expected {want}")
     per = [f"{m['wall'] * 1e3:.0f} ms ({m['tokens'] / m['wall']:.0f} tok/s), neg "
            f"{m['neg_loss']:.5f} pos {m['pos_loss']:.5f}" for m in rec.steps]
@@ -4438,46 +4914,11 @@ def run_nlp_path(mm_results=None, sync=torch.cuda.synchronize, finetune_args=NLP
         torch.cuda.empty_cache()
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    dev = torch.device("cuda")
-    card = nvidia_smi()
-    print(f"card: {card}", flush=True)
-    t0 = time.perf_counter()
-    took = kernels.build()
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s ({took})", flush=True)
-    for name in kernels.SOURCES:
-        for line in kernels.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
-
-    gen = torch.Generator(device=dev).manual_seed(0)
-    if "--nlp-only" in sys.argv[1:]:  # phase 2 at the nlp shapes and phase 9: no result line
-        nlp_err, nlp_rec = check_nlp(dev, gen)
-        torch.cuda.empty_cache()
-        print(json.dumps({"phase9": run_nlp_path(), "nlp_phase2": nlp_rec}))
-        return 0
-    b1_err, b1 = check_b1(dev, gen)
-    b4_err, b4 = check_b4(dev, gen)
-    b4q_err, b4q = check_b4q(dev, gen)
-    b5_err, b5 = check_b5(dev, gen)
-    b6_err, b6 = check_b6(dev, gen)
-    b7_err, b7 = check_b7(dev, gen)
-    bwd_err, bwd = check_bwd(dev, gen)
-    b8_err, b8_rec = check_b8(dev, gen)
-    qwen_err, qwen_rec = check_qwen(dev, gen)
-    nlp_err, nlp_rec = check_nlp(dev, gen)
-    torch.cuda.empty_cache()
-    if "--kernels-only" in sys.argv[1:]:  # phases 1-2 alone: no main path, no result line
-        print(json.dumps({"phase2": dict(b1=b1, b4=b4, b4q=b4q, b5=b5, b6=b6, b7=b7, bwd=bwd,
-                                         b8=b8_rec, qwen=qwen_rec, nlp=nlp_rec)}))
-        return 0
-    if "--qwen-only" in sys.argv[1:]:  # phases 1-2 and 8 alone: no result line
-        print(json.dumps({"phase8": run_qwen_path(), "qwen_phase2": qwen_rec}))
-        return 0
-
+def run_serving_phase():
+    """Phase 3: LLaVA-1.5-7B served through ``cli.serve.build_engine`` in
+    every serving configuration (bf16, speculation, paged, int4, the int8
+    serve config, paged int8).  Returns the launches of each run, the
+    requests and the bf16 prefill logits."""
     cfg = serve.load_config(SERVE_ARGS + ["quantize_base=false"])
     engine, launches, specs, bf16_logits, dense_streams = run_main_path(cfg)
     prefill_profile(engine, specs[7])   # the longest text prompt
@@ -4519,15 +4960,61 @@ def main() -> int:
     # the same on a paged60 pool
     paged8_launches = run_paged_int8_path(model, specs, streams8, spec_streams8)
 
-    # the forget step on the served model (int8 already: the bench's
-    # quantization passes it through), once the serving phases are done
-    # and their caches freed
-    step_launches = run_forget_path(model)
-    # the forget CLI from config to saved model and back into serving, on a
-    # model of its own: the served (int8) model goes first
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    return (launches, specs, bf16_logits, spec_launches, paged_launches, b8_launches,
+            b8_spec_launches, b8_rows_seen, q8_launches, spec8_launches, paged8_launches)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    card = nvidia_smi()
+    print(f"card: {card}", flush=True)
+    t0 = time.perf_counter()
+    took = kernels.build()
+    print(f"kernel build: {time.perf_counter() - t0:.2f} s ({took})", flush=True)
+    for name in kernels.SOURCES:
+        for line in kernels.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if "--nlp-only" in sys.argv[1:]:  # phase 2 at the nlp shapes and phase 9: no result line
+        nlp_err, nlp_rec = check_nlp(dev, gen)
+        torch.cuda.empty_cache()
+        print(json.dumps({"phase9": run_nlp_path(), "nlp_phase2": nlp_rec}))
+        return 0
+    b1_err, b1 = check_b1(dev, gen)
+    b4_err, b4 = check_b4(dev, gen)
+    b4q_err, b4q = check_b4q(dev, gen)
+    b5_err, b5 = check_b5(dev, gen)
+    b6_err, b6 = check_b6(dev, gen)
+    b7_err, b7 = check_b7(dev, gen)
+    bwd_err, bwd = check_bwd(dev, gen)
+    b8_err, b8_rec = check_b8(dev, gen)
+    qwen_err, qwen_rec = check_qwen(dev, gen)
+    nlp_err, nlp_rec = check_nlp(dev, gen)
+    torch.cuda.empty_cache()
+    if "--kernels-only" in sys.argv[1:]:  # phases 1-2 alone: no main path, no result line
+        print(json.dumps({"phase2": dict(b1=b1, b4=b4, b4q=b4q, b5=b5, b6=b6, b7=b7, bwd=bwd,
+                                         b8=b8_rec, qwen=qwen_rec, nlp=nlp_rec)}))
+        return 0
+    if "--qwen-only" in sys.argv[1:]:  # phases 1-2 and 8 alone: no result line
+        print(json.dumps({"phase8": run_qwen_path(), "qwen_phase2": qwen_rec}))
+        return 0
+
+    with cut_depth("llava", LLAVA_SERVE_DEPTH):
+        serving = run_serving_phase()
+    (launches, specs, bf16_logits, spec_launches, paged_launches, b8_launches, b8_spec_launches,
+     b8_rows_seen, q8_launches, spec8_launches, paged8_launches) = serving
+    # the forget step at full depth, on a model of its own from the seed
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_launches, dots = run_forget_path(None)
     import shutil
     import tempfile
 
@@ -4595,7 +5082,8 @@ def main() -> int:
                             "7d": ev_d["launches"]["flash_fwd"]},
              # Qwen2-VL (phase 8): head dim 80 in the towers, group 6 in the decoder
              qwen2vl=q_row("flash_fwd", "8a", "8b", "8c", "8d_shipped", "8d_int8_cache",
-                           "8d_int8_paged", "8d_int8_paged_spec", "8e", *QWEN_8F_RUNS),
+                           "8d_int8_paged", "8d_int8_paged_spec", "8e", *QWEN_8F_RUNS, "8g",
+                           "8h", "8i"),
              # the text stack (phase 9): Llama-2-7B's training and eval shapes
              nlp=nlp_row("flash_fwd", "9a", "9b", "9c_losses", "9c_grad_proj",
                          "9c_grad_proj_l2", "9d", "9e")),
@@ -4605,7 +5093,10 @@ def main() -> int:
              launches=step_launches["flash_bwd_dq"], max_abs_err=bwd_err["dq"], **bwd["dq"],
              forget_cli_launches=cli_launches["flash_bwd_dq"],
              recipe_launches={k: v["flash_bwd_dq"] for k, v in recipe_launches.items()},
-             qwen2vl=q_row("flash_bwd_dq", "8a", "8b"),
+             qwen2vl=q_row("flash_bwd_dq", "8a", "8b", "8g", "8h", "8i"),
+             # the towers' backward at head dim 80 (8g Qwen2-VL-2B, 8i Qwen2.5-VL-3B)
+             d80_launches={k: qwen[f"{k}_by_d"].get("flash_bwd_dq D80", 0)
+                           for k in ("8g", "8i")},
              nlp=nlp_row("flash_bwd_dq", "9a", "9b", "9c_losses", "9c_grad_proj",
                          "9c_grad_proj_l2")),
         dict(name="flash_bwd_dkv (B3)", route="cuda",
@@ -4614,7 +5105,9 @@ def main() -> int:
              launches=step_launches["flash_bwd_dkv"], max_abs_err=bwd_err["dkv"],
              forget_cli_launches=cli_launches["flash_bwd_dkv"],
              recipe_launches={k: v["flash_bwd_dkv"] for k, v in recipe_launches.items()},
-             qwen2vl=q_row("flash_bwd_dkv", "8a", "8b"),
+             qwen2vl=q_row("flash_bwd_dkv", "8a", "8b", "8g", "8h", "8i"),
+             d80_launches={k: qwen[f"{k}_by_d"].get("flash_bwd_dkv D80", 0)
+                           for k in ("8g", "8i")},
              nlp=nlp_row("flash_bwd_dkv", "9a", "9b", "9c_losses", "9c_grad_proj",
                          "9c_grad_proj_l2"), **bwd["dkv"]),
         dict(name="flash_decode (B4)", route="cuda",
@@ -4686,6 +5179,8 @@ def main() -> int:
              source="multimodal_unlearning_tpu_torch/ops/csrc/int4_matmul.cu",
              replaces="multimodal_unlearning_tpu/ops/int4_matmul.py:45",
              launches=b8_launches, max_abs_err=b8_err,
+             # 8h: the QLoRA run's forward products at up to 1,024 rows
+             qlora_launches=qwen["8h"]["int4_matmul"],
              # the headline case: gate/up at decode (M 8), then every case
              **{k: v for k, v in b8_rec["gate_up_m8"].items() if k != "library"},
              library_call=b8_rec["gate_up_m8"]["library"],

@@ -301,16 +301,9 @@ def freezes_vision(cfg) -> bool:
     return str(cfg.get("freeze_vision_module", "true")).lower() == "true"
 
 
-def check_ported(cfg, use_lora: bool, kind: str) -> None:
-    """Training options of the JAX CLIs that the port does not have yet
-    raise before any work is done."""
-    if use_lora and cfg.get("quantize_base") and qspec(cfg.quantize_base) == "int4":
-        raise NotImplementedError("quantize_base=int4 under LoRA needs int4 training "
-                                  "(dx through the W4A16 product), which is not ported yet")
-    if not use_lora and is_vlm(kind) and not freezes_vision(cfg):
-        raise NotImplementedError("a trainable vision tower (LoRA.r=0 with "
-                                  "freeze_vision_module=false) is not ported yet: the port's "
-                                  "VLM forward runs its vision tower without gradients")
+def check_ported(cfg) -> None:
+    """Training options of the JAX CLIs that the port does not have yet (a
+    mesh) raise before any work is done."""
     mesh = cfg.get("mesh") or {}
     big = {k: v for k, v in mesh.items() if v is not None and int(v) > 1}
     if big:
@@ -318,11 +311,11 @@ def check_ported(cfg, use_lora: bool, kind: str) -> None:
                                   "ported yet")
 
 
-def start_run(cfg, model_cfg, use_lora: bool, device):
+def start_run(cfg, device):
     """The training CLIs' opening: unported options raise, the device is
     printed, ``save_dir`` is made and the config written there.  Returns
     ``save_dir``, or None when it exists and ``overwrite_dir`` is false."""
-    check_ported(cfg, use_lora, model_kind(model_cfg))
+    check_ported(cfg)
     print(f"device: {device}")
     save_dir = Path(cfg.save_dir)
     if save_dir.exists() and not cfg.get("overwrite_dir", True):

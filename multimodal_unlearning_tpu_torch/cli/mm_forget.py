@@ -19,13 +19,16 @@ Ported: every loss type of ``train/losses.py`` (``SKU_LOSS_ARGS``,
 ``dpo_fix``, RMU's control vector), L1/L0 regularization from zero or from
 the initial model, full-parameter forgetting (``LoRA.r=0``, the config's
 default: the model's own parameters are trained in place, the vision tower
-frozen under ``freeze_vision_module``, Qwen2-VL's merger with it; a teacher
-is a bf16 copy, or int8 under ``quantize_teacher``), LoRA (``LoRA.r > 0``) over a dense or int8
-(``quantize_base=true``) base with ``int8_compute``, ``int8_bwd``,
-``quantize_teacher`` and the shared teacher, ``adamw`` and ``adamw_q8``,
-``merge_dtype``, ``save_model``, ``save_adapters``, ``save_ckpts`` and
-resume.  An int4 base under LoRA, a trainable vision tower and mesh axes
-above 1 raise.
+frozen under ``freeze_vision_module`` -- Qwen2-VL's merger with it -- or
+trained too with ``freeze_vision_module=false``; a teacher is a bf16 copy,
+or int8 / int4 under ``quantize_teacher``), LoRA (``LoRA.r > 0``) over a
+dense, int8 (``quantize_base=true``) or grouped-int4 (``quantize_base=int4``,
+QLoRA: dx through the W4A16 product) base with ``int8_compute`` and
+``int8_bwd`` (int8 bases only: on an int4 base they change nothing, as in
+the JAX package), ``quantize_teacher`` and the shared teacher, ``adamw`` and
+``adamw_q8``, ``remat_policy`` (``save_attn``, ``save_attn_ffn``, ``dots``,
+``dots_no_batch``), ``merge_dtype``, ``save_model``, ``save_adapters``,
+``save_ckpts`` and resume.  Mesh axes above 1 raise.
 """
 
 from __future__ import annotations
@@ -118,7 +121,7 @@ def _run(cfg):
     # LoRA gating rule (mm/forget.py:126): L1 from zero means full parameters
     use_lora = cfg.LoRA.r != 0 and (cfg.get("l_norm_from") != "zero"
                                    or cfg.get("l1_lambda", 0) == 0)
-    save_dir = common.start_run(cfg, model_cfg, use_lora, device)
+    save_dir = common.start_run(cfg, device)
     if save_dir is None:
         return None
 

@@ -43,7 +43,7 @@ def run(cfg):
     dtype = common.dtype_of(cfg)
     merge_dtype = common.parse_dtype(cfg.get("merge_dtype"))
     use_lora = cfg.LoRA.r != 0
-    save_dir = common.start_run(cfg, model_cfg, use_lora, device)
+    save_dir = common.start_run(cfg, device)
     if save_dir is None:
         return None
 

@@ -13,8 +13,10 @@ Counterpart of ``multimodal_unlearning_tpu/cli/nlp_forget.py``: reads
   ``retain_ft`` (one token mean over both);
 - ``grad_proj`` / ``grad_proj_l2`` (``train/grad_proj.py``): LoRA off, SGD,
   two backward passes a step; ``grad_proj_l2`` differentiates twice, which
-  the attention kernels cannot (their backward has no derivative), so its
-  forward runs the plain attention (``attn_impl="plain"``);
+  the attention kernels cannot (their backward has no derivative): its
+  first-order passes run on the kernels and its two Hessian-vector products
+  a layer at a time on the plain attention (``forget.yaml``'s 500 tokens on
+  one card);
 - every other loss through ``train/trainer.py`` with the text trainer's RMU
   (one ``(1, 1, H)`` control vector) and NPO (``rmu_nlp``, ``npo_nlp``),
   L1/L0 from zero under LoRA and from the initial model without
@@ -73,7 +75,7 @@ def run(cfg):
     loss_name = cfg.forget_loss
     is_projection = loss_name in grad_proj.PROJECTION_METHODS
     use_lora = cfg.LoRA.r != 0 and not is_projection
-    save_dir = common.start_run(cfg, model_cfg, use_lora, device)
+    save_dir = common.start_run(cfg, device)
     if save_dir is None:
         return None
 
@@ -107,11 +109,6 @@ def run(cfg):
                                                    seed=cfg.seed, dtype=dtype, device=device)
     needs_teacher = L.loss_needs_teacher(loss_name) and not is_projection
     flags = common.train_flags(cfg, model_cfg)
-    if is_projection and loss_name == "grad_proj_l2" and not cfg.get("grad_proj_l2_ref"):
-        # the attention kernels' backward has no derivative of its own
-        print("grad_proj_l2: second-order gradients through the plain attention "
-              "(attn_impl=plain); the attention kernels are differentiable once")
-        flags["attn_impl"] = "plain"
     tx = common.make_tx(cfg, kind, mcfg, steps_per_epoch, max_steps,
                         optimizer="sgd" if is_projection else None, forget_loss=loss_name)
     # the teacher is the initial model: under LoRA the frozen base itself,
@@ -127,7 +124,9 @@ def run(cfg):
         step_fn = grad_proj.make_grad_proj_step(
             apply_fn, tx, method=loss_name, gamma=float(cfg.get("l2_grad_gamma", 1.0)),
             # grad_proj_l2_ref=true: the reference's actual (retain-only) numerics
-            ref_behavior=bool(cfg.get("grad_proj_l2_ref", False)))
+            ref_behavior=bool(cfg.get("grad_proj_l2_ref", False)),
+            # grad_proj_l2's two Hessian-vector products run the decoder's layers
+            model=tr.model, compute_dtype=dtype)
         history = projection_loop(step_fn, tr.trainable, tx, loader, device, max_steps)
         trainable = tr.trainable
     else:

@@ -38,9 +38,12 @@ is the dict returned.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from multimodal_unlearning_tpu_torch.config import LlamaConfig
 from multimodal_unlearning_tpu_torch.device import resolve_device
@@ -57,7 +60,28 @@ __all__ = ["LlamaConfig", "Llama", "init_params", "rms_norm", "dense", "init_kv_
            "init_paged_kv_cache", "positions_from_mask", "enable_int8_compute",
            "apply_lora_delta", "PER_ROW"]
 
-REMAT_POLICIES = (None, "save_attn", "save_attn_ffn")
+REMAT_POLICIES = (None, "save_attn", "save_attn_ffn", "dots", "dots_no_batch")
+
+_aten = torch.ops.aten
+# the matrix products whose outputs XLA's ``checkpoint_dots`` keeps (every
+# dot_general) and ``dots_with_no_batch_dims_saveable`` keeps (those without
+# batch dimensions: the weight products), as the aten ops eager PyTorch runs
+_DOTS = {
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default, _aten.baddbmm.default,
+             _aten._int_mm.default),
+    "dots_no_batch": (_aten.mm.default, _aten.addmm.default, _aten._int_mm.default),
+}
+
+
+def _dots_context(policy):
+    """``checkpoint``'s context_fn for a dots policy: the listed products'
+    outputs are saved, everything else recomputed."""
+    saved = _DOTS[policy]
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy_fn)
 
 
 def _promote(dtype):
@@ -296,7 +320,27 @@ class Llama(ParamTree):
                 self.layers.register_parameter(name, torch.nn.Parameter(
                     torch.empty((L, width), device=dev, dtype=dtype), requires_grad=False))
         self.cfg = cfg
+        self._layer_weights = None
         self.make_rope_tables(dev)
+
+    def layer_forward(self, x, layer, weights, cos_p, sin_p, kv_mask, attn_impl="plain"):
+        """Layer ``layer`` of the no-cache forward with the tensors of
+        ``weights`` ({name: tensor}) in place of that layer's slices of the
+        stacked parameters of those names: a function of (x, weights) alone
+        for ``torch.func``'s transforms (``train/grad_proj.py``'s
+        Hessian-vector products, a layer at a time)."""
+        self._layer_weights = {n: {layer: w} for n, w in weights.items()}
+        try:
+            return self._block(x, layer, cos_p, sin_p, None, 0, kv_mask, False, attn_impl)
+        finally:
+            self._layer_weights = None
+
+    def _lw(self, name, layer):
+        """Layer ``layer`` of stacked parameter ``name`` (the tensor given for
+        it under ``layer_forward``)."""
+        if self._layer_weights is not None and name in self._layer_weights:
+            return self._layer_weights[name][layer]
+        return getattr(self.layers, name)[layer]
 
     def make_rope_tables(self, device) -> None:
         """The f32 rope tables (buffers ``rope_cos`` / ``rope_sin``) on
@@ -337,8 +381,7 @@ class Llama(ParamTree):
         Qwen2 family) is added last, after the product's rescale and the
         LoRA delta, in the output's dtype and never quantized, as in the
         JAX package."""
-        lp = self.layers
-        ws = [getattr(lp, n)[layer] for n in names]
+        ws = [self._lw(n, layer) for n in names]
         lls = [self._lora_leaf(lora, n, layer) for n in names]
         if len(names) > 1 and INT8_COMPUTE and all(_is_int8(w) for w in ws):
             ys = int8_matmul_group(t, tuple(w["q"] for w in ws), tuple(w["s"] for w in ws))
@@ -346,7 +389,7 @@ class Llama(ParamTree):
         else:
             ys = [dense(t, w, ll, lora_scale, lora_ids) for w, ll in zip(ws, lls)]
         if self.cfg.qkv_bias and names[0] == "q_proj":
-            ys = [y + getattr(lp, n[0] + "_bias")[layer].to(y.dtype) for y, n in zip(ys, names)]
+            ys = [y + self._lw(n[0] + "_bias", layer).to(y.dtype) for y, n in zip(ys, names)]
         return ys
 
     def _attn_inputs(self, x, layer, cos_p, sin_p, lora, lora_scale, lora_ids=None):
@@ -354,7 +397,7 @@ class Llama(ParamTree):
         cfg = self.cfg
         B, S, _ = x.shape
         hd, nh, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-        h = rms_norm(x, self.layers.input_layernorm[layer], cfg.rms_norm_eps)
+        h = rms_norm(x, self._lw("input_layernorm", layer), cfg.rms_norm_eps)
         q, k, v = self._project(h, ("q_proj", "k_proj", "v_proj"), layer, lora, lora_scale,
                                 lora_ids)
         q = q.view(B, S, nh, hd).transpose(1, 2)
@@ -365,15 +408,15 @@ class Llama(ParamTree):
     def _attn_out_ffn_in(self, x, attn, layer, lora, lora_scale, lora_ids=None):
         """Output projection, residual, post norm, gate/up: -> (x, ffn_pre_down)."""
         cfg = self.cfg
-        x = x + dense(attn, self.layers.o_proj[layer], self._lora_leaf(lora, "o_proj", layer),
+        x = x + dense(attn, self._lw("o_proj", layer), self._lora_leaf(lora, "o_proj", layer),
                       lora_scale, lora_ids)
-        h = rms_norm(x, self.layers.post_attention_layernorm[layer], cfg.rms_norm_eps)
+        h = rms_norm(x, self._lw("post_attention_layernorm", layer), cfg.rms_norm_eps)
         gate, up = self._project(h, ("gate_proj", "up_proj"), layer, lora, lora_scale,
                                  lora_ids)
         return x, F.silu(gate.to(_promote(gate.dtype))).to(x.dtype) * up
 
     def _ffn_down(self, x, ff, layer, lora, lora_scale, lora_ids=None):
-        return x + dense(ff, self.layers.down_proj[layer],
+        return x + dense(ff, self._lw("down_proj", layer),
                          self._lora_leaf(lora, "down_proj", layer), lora_scale, lora_ids)
 
     def _after_attn(self, x, attn, layer, lora, lora_scale, lora_ids=None):
@@ -415,13 +458,21 @@ class Llama(ParamTree):
             outside both, so it keeps q, k, v, o and lse and its backward runs
             without a second forward.
           "save_attn_ffn": as "save_attn", and the down projection stands
-            outside too, which keeps its input ``ffn_pre_down``."""
-        def ckpt(fn, *args):
-            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+            outside too, which keeps its input ``ffn_pre_down``.
+          "dots" / "dots_no_batch": the whole layer under a selective
+            checkpoint that keeps the outputs of its matrix products (all of
+            them, or those without batch dimensions: the weight products) and
+            recomputes the rest, XLA's ``checkpoint_dots`` and
+            ``dots_with_no_batch_dims_saveable``.  The attention kernels' call
+            is no product of aten's, as it is no dot in the JAX package's
+            kernel route: it runs again."""
+        def ckpt(fn, *args, **kw):
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
-        if policy is None:
+        if policy is None or policy in _DOTS:
             return ckpt(lambda t: self._block(t, layer, cos_p, sin_p, None, 0, kv_mask, False,
-                                              attn_impl, lora, lora_scale), x)
+                                              attn_impl, lora, lora_scale), x,
+                        **({"context_fn": _dots_context(policy)} if policy else {}))
         q, k, v = ckpt(lambda t: self._attn_inputs(t, layer, cos_p, sin_p, lora, lora_scale), x)
         attn = self._attend(q, k, v, layer, None, 0, kv_mask, False, attn_impl)
         if policy == "save_attn":
@@ -451,10 +502,6 @@ class Llama(ParamTree):
         "captured": [B, S, H] f32 or None, "hidden": final normed states or
         None}."""
         cfg = self.cfg
-        if remat_policy in ("dots", "dots_no_batch"):
-            raise NotImplementedError(
-                f"remat_policy {remat_policy!r} names an XLA checkpoint policy with no eager "
-                "counterpart; use None, 'save_attn' or 'save_attn_ffn'")
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, got "
                              f"{remat_policy!r}")

@@ -16,7 +16,7 @@ from torch import nn
 from multimodal_unlearning_tpu_torch.config import LlavaConfig
 from multimodal_unlearning_tpu_torch.device import resolve_device
 from multimodal_unlearning_tpu_torch.models import llama, vit
-from multimodal_unlearning_tpu_torch.models.params import ParamTree
+from multimodal_unlearning_tpu_torch.models.params import ParamTree, trains
 from multimodal_unlearning_tpu_torch.utils.pytree import tree_map_with_path
 from multimodal_unlearning_tpu_torch.utils.quantize import embed_lookup, is_qtensor
 
@@ -108,7 +108,9 @@ class Llava(nn.Module):
         """VLM forward; ``input_ids`` already hold the expanded image tokens.
         ``lora``: ``{"language_model": ..., "projector": ...}`` adapters, or a
         bank of them with ``lora_ids`` [B] (multi-LoRA serving).  The
-        vision tower is frozen and runs without building a graph.
+        vision tower builds a graph only when one of its leaves requires a
+        gradient (``LoRA.r=0`` with ``freeze_vision_module=false``); it is
+        not rematerialised, as in the JAX package.
         ``chunk_decode`` and ``positions`` pass through to the decoder (text
         passes into the cache: speculative verify, chunked prefill, prefix
         suffixes; see ``llama.Llama.forward``)."""
@@ -118,7 +120,7 @@ class Llava(nn.Module):
         embeds = (embed_lookup(et, input_ids) if is_qtensor(et) else et[input_ids]).to(
             compute_dtype)
         if pixel_values is not None:
-            with torch.no_grad():
+            with torch.set_grad_enabled(torch.is_grad_enabled() and trains(self.vision_tower)):
                 feats = self.vision_tower(
                     pixel_values, feature_layer=cfg.vision_feature_layer,
                     attn_impl=attn_impl, compute_dtype=compute_dtype)

@@ -12,7 +12,9 @@ model stays frozen.  The adapters are applied inside the projections
 (``models/llama.py:dense``).
 
 ``merge_model`` folds the adapters into the base (a module or a dict tree)
-and returns a dense dict tree, dequantizing int8 leaves.  ``out_dtype`` sets
+and returns a dense dict tree, dequantizing int8 and int4 leaves.  Adapters
+over an int4 base (QLoRA) take the weight's logical ``in``, twice the
+packed dimension.  ``out_dtype`` sets
 the dtype of every float leaf of the result, dense bases included (the JAX
 package honours it only for quantized leaves).
 """
@@ -23,7 +25,7 @@ import torch
 from torch import nn
 
 from multimodal_unlearning_tpu_torch.utils.quantize import (
-    QTensor, dequantize_leaf, is_int4, is_qtensor)
+    dequantize_leaf, is_int4, is_qtensor, qs_of)
 
 # every decoder linear except lm_head
 DEFAULT_TARGETS = (
@@ -59,14 +61,13 @@ def _get(node, name):
 
 
 def _weight_shape(w):
-    """Logical [.., in, out] shape of a dense or int8-quantized weight."""
-    if is_int4(w):  # init_lora only: a serving bank never reads the base's shape
-        raise NotImplementedError("LoRA over grouped int4 bases is not ported yet (int4 "
-                                  "training is a later slice)")
-    if isinstance(w, QTensor):
-        return tuple(w.q.shape)
+    """Logical [.., in, out] shape of a dense, int8 or grouped-int4 weight
+    (int4: the packed contracting dim holds two rows a byte, as the JAX
+    package reads it)."""
     if is_qtensor(w):
-        return tuple(w["q"].shape)
+        q, _ = qs_of(w)
+        *lead, d_in, d_out = q.shape
+        return (*lead, 2 * d_in if is_int4(w) else d_in, d_out)
     return tuple(w.shape)
 
 
@@ -78,7 +79,7 @@ def _pair(lead, d_in, d_out, r, generator, dtype, device):
 
 
 def _device_of(w):
-    return (w.q if isinstance(w, QTensor) else w["q"] if isinstance(w, dict) else w).device
+    return (qs_of(w)[0] if is_qtensor(w) else w).device
 
 
 def init_lora(layer_params, r: int, generator: torch.Generator, targets=DEFAULT_TARGETS,
@@ -187,7 +188,7 @@ class _Merge:
         quantized = is_qtensor(w)
         acc = torch.promote_types(a.dtype, torch.float32)
         odt = self.dq_dtype if quantized else (self.out_dtype or w.dtype)
-        L, d_in, d_out = (w.q if isinstance(w, QTensor) else w).shape
+        L, d_in, d_out = _weight_shape(w)
         dev = "cpu" if self.consume else a.device
         out = torch.empty((L, d_in, d_out), dtype=odt, device=dev)
         for i in range(L):

@@ -29,6 +29,14 @@ class ParamTree(nn.Module):
                     torch.empty(shape, device=device, dtype=dtype), requires_grad=False))
 
 
+def trains(module: nn.Module, skip: str | None = None) -> bool:
+    """Whether any parameter of ``module`` (but those under ``skip``)
+    requires a gradient: a vision tower that none of its leaves trains
+    runs without building a graph."""
+    return any(p.requires_grad for n, p in module.named_parameters()
+               if skip is None or not n.startswith(skip))
+
+
 def check_tree_of(module: nn.Module, tree: dict) -> nn.Module:
     """``module``, after checking that every leaf of ``tree`` (a nested dict
     at its parameter paths, ``None`` slots skipped) is one of its own

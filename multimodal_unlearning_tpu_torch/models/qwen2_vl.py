@@ -24,11 +24,11 @@ Counterpart of ``multimodal_unlearning_tpu/models/qwen2_vl.py``:
   chunk passes) adds ``rope_delta`` to them, so text after an image
   continues at the image's extent, not at the token count.
 
-The tower is frozen in every run the port has (the forget and finetune
-CLIs freeze it, and a trainable tower raises there): its blocks run without
-building a graph, and only the merger runs under autograd, so that its
-adapters get gradients.  So no gradient of the tower's attention (B2/B3 at
-head dim 80) is ever asked for.
+A frozen tower's blocks run without building a graph and only the merger
+runs under autograd, so that its adapters get gradients; a tower whose
+leaves require gradients (``LoRA.r=0`` with ``freeze_vision_module=false``)
+builds one, and its attention's backward runs kernels B2 and B3 at head dim
+80.  The tower is not rematerialised, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ from multimodal_unlearning_tpu_torch.config import QwenVisionConfig, QwenVLConfi
 from multimodal_unlearning_tpu_torch.device import resolve_device
 from multimodal_unlearning_tpu_torch.models import llama
 from multimodal_unlearning_tpu_torch.models.llava import splice_image_embeds
-from multimodal_unlearning_tpu_torch.models.params import ParamTree
+from multimodal_unlearning_tpu_torch.models.params import ParamTree, trains
 from multimodal_unlearning_tpu_torch.models.vit import layer_norm, quick_gelu
 from multimodal_unlearning_tpu_torch.ops.attention import flash_attention
 from multimodal_unlearning_tpu_torch.utils.quantize import embed_lookup, is_qtensor
@@ -167,9 +167,10 @@ def vision_forward(tower: QwenVisionTower, cfg: QwenVisionConfig, patches, *, gr
                    lora_scale: float = 0.0, lora_ids=None):
     """Encode pre-patchified images [B, N, patch_dim] (one image per row,
     all at the static ``grid``) -> merged features [B, N // merge^2,
-    out_hidden_size].  The blocks run without autograd; the merger (and
-    its ``merger_lora`` adapters ``{"fc1", "fc2"}``, or a bank of them
-    selected per row by ``lora_ids``) with it."""
+    out_hidden_size].  The blocks run under autograd when a leaf of the
+    patch embedding or the blocks requires a gradient, else without; the
+    merger (and its ``merger_lora`` adapters ``{"fc1", "fc2"}``, or a bank
+    of them selected per row by ``lora_ids``) always with it."""
     B, N, _ = patches.shape
     E, nh, hd = cfg.embed_dim, cfg.num_heads, cfg.head_dim
     eps = cfg.layer_norm_eps
@@ -230,7 +231,7 @@ def vision_forward(tower: QwenVisionTower, cfg: QwenVisionConfig, patches, *, gr
         h = quick_gelu(h @ bp.fc1[layer].to(h.dtype) + bp.fc1_bias[layer])
         return x + h @ bp.fc2[layer].to(h.dtype) + bp.fc2_bias[layer]
 
-    with torch.no_grad():
+    with torch.set_grad_enabled(torch.is_grad_enabled() and trains(tower, skip="merger")):
         x = patches.to(compute_dtype) @ tower.patch_embed.to(compute_dtype)
         if windowed:
             x = x[:, perm_t]

@@ -8,9 +8,8 @@ CUDA tensor ``flash_attention`` launches the hand-written kernels
 ``csrc/flash_fwd.cu`` and, in the backward pass, ``csrc/flash_bwd_dq.cu`` and
 ``csrc/flash_bwd_dkv.cu``; on a CPU tensor it runs the plain versions.  There
 is no other route, and no 128-alignment fallback: the kernels take any
-sequence length (the ViT's 577 too) and head dims 64 and 128; the forward
-kernel also head dim 80 (the Qwen2-VL towers, which run without gradients:
-the backward kernels at 80 are not built, and asking for them raises).
+sequence length (the ViT's 577 too) and head dims 64, 80 (the Qwen2-VL
+towers, 1280 / 16) and 128, forward and backward.
 
 ``impl="auto"`` goes through ``FlashAttention`` (a ``torch.autograd.Function``:
 gradients for q, k and v from the saved o and lse); ``impl="plain"`` is the
@@ -182,11 +181,11 @@ def _bwd_cuda_args(name, q, k, v, kv_mask, do, lse, delta):
     if any(t.device != q.device for t in (k, v, do, lse, delta)):
         raise ValueError("q, k, v, do, lse and delta must be on one device")
     if (do.shape != q.shape or v.shape != k.shape or k.shape[0] != B or k.shape[3] != D
-            or Hq % Hkv or D not in (64, 128) or lse.numel() != B * Hq * Sq
+            or Hq % Hkv or D not in (64, 80, 128) or lse.numel() != B * Hq * Sq
             or delta.numel() != B * Hq * Sq):
         raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"do {tuple(do.shape)} lse {tuple(lse.shape)} "
-                         f"delta {tuple(delta.shape)} (head dim 64 or 128, Hq % Hkv == 0)")
+                         f"delta {tuple(delta.shape)} (head dim 64, 80 or 128, Hq % Hkv == 0)")
     mask = None
     if kv_mask is not None:
         if tuple(kv_mask.shape) != (B, Sk) or kv_mask.device != q.device:

@@ -10,7 +10,8 @@
 // masking rules of flash_fwd.cu (kv_mask, causal with q_offset).  p is masked
 // after the exponent; a query row whose lse is -1e30 saw no key in the forward
 // pass and adds exactly nothing (its exponent is -inf); a key the mask refuses
-// gets dk = dv = 0.  Any Sq and Sk; D is 64 or 128.
+// gets dk = dv = 0.  Any Sq and Sk; D is 64, 80 (the Qwen2-VL towers' heads,
+// 1280 / 16) or 128.
 //
 // GQA: the TPU launcher writes per-q-head partials in bf16 and sums each
 // group afterwards.  Here the block that owns a kv-head accumulates the whole
@@ -55,7 +56,10 @@
 //     tiles of 64 query rows in a ring of 2 (104 KB) are taken in slices of 32
 //     columns: S^T and dP^T of one slice are 32 more registers, at most 255 a
 //     thread with nothing spilled, and 2 blocks share an SM.  At D 64: slices
-//     of 64 columns.
+//     of 64 columns.  At D 80 (5 k-steps of 16 in S^T and dP^T, 10 n8 tiles
+//     in dk and dv) the accumulators are 80 registers and slices of 64
+//     columns 64 more: fewer than D 128's 128 + 32, so D 64's tiling holds
+//     (68 KB of shared memory, 2 blocks an SM).
 // What still holds it back (later work): only 8 warps share an SM, each
 // running its ldmatrix loads and 16x8x16 products in turn and re-reading the
 // whole Q and dO slice for its 16 keys.  The paired grid of the forget step
@@ -387,8 +391,9 @@ extern "C" int mmu_flash_bwd_dkv_bf16(
   const Args a{q,  k,  v,        mask,   dout,     lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk,
                st, sm_scale, causal, q_offset, static_cast<cudaStream_t>(stream)};
   // D 128: 64 query rows per stage, ring of 2, slices of 32 (2 blocks per SM);
-  // D 64: 64 rows, ring of 2, one slice
+  // D 64 and 80: 64 rows, ring of 2, one slice
   if (D == 128) return launch<128, 64, 32, 2, 2>(a);
   if (D == 64) return launch<64, 64, 64, 2, 2>(a);
+  if (D == 80) return launch<80, 64, 64, 2, 2>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }

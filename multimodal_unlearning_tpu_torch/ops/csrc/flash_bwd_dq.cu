@@ -11,7 +11,7 @@
 // masked pair cannot contribute through an overflow.  A row whose lse is -1e30
 // saw no key in the forward pass: its p is exactly 0 (its exponent is -inf)
 // and its dq is 0.  GQA maps q-head h to kv-head h // group.  Any Sq and Sk;
-// D is 64 or 128.  No block depends on another and nothing is added
+// D is 64, 80 (the Qwen2-VL towers' heads, 1280 / 16) or 128.  No block depends on another and nothing is added
 // atomically, so the result is the same bits on every run.
 //
 // What bounds it on the card: at the forget step's (2,32,768,128) causal it
@@ -38,7 +38,9 @@
 //     groups.  At D 128: 32-column tiles in a ring of 2 (70 KB) with at most
 //     168 registers a thread, nothing spilled, so 3 blocks share an SM and the
 //     forget step's 384 paired blocks run in one wave; at D 64: 64-column
-//     tiles in a ring of 2.
+//     tiles in a ring of 2.  D 80 is 5 k-steps of 16 in S and dP and 10 n8
+//     tiles in dq, on D 64's tiling (68 KB) with a register bound of 2 blocks
+//     an SM: its accumulator is 8 registers wider.
 //   - before any load the block lists its live tiles (a column the mask
 //     admits, up to its last causal column), marking those the mask admits
 //     whole, so all-padding tiles are never copied and inner tiles skip the
@@ -372,8 +374,9 @@ extern "C" int mmu_flash_bwd_dq_bf16(const void* q, const void* k, const void* v
   const Args a{q,  k,  v,   mask, dout,     lse,    delta,    dq, B, Hq, Hkv, Sq, Sk,
                st, sm_scale, causal, q_offset, static_cast<cudaStream_t>(stream)};
   // D 128: 32-column tiles, ring of 2, <= 168 registers (3 blocks per SM);
-  // D 64: 64-column tiles, ring of 2
+  // D 64: 64-column tiles, ring of 2; D 80: the same, 2 blocks per SM
   if (D == 128) return launch<128, 32, 2, 3>(a);
   if (D == 64) return launch<64, 64, 2, 3>(a);
+  if (D == 80) return launch<80, 64, 2, 2>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }

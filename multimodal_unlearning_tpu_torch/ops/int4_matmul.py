@@ -24,12 +24,20 @@ module global read at each call, for holding a whole model against it.
 
 Which calls reach it is ``utils/quantize.int4_matmul``'s rule: M <= 1024
 rows and a shape that ``supported`` accepts; the rest dequantizes one weight
-at a time.  There is no backward: int4 training is a later slice, and a call
-whose input needs a gradient raises.
+at a time.
+
+Training over an int4 base (QLoRA): both functions differentiate in x
+(``with_dx``, a ``torch.autograd.Function``): the forward takes its route
+unchanged (B8 or the dequant), the backward is ``int4_dx``, dx = dy @
+dequant(q4, s)^T with each half of the weight dequantized to x's dtype and
+multiplied by ``torch.matmul`` -- what autodiff gives for the JAX package's
+XLA route, which has no kernel of its own either -- counted in
+``INT4_BWD_CALLS``.  The base gets no gradient.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import torch
@@ -37,9 +45,11 @@ import torch
 from multimodal_unlearning_tpu_torch.ops import kernels
 
 __all__ = ["grouped_int4_matmul", "int4_matmul_reference", "supported", "nibbles",
-           "use_plain", "splits_for"]
+           "use_plain", "splits_for", "dequant_halves", "int4_dx", "with_dx", "INT4_BWD_CALLS"]
 
 PLAIN = False  # set via use_plain(); the plain version on the card too
+# (M, K, N) -> backward passes through an int4 product (dequant + matmul)
+INT4_BWD_CALLS: collections.Counter = collections.Counter()
 
 _MAX_GROUP = 128   # the widest scale group the kernel takes
 _BN = 128          # output columns per block (csrc/int4_matmul.cu)
@@ -63,6 +73,57 @@ def nibbles(packed):
     """(low, high) sign-extended int4 values of a packed int8 array, int8:
     two arithmetic shifts each (int8 shifts wrap, as the kernel's)."""
     return (packed << 4) >> 4, packed >> 4
+
+
+def dequant_halves(q4, s, dtype):
+    """(low, high) halves [K/2, N] of the weight ``dequant(q4, s)`` in
+    ``dtype``: the exact int4 values times their f32 group scales, rounded
+    once."""
+    half, N = q4.shape[-2], q4.shape[-1]
+    gh = s.shape[-2] // 2
+    g = half // gh
+
+    def dq(q_half, s_half):
+        return (q_half.to(torch.float32).reshape(gh, g, N) * s_half[:, None, :]).reshape(
+            half, N).to(dtype)
+
+    lo, hi = nibbles(q4)
+    return dq(lo, s[:gh]), dq(hi, s[gh:])
+
+
+def int4_dx(dy, q4, s, dtype):
+    """dx [..., K] = dy @ dequant(q4, s)^T, the weight's halves in ``dtype``
+    (x's), as autodiff of the JAX package's XLA route gives it; counted in
+    ``INT4_BWD_CALLS``."""
+    lo, hi = dequant_halves(q4, s, dtype)
+    N = q4.shape[-1]
+    INT4_BWD_CALLS[(dy.numel() // N if N else 0, 2 * q4.shape[-2], N)] += 1
+    dy = dy.to(dtype)
+    return torch.cat([dy @ lo.t(), dy @ hi.t()], dim=-1)
+
+
+class _WithDx(torch.autograd.Function):
+    """``fn(x, q4, s, out_dtype)`` as it is in the forward; dx by
+    ``int4_dx`` in the backward, nothing for q4 and s."""
+
+    @staticmethod
+    def forward(ctx, x, q4, s, fn, out_dtype):
+        ctx.save_for_backward(q4, s)
+        ctx.x_dtype = x.dtype
+        return fn(x, q4, s, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        q4, s = ctx.saved_tensors
+        return int4_dx(dy, q4, s, ctx.x_dtype), None, None, None, None
+
+
+def with_dx(fn, x, q4, s, out_dtype=None):
+    """``fn(x, q4, s, out_dtype)``, differentiable in x when x requires a
+    gradient (``_WithDx``), else called as it is."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _WithDx.apply(x, q4, s, fn, out_dtype)
+    return fn(x, q4, s, out_dtype)
 
 
 def _group(q4, s) -> int | None:
@@ -157,11 +218,11 @@ def _check(x, q4, s, out_dtype):
 def grouped_int4_matmul(x, q4, s, out_dtype=None):
     """``x @ dequant(q4, s)`` for x [M, K]: kernel B8 on a CUDA tensor (bf16
     x, bf16 or f32 out), the plain version on a CPU tensor or while
-    ``PLAIN`` is set.  Raises for an input that needs a gradient."""
-    if x.requires_grad:
-        raise NotImplementedError("int4 training (a backward through the W4A16 product) is "
-                                  "not ported yet: it comes after int4 serving, in a later "
-                                  "slice")
+    ``PLAIN`` is set; differentiable in x (``with_dx``)."""
+    return with_dx(_grouped_int4_matmul, x, q4, s, out_dtype)
+
+
+def _grouped_int4_matmul(x, q4, s, out_dtype):
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu" or PLAIN:
         return int4_matmul_reference(x, q4, s, out_dtype)

@@ -29,7 +29,8 @@ from torch import nn
 from torch.profiler import record_function
 
 from multimodal_unlearning_tpu_torch.ops.int4_matmul import (
-    grouped_int4_matmul, nibbles as _nibbles, supported as _int4_supported)
+    dequant_halves, grouped_int4_matmul, nibbles as _nibbles, supported as _int4_supported,
+    with_dx)
 
 _MIN_QUANT_ELEMS = 2**16
 _FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -318,11 +319,17 @@ def int4_matmul(x, q4, s, out_dtype=None):
     card, its plain version on the CPU), which keeps the packed bytes as the
     only weight traffic.  Anything else -- a long prefill, an odd group --
     dequantizes each half of this one weight to x's dtype and multiplies it
-    with ``torch.matmul``, and is counted in ``INT4_DEQUANT_CALLS``.  No
-    backward: int4 training is a later slice."""
-    if x.requires_grad:
-        raise NotImplementedError("int4 training (a backward through the W4A16 product) is not "
-                                  "ported yet: it comes after int4 serving, in a later slice")
+    with ``torch.matmul``, and is counted in ``INT4_DEQUANT_CALLS``.
+    Differentiable in x on either route (QLoRA over an int4 base): the
+    backward dequantizes the weight and multiplies
+    (``ops/int4_matmul.int4_dx``, counted in ``INT4_BWD_CALLS``); the base
+    gets no gradient.  ``enable_int8_compute`` and ``enable_int8_bwd`` do
+    nothing here: W8A8 and the int8 dx are int8-only, as in the JAX
+    package."""
+    return with_dx(_int4_route, x, q4, s, out_dtype)
+
+
+def _int4_route(x, q4, s, out_dtype):
     out_dtype = out_dtype or x.dtype
     K, N = x.shape[-1], q4.shape[-1]
     M = x.numel() // K if K else 0
@@ -338,19 +345,11 @@ def int4_dequant_matmul(x, q4, s, out_dtype=None):
     dequantized to x's dtype (f32 group scales applied first), then
     ``torch.matmul``.  Not counted: ``int4_matmul`` counts its calls."""
     out_dtype = out_dtype or x.dtype
-    N = q4.shape[-1]
     half = q4.shape[-2]
-    gh = s.shape[-2] // 2
-    g = half // gh
-    lo, hi = _nibbles(q4)
-
-    def dq(q_half, s_half):
-        qg = q_half.to(torch.float32).reshape(gh, g, N)
-        return (qg * s_half[:, None, :]).reshape(half, N).to(x.dtype)
-
     with record_function("mmu::int4_dequant_matmul"):
-        y = x[..., :half] @ dq(lo, s[:gh])
-        y = y + x[..., half:] @ dq(hi, s[gh:])
+        lo, hi = dequant_halves(q4, s, x.dtype)
+        y = x[..., :half] @ lo
+        y = y + x[..., half:] @ hi
     return y.to(out_dtype)
 
 

@@ -5,7 +5,10 @@ JAX package's draw from ``PRNGKey(seed)``), three steps of
 ``grad_diff_forget_ce_retain_ce`` with gradient accumulation; then the same
 with an int8 base under W8A8 and the int8 dx backward (a 256-wide decoder:
 the tiny presets are too narrow to quantize), full-parameter forgetting
-(``LoRA.r=0``) with NPO and ``adamw_q8``, and L1 from the initial adapters;
+(``LoRA.r=0``) with NPO and ``adamw_q8``, the same with the vision tower
+trained (``freeze_vision_module=false``), LoRA over a grouped-int4 base
+with NPO's teacher sharing it (``quantize_base=int4 quantize_teacher=int4``,
+the 256-wide decoder) and L1 from the initial adapters;
 a kill-and-resume run of the port; and the options the port has not
 ported.
 
@@ -164,13 +167,19 @@ CASES = {
     "r0_npo_q8": ["LoRA.r=0", "forget_loss=npo", "optimizer=adamw_q8"],
     # L1 of the adapters' distance from their initial values, under LoRA
     "lora_l1_init": ["l1_lambda=0.1", "l_norm_from=init"],
+    # full-parameter forgetting with the vision tower trained too
+    "r0_vision": ["LoRA.r=0", "freeze_vision_module=false"],
+    # QLoRA: adapters over a grouped-int4 base (the 256-wide decoder), NPO's
+    # teacher the same int4 base (quantize_teacher=int4 shares it)
+    "qlora_int4": ["quantize_base=int4", "forget_loss=npo", "quantize_teacher=int4"],
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_forget_cli_matches_jax(tmp_path, monkeypatch, flags_off, reference, case):
     extra = CASES[case]
-    jhist, thist = _parity(tmp_path, monkeypatch, extra, reference, wide=case == "w8a8")
+    jhist, thist = _parity(tmp_path, monkeypatch, extra, reference,
+                           wide=case in ("w8a8", "qlora_int4"))
     assert [h["step"] for h in thist] == [h["step"] for h in jhist] == [1, 2, 3]
     jl, tl = [h["loss"] for h in jhist], [h["loss"] for h in thist]
     if case != "w8a8":
@@ -245,8 +254,7 @@ def test_checkpoints_keep_merge_dtype(tmp_path):
     assert scale == 32 / 4 and tree["language_model"]["layers"]["q_proj"]["a"].shape[-1] == 4
 
 
-@pytest.mark.parametrize("override", ["quantize_base=int4", "mesh.tensor=2", "merge_dtype=bf16",
-                                      "LoRA.r=0 freeze_vision_module=false"])
+@pytest.mark.parametrize("override", ["mesh.tensor=2", "merge_dtype=bf16"])
 def test_unported_options_raise(tmp_path, override):
     cfg = tload(FORGET_DIR, "forget", [
         "model_family=tiny-llava-test", "model_path=null", "LoRA.r=4", "forget_data_path=synthetic",

@@ -1,5 +1,5 @@
-"""Kernels B1 (flash forward; head dims 64, 80 and 128), B2/B3 (flash
-backward: dq, dk/dv), B4/B4q
+"""Kernels B1, B2 and B3 (flash forward and backward: dq, dk/dv; head dims
+64, 80 and 128), B4/B4q
 (flash decode, bf16 and int8 cache), B5/B5q (verify-chunk attention, bf16
 and int8 cache), B6/B6q, B7/B7q (the same two on a paged cache) and B8
 (grouped-int4 W4A16 matmul) against their plain PyTorch versions on the
@@ -120,13 +120,13 @@ def test_flash_fwd_d80_ragged_windows(dev):
     torch.testing.assert_close(o.float(), ref.float(), atol=O_TOL, rtol=0)
 
 
-def test_flash_bwd_refuses_d80(dev):
-    """The backward kernels are not built at D 80 (the Qwen2-VL towers run
-    without gradients): asking for them raises instead of falling back."""
+def test_flash_bwd_refuses_other_head_dims(dev):
+    """The backward kernels are built at D 64, 80 and 128: another head dim
+    raises instead of falling back."""
     rng = np.random.default_rng(8)
-    q, k, v, do = (_randn(rng, (1, 4, 64, 80), dev) for _ in range(4))
-    o, lse = flash_attention_lse(q, k, v)
-    with pytest.raises(ValueError, match="head dim 64 or 128"):
+    q, k, v, do = (_randn(rng, (1, 4, 64, 96), dev) for _ in range(4))
+    o, lse = q.clone(), torch.zeros((1, 4, 64, 1), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="head dim 64, 80 or 128"):
         flash_attention_bwd(q, k, v, None, do, o, lse)
 
 
@@ -239,9 +239,15 @@ def test_chunk_decode_matches_plain(dev, int8, B, Hq, Hkv, C, Smax, slab):
         (2, 16, 4, 333, 333, 64, True, 0, 61),       # GQA group 4, odd blocks, left padding
         (2, 8, 8, 300, 300, 128, True, 0, 128),      # key blocks 0 and 1 all padding
         (2, 12, 2, 300, 300, 128, True, 0, 37),      # Qwen2-VL-2B's group 6, left padding
+        (2, 16, 16, 576, 576, 80, False, 0, 0),      # Qwen2-VL-2B's tower at D 80
+        (18, 16, 16, 64, 64, 80, False, 0, 9),       # Qwen2.5-VL's windows, a padded one
+        (2, 8, 4, 200, 200, 80, True, 0, 37),        # D 80 causal, GQA, left padding
+        (3, 4, 2, 129, 129, 80, True, 0, 129),       # D 80, a fully padded row: dead rows
+        (2, 4, 4, 70, 300, 80, True, 230, 3),        # D 80, q_offset > 0, Sk > Sq
     ],
     ids=["step", "left_pad", "gqa", "q_offset", "vit", "dead_row", "odd_blocks", "len_129",
-         "ragged_d64", "gqa4_pad", "pad_block", "gqa6"],
+         "ragged_d64", "gqa4_pad", "pad_block", "gqa6", "qwen_tower_d80", "windows_d80",
+         "gqa_causal_d80", "dead_row_d80", "q_offset_d80"],
 )
 def test_flash_bwd_matches_plain(dev, B, Hq, Hkv, Sq, Sk, D, causal, q_offset, pad):
     rng = np.random.default_rng(2)

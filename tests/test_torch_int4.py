@@ -249,11 +249,17 @@ def test_tile_table_mirrors_the_kernel():
 
 
 def test_no_gradient_and_no_other_device():
+    """x gets its gradient through either function (QLoRA: dy @ dequant^T,
+    ``tests/test_torch_int4_train.py`` holds it against JAX); the base gets
+    none; no device but the CPU and the card."""
     qt = tq.quantize_leaf_int4(torch.from_numpy(_w((512, 256))))
-    x = torch.zeros((2, 512), requires_grad=True)
+    s = qt["s"].clone().requires_grad_()
     for fn in (tq.int4_matmul, ti.grouped_int4_matmul):
-        with pytest.raises(NotImplementedError, match="int4 training"):
-            fn(x, qt["q4"], qt["s"])
+        x = torch.ones((2, 512), requires_grad=True)
+        (gx, gs) = torch.autograd.grad(fn(x, qt["q4"], s).sum(), (x, s), allow_unused=True)
+        want = tq.dequantize_leaf(qt, torch.float32).sum(1)
+        torch.testing.assert_close(gx, want.expand(2, -1), rtol=1e-6, atol=1e-6)
+        assert gs is None
     with pytest.raises(RuntimeError, match="no kernel"):
         ti.grouped_int4_matmul(torch.empty((2, 512), device="meta"), qt["q4"].to("meta"),
                                qt["s"].to("meta"))

@@ -2,7 +2,8 @@
 package's (CPU, f32): the per-sequence mean CE, the per-layer projection
 coefficients (a layer whose coefficient clamps to 0 passes through), and one
 step each of ``grad_proj``, ``grad_proj_l2`` (the intended second-order
-objective) and ``grad_proj_l2`` with ``ref_behavior`` on a 2-layer llama with
+objective, its Hessian-vector products a layer at a time) and
+``grad_proj_l2`` with ``ref_behavior`` on a 2-layer llama with
 the same weights and batch, SGD at an lr that moves the weights by ~1 (0.5;
 1e-3 for the second-order objective, whose gradient is ~500x larger), well
 above f32 roundoff.  Also: a double backward through the attention kernels'
@@ -117,7 +118,8 @@ def test_one_step_matches_jax(method, ref):
     tapply = tforget.make_apply_fn(kind, mcfg, attn_impl="plain", compute_dtype=torch.float32,
                                    model=model)
     ttx = toptim.make_optimizer("sgd", lr)
-    tstep = tgp.make_grad_proj_step(tapply, ttx, method=method, gamma=0.7, ref_behavior=ref)
+    tstep = tgp.make_grad_proj_step(tapply, ttx, method=method, gamma=0.7, ref_behavior=ref,
+                                    model=model, compute_dtype=torch.float32)
     tbatch = {s: {k: torch.from_numpy(np.asarray(v)).long() for k, v in part.items()}
               for s, part in batch.items()}
     trainable, _, tm = tstep(trainable, ttx.init(trainable), None, tbatch)
