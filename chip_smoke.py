@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA card (H100) end to end.
 
-    python3 chip_smoke.py [--kernels-only | --qwen-only | --nlp-only]
+    python3 chip_smoke.py [--kernels-only | --qwen-only | --nlp-only | --methods-only]
 
 (``--kernels-only`` stops after phase 2 and prints its numbers instead of
 a result line; ``--qwen-only`` runs phases 1, 2 and 8 (8g-8i included),
 ``--nlp-only`` phase 1, phase 2's text-stack cases and phase 9 (9c's
-grad_proj_l2 at 500 tokens included), and print theirs.)
+grad_proj_l2 at 500 tokens included), ``--methods-only`` phase 1, phase
+2's f32 cases and phase 10 on a random Llama-2-7B in place of 9a's
+checkpoint, and print theirs.)
 
 1. Prints the card's name and power limit, builds the kernels from
    ``multimodal_unlearning_tpu_torch/ops/csrc`` with nvcc (sm_90a) and
@@ -58,6 +60,13 @@ grad_proj_l2 at 500 tokens included), and print theirs.)
    (4, 32, 500, 128), causal and right-padded with rows of 200-500 tokens
    (500 is no multiple of a tile: a partial last tile under the causal
    cut), and B1 at its teacher-forced eval batch (8, 32, 1024, 128).
+   Then the f32 instances of B1 and of the one-token decode kernel at
+   phase 10b's shapes (``check_f32``): ECO's prefill (8, 32, 128, 128)
+   causal with left-padded rows, and a decode step against an f32 cache
+   [4, 8, 32, 160, 128] with the mask narrowed to the 145 columns written,
+   each against its plain version in f32 within ``F32_TOL`` and timed
+   beside its bound (f32 operations at the CUDA cores' 67 TFLOP/s), the
+   plain version and SDPA in f32.
 3. Serves LLaVA-1.5-7B at full width with its decoder cut to
    ``LLAVA_SERVE_DEPTH`` (16) of its 32 layers (random weights from a seed, bf16)
    through ``cli.serve.build_engine`` + ``ServingEngine``: ten requests of
@@ -253,14 +262,46 @@ and 9 (each at full depth) stays within its time limit.
    with the JAX CLI's columns, all finite.  Prints seconds per sub-phase,
    steps/s and tok/s per step, peaks, eval seconds per task, tok/s and ms
    per decode step (per verify round in 9e), merge, save and load seconds.
-10. Prints one ``{"eval": ...}`` line (phase 7's numbers, 8c's, 8f's and
-   9d/9e's), one ``{"kernels": [...]}`` line (twelve kernels; B1-B3 with
+10. CLEAR's unlearning methods and the sweep (``run_methods_path``, run
+   at phase 9's end while 9a's checkpoint exists): 10a
+   ``cli.salun_generate.main`` on ``configs/methods/salun.yaml`` as it
+   ships (tiny-llama-test, f32, plain attention: no launch), then on
+   Llama-2-7B at full width with its decoder cut to ``SALUN_DEPTH`` (2)
+   layers (bf16, batch 4, max_length 128): the saliency finite, B1-B3 once
+   a layer and batch, and the ten ``with_{t}.npz`` (26.7 GB, in memory
+   files of the process, ``_ram_dir``, closed after) read back a tensor at
+   a time: the parameter tree's paths and shapes in float32, exactly
+   ``int(t * n)`` kept per tensor (per layer of a stacked leaf), each mask
+   inside the next, t = 1.0 all ones; 10b ``cli.eco_prepare.main`` on
+   ``configs/methods/eco_llama2-7b.yaml`` in f32 from 9a's checkpoint
+   (``NLP_DATA``: 25 forget rows, batches of 8, 8, 8 and 1, 32 new tokens):
+   the flagged tokens of every gated prompt exactly its entity's, every
+   generated token within ``TIE_MARGIN`` of a teacher-forced argmax on the
+   corrupted embeddings, an ungated row's logits equal to the clean
+   forward's bit for bit and a flagged row's not, the prefill logits
+   within ``ECO_LOGIT_TOL`` of f32 plain attention's, B1's and B4's f32
+   instances launched exactly once a layer per prefill and decode step
+   (nothing else), ``eco_prompts.jsonl`` in the JAX schema; then detectors
+   trained by ``cli.eco_train_classifiers.main`` on the host
+   (``ECO_DETECTOR_EPOCHS``) driving ECO on the same model; 10c
+   ``cli.nlp_forget.main`` with ``forget_loss=eco_ft`` on 10b's prompts
+   from 9a's checkpoint (forget.yaml's LoRA r 8, bf16, two steps): finite,
+   the LoRA b leaves off zero, B1-B3 as the steps give; 10d
+   ``orchestrate.run_exps`` (``SWEEP_ARGS``: ``stack=nlp``, grad_ascent on
+   tiny-llama-test) running forget and evaluation as subprocesses on the
+   card, exit 0, both artifacts and both logs, then a second run that
+   skips both and launches no subprocess.  Prints seconds, peaks and
+   launches per sub-phase.
+11. Prints one ``{"eval": ...}`` line (phase 7's numbers, 8c's, 8f's,
+   9d/9e's and phase 10's), one ``{"kernels": [...]}`` line (twelve kernels; B1-B3 with
    phase 6's launches, B1, B4 and B5 with phase 7's, each with a
    ``qwen2vl`` entry: phase 2's numbers at the Qwen shapes and phase 8's
    launches, 8f's included; B2 and B3 with their head-dim-80 launches in 8g
    and 8i; B8 with 8h's), and B1-B5 with an ``nlp`` entry: phase 2's
-   numbers at phase 9's shapes and phase 9's launches), the card's name and
-   power limit, and as the last line ``{"ok": true, "device": {...}}``.
+   numbers at phase 9's shapes and phase 9's launches; B1-B3 with phase
+   10's launches, B1 and B4 with an ``f32`` entry: their f32 instances'
+   phase 2 numbers and 10b's launches), the card's name and power limit,
+   and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; without a CUDA device it exits 1 before doing anything.
@@ -335,9 +376,19 @@ B8_REL_TOL = 1e-2
 # a weight stream timed cold: B8 cycles through copies of its weight that
 # together exceed the H100's 50 MB L2, as a decode step reads each weight once
 COLD_BYTES = 120e6
-# published peaks of one H100 SXM (dense bf16 tensor cores, HBM3)
+# published peaks of one H100 SXM (dense bf16 tensor cores, f32 on the CUDA
+# cores outside the tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# the f32 instances of B1 and B4 (ECO) against their plain version in f32:
+# both compute in f32 and differ in the summation order and the online
+# softmax's rescaling, a few f32 ulps of sums over up to 160 columns
+F32_TOL = 5e-5
+F32_LSE_TOL = 1e-5
+# ECO's prefill logits, f32 kernels against f32 plain attention through 32
+# layers of Llama-2-7B (random weights, logits ~ N(0, 1)): f32 rounding only
+ECO_LOGIT_TOL = 1e-3
 
 
 def nvidia_smi() -> str:
@@ -367,10 +418,11 @@ def n_cold(nbytes: float) -> int:
     return max(2, int(-(-COLD_BYTES // nbytes)))
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
-    """Least time the card could take (ms) and what bounds it."""
+def bound(bytes_moved: float, flops: float, peak_flops=PEAK_BF16_FLOPS) -> tuple[float, str]:
+    """Least time the card could take (ms) and what bounds it (operations at
+    ``peak_flops``: the bf16 tensor cores' by default)."""
     t_bytes = bytes_moved / PEAK_HBM_BYTES * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1229,11 +1281,13 @@ QWEN_CACHE = (4, 8, 2, 2048, 128)  # L, B, Hkv, Smax, D of the decode cases
 QWEN_HQ = 12
 
 
-def _timed_case(label, kernel_fns, plain_fn, lib_fns, nbytes, flops, extra=""):
+def _timed_case(label, kernel_fns, plain_fn, lib_fns, nbytes, flops, extra="",
+                peak_flops=PEAK_BF16_FLOPS):
     """Device time of the kernel cycled over ``kernel_fns`` (inputs cycled
     past the L2), of its plain version and of one PyTorch call, beside the
-    bound; prints one line and returns the numbers."""
-    b_ms, b_by = bound(nbytes, flops)
+    bound (operations at ``peak_flops``); prints one line and returns the
+    numbers."""
+    b_ms, b_by = bound(nbytes, flops, peak_flops)
     ms = device_ms_cycle(kernel_fns)
     plain_ms = device_ms_cycle([plain_fn], iters=4)
     lib_ms = device_ms_cycle(lib_fns)
@@ -1590,6 +1644,87 @@ def check_nlp(dev, gen):
     worst, record = dict.fromkeys(names, 0.0), {n: {} for n in names}
     _nlp_b1(dev, gen, worst, record)
     _nlp_bwd(dev, gen, worst, record)
+    return worst, record
+
+
+ECO_BATCH, ECO_PROMPT, ECO_NEW = 8, 128, 32  # phase 10b's batches: prompt bucket, new tokens
+
+
+def _eco_rows(rng, dev, extra=0):
+    """[B, 128 + extra] validity of ECO's batches: left-padded prompts of
+    40-60 tokens in the 128-column bucket, then ``extra`` decoded columns."""
+    lens = rng.integers(40, 61, ECO_BATCH)
+    cols = torch.arange(ECO_PROMPT + extra)[None, :]
+    return ((cols >= ECO_PROMPT - torch.from_numpy(lens)[:, None])).to(dev, torch.int32)
+
+
+def check_f32(dev, gen):
+    """The f32 instances of B1 and of the one-token decode kernel at ECO's
+    shapes on Llama-2-7B (phase 10b): the prefill (8, 32, 128, 128) causal
+    with left-padded rows, and a decode step halfway through the 32 new
+    tokens against an f32 cache [4, 8, 32, 160, 128] with the mask narrowed
+    to the 145 columns written.  Returns ({kernel: max error}, {kernel:
+    numbers})."""
+    rng = np.random.default_rng(10)
+    B, H, S, D = ECO_BATCH, 32, ECO_PROMPT, 128
+    f32 = lambda shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    worst, record = {}, {}
+    # B1 f32: the prefill
+    q, k, v = (f32((B, H, S, D)) for _ in range(3))
+    mask = _eco_rows(rng, dev)
+    before = kernels.LAUNCHES["flash_fwd_f32"]
+    o, lse = flash_attention_lse(q, k, v, mask, causal=True)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES["flash_fwd_f32"] != before + 1 or o.dtype != torch.float32:
+        raise AssertionError("B1 f32: the f32 instance did not launch")
+    ref, lse_ref = flash_attention_lse(q, k, v, mask, causal=True, impl="plain")
+    live = lse_ref > -1e29
+    err = (o - ref).abs().max().item()
+    lse_err = (lse[live] - lse_ref[live]).abs().max().item()
+    if err > F32_TOL or lse_err > F32_LSE_TOL or not torch.all(o[~live.expand_as(o)] == 0):
+        raise AssertionError(f"B1 f32: max |err| {err} (tol {F32_TOL}), lse {lse_err} (tol "
+                             f"{F32_LSE_TOL}) or a dead row not 0")
+    worst["flash_fwd_f32"] = err
+    vis = _causal_pairs(mask)
+    nbytes = 4 * 4 * q.numel() + 4 * (lse.numel() + mask.numel())
+    copies = [(q, k, v)] + [tuple(t.clone() for t in (q, k, v)) for _ in range(n_cold(nbytes) - 1)]
+    record["flash_fwd_f32"] = dict(max_abs_err=err, **_timed_case(
+        f"B1 f32 (ECO's prefill B{B} H{H} S{S} D{D} causal, left-padded rows of "
+        f"{int(mask.sum(1).min())}-{int(mask.sum(1).max())}): max|err| {err:.3e} lse "
+        f"{lse_err:.2e}; sdpa in f32",
+        [lambda c=c: flash_attention_lse(*c, mask, causal=True) for c in copies],
+        lambda: flash_attention_lse(q, k, v, mask, causal=True, impl="plain"),
+        [lambda c=c: F.scaled_dot_product_attention(*c, attn_mask=vis[:, None]) for c in copies],
+        nbytes, 4.0 * D * H * int(vis.sum().item()), peak_flops=PEAK_F32_FLOPS))
+    del q, k, v, o, lse, ref, lse_ref, copies, vis
+    # B4 f32: decode step 16 of 32 (145 columns written) at layer 3 of 4
+    L, smax, step, layer = 4, ECO_PROMPT + ECO_NEW, 16, 3
+    cache = {n: f32((L, B, H, smax, D)) for n in ("k", "v")}
+    qd = f32((B, H, 1, D))
+    valid = _eco_rows(rng, dev, extra=step + 1)
+    before = kernels.LAUNCHES["flash_decode_f32"]
+    od = decode_attention(qd, cache, layer, valid)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES["flash_decode_f32"] != before + 1 or od.dtype != torch.float32:
+        raise AssertionError("B4 f32: the f32 instance did not launch")
+    ref = decode_attention(qd, cache, layer, valid, impl="plain")
+    err = (od - ref).abs().max().item()
+    if err > F32_TOL:
+        raise AssertionError(f"B4 f32: max |err| {err} (tol {F32_TOL})")
+    worst["flash_decode_f32"] = err
+    n_valid = int(valid.sum().item())
+    nbytes = 2 * n_valid * H * D * 4 + 4 * (qd.numel() + od.numel() + valid.numel())
+    cols = valid.shape[1]
+    record["flash_decode_f32"] = dict(max_abs_err=err, **_timed_case(
+        f"B4 f32 (ECO's decode: cache [{L},{B},{H},{smax},{D}] f32, layer {layer}, mask of "
+        f"{cols} columns, {n_valid} valid, {decode_plan(B, H, 1, cols)}): max|err| {err:.3e}; "
+        f"sdpa in f32 on the layer's first {cols} columns",
+        [lambda l=l: decode_attention(qd, cache, l, valid) for l in range(L)],
+        lambda: decode_attention(qd, cache, layer, valid, impl="plain"),
+        [lambda l=l: F.scaled_dot_product_attention(
+            qd, cache["k"][l][:, :, :cols], cache["v"][l][:, :, :cols],
+            attn_mask=valid.bool()[:, None, None, :]) for l in range(L)],
+        nbytes, 4.0 * D * n_valid * H, peak_flops=PEAK_F32_FLOPS))
     return worst, record
 
 
@@ -2471,7 +2606,8 @@ def cut_depth(family, layers):
     # through Config's accessors: each wraps a nested dict once and stores the
     # wrapper back, and a dict taken from under it would be replaced by a copy
     # at the first access inside this block
-    dec = registry.PRESETS[family]["arch"]["decoder"]
+    arch = registry.PRESETS[family]["arch"]
+    dec = arch if isinstance(arch["decoder"], str) else arch["decoder"]  # a text family's arch
     full = dec["num_layers"]
     dec["num_layers"] = layers
     try:
@@ -4735,7 +4871,8 @@ def _nlp_eval_run(label, argv, sync):
 
 
 def run_nlp_path(mm_results=None, sync=torch.cuda.synchronize, finetune_args=NLP_FINETUNE_ARGS,
-                 forget_args=NLP_FORGET_ARGS, proj_args=NLP_PROJ_ARGS, eval_args=NLP_EVAL_ARGS):
+                 forget_args=NLP_FORGET_ARGS, proj_args=NLP_PROJ_ARGS, eval_args=NLP_EVAL_ARGS,
+                 then=None):
     """9a ``cli.nlp_finetune.main`` (finetune.yaml), 9b ``cli.nlp_forget.main``
     (forget.yaml, RMU) from 9a's checkpoint with 9c's checks at its loop's
     end (kernels vs plain attention, one step of each other loss), 9c the
@@ -4743,8 +4880,9 @@ def run_nlp_path(mm_results=None, sync=torch.cuda.synchronize, finetune_args=NLP
     (eval_everything.yaml) on 9b's checkpoint and 9e on 9a's with the engine
     and K 4 (the retain model's stand-in), 9f ``cli.nlp_aggregate.main``,
     9g the results CLIs (``build_tables`` over ``mm_results``, phase 7's
-    aggregates, when given).  Returns each sub-phase's launch counts and the
-    evaluations' numbers."""
+    aggregates, when given).  ``then(ft_dir)``, if given, runs last, while
+    9a's checkpoint exists (phase 10); its result is under "then".  Returns
+    each sub-phase's launch counts and the evaluations' numbers."""
     import csv
     import io
     import shutil
@@ -4905,10 +5043,544 @@ def run_nlp_path(mm_results=None, sync=torch.cuda.synchronize, finetune_args=NLP
         print(f"phase 9 seconds by sub-phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}",
               flush=True)
         out["numbers"] = numbers
+        if then is not None:
+            out["then"] = then(ft_dir)
         return out
     finally:
         for owner, name, fn in saved:
             setattr(owner, name, fn)
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------- phase 10
+# CLEAR's unlearning methods and the sweep: 10a SalUn (salun.yaml as it ships,
+# then Llama-2-7B at full width cut to SALUN_DEPTH layers: ten masks of a
+# whole 7B model would be ~270 GB on disk), 10b ECO on 9a's checkpoint in f32
+# (eco_llama2-7b.yaml as it ships but for the data), 10c eco_ft forgetting
+# from 10b's prompts, 10d the sweep orchestrator on tiny-llama-test
+SALUN_DEPTH = 2
+SALUN_7B_ARGS = ["model_family=llama2-7b", "dtype=bfloat16", "batch_size=4", "max_length=128"]
+ECO_ARGS = [f"data_path={NLP_DATA}"]
+# the learned detectors train on the host (``cli.eco_train_classifiers`` as it
+# ships: 400 epochs) in a subprocess of their own while 10a runs on the card,
+# on this many of the host's cores
+DETECTOR_THREADS = 4
+# forget.yaml as it ships (LoRA r 8, batch 4, accumulation 2) with eco_ft: 25
+# rows, 8 a step, 0.7 epochs: 2 steps (the warmup's first runs at lr 0)
+ECO_FT_ARGS = [f"data_path={NLP_DATA}", "forget_loss=eco_ft", "num_epochs=0.7",
+               "save_model=false"]
+SWEEP_DATA = "synthetic:n_persons=8"
+# tiny-llama-test has 256 positions: 128-token rows, 4 new tokens
+SWEEP_ARGS = ["stack=nlp", "losses=[grad_ascent]", "model_family=tiny-llama-test",
+              "batch_size=2", "max_length=128", "gradient_accumulation_steps=1",
+              "num_epochs=1", f"forget.data_path={SWEEP_DATA}",
+              f"data_path=[{','.join([SWEEP_DATA] * 4)}]", "ds_size=2",
+              "generation.max_new_tokens=4"]
+# peak device memory (GiB): its reading on an H100 80GB HBM3 at 700 W with ~15%
+# room (10c: 37.59, the bf16 weights and 8 rows of 500 tokens, two splits)
+METHODS_PEAK_BOUND_GIB = {"10c forget eco_ft": 43.5}
+
+
+def _ram_dir(names):
+    """A new directory under the temporary directory whose files ``names``
+    are links to anonymous memory files of this process (``memfd_create``):
+    what is written there stays in RAM, out of every file system, and is
+    freed when the process ends, however it ends.  A machine may cap what a
+    run writes to its disk (45 GiB, freed or not, on the H100 machine that
+    ran this script), and phases 5-9 write ~40 GB of checkpoints: 10a's
+    masks (26.7 GB) go to memory.  Returns (directory, memory files' fds)."""
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="salun_")
+    fds = [os.memfd_create(n) for n in names]
+    for n, fd in zip(names, fds):
+        os.symlink(f"/proc/{os.getpid()}/fd/{fd}", os.path.join(d, n))
+    return d, fds
+
+
+def _mask_template(family):
+    """{path: shape} of the family's parameter tree (a meta-device model)."""
+    from multimodal_unlearning_tpu_torch.config.registry import get_model_identifiers
+    from multimodal_unlearning_tpu_torch.models import llama
+
+    mcfg = common.build_model_config(get_model_identifiers(family))
+    meta = llama.Llama(mcfg, device="meta")
+    return {"/".join(p): tuple(x.shape) for p, x in tree_leaves_with_path(common.model_tree(meta))}
+
+
+def _npz_member(zf, key):
+    """One array of an uncompressed ``.npz``, read whole (its CRC checked by
+    ``zipfile``) and viewed in place past its ``.npy`` header."""
+    import io
+
+    with zf.open(key + ".npy") as f:
+        buf = f.read()
+    bio = io.BytesIO(buf)
+    version = np.lib.format.read_magic(bio)
+    read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+            else np.lib.format.read_array_header_2_0)
+    shape, fortran, dtype = read(bio)
+    if fortran:
+        raise AssertionError(f"{key}: a Fortran-ordered array")
+    return np.frombuffer(buf, dtype=dtype, offset=bio.tell()).reshape(shape)
+
+
+def _check_mask_files(label, d, template):
+    """The ten ``with_{t}.npz``: exactly the template's paths and shapes in
+    float32, ``int(t * n)`` entries kept per tensor (per layer of a stacked
+    leaf), each threshold's mask inside the next one's, t = 1.0 all ones;
+    read a leaf at a time from the ten files at once (one thread each).
+    Returns (seconds, GB read)."""
+    import zipfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from multimodal_unlearning_tpu_torch.methods import salun
+
+    t0 = time.perf_counter()
+    if sorted(os.listdir(d)) != sorted(f"with_{t}.npz" for t in salun.THRESHOLDS):
+        raise AssertionError(f"{label}: files {sorted(os.listdir(d))}")
+    files = {t: zipfile.ZipFile(os.path.join(d, f"with_{t}.npz")) for t in salun.THRESHOLDS}
+    for t, zf in files.items():
+        if sorted(zf.namelist()) != sorted(k + ".npy" for k in template):
+            raise AssertionError(f"{label} t={t}: members {sorted(zf.namelist())}")
+    nbytes = 0
+    with ThreadPoolExecutor(max_workers=len(files)) as pool:
+        for key, shape in template.items():
+            masks = list(pool.map(lambda zf: _npz_member(zf, key), files.values()))
+            prev = None
+            for t, m in zip(files, masks):
+                nbytes += m.nbytes
+                x = torch.from_numpy(m)
+                rows = x.reshape(x.shape[0], -1) if key.startswith("layers/") and x.ndim >= 2 \
+                    else x.reshape(1, -1)
+                kept = (rows != 0).sum(dim=1)
+                if m.shape != shape or m.dtype != np.float32 or \
+                        not bool((kept == salun.kept(t, rows.shape[1])).all()):
+                    raise AssertionError(f"{label} t={t} {key}: shape {m.shape} (want {shape}), "
+                                         f"{m.dtype}, kept {kept[:4].tolist()} per row")
+                if prev is not None and not bool((prev <= x).all()):
+                    raise AssertionError(f"{label} {key}: the mask at t={t} does not hold the "
+                                         "previous threshold's")
+                if t == 1.0 and not bool((x == 1).all()):
+                    raise AssertionError(f"{label} {key}: the t=1.0 mask is not all ones")
+                prev = x
+            del masks, prev
+    for zf in files.values():
+        zf.close()
+    return time.perf_counter() - t0, nbytes / 1e9
+
+
+def _salun_run(label, argv, template, kernel_layers, sync):
+    """One ``cli.salun_generate.main`` run: the saliency finite, B1-B3
+    launched once a batch in each of ``kernel_layers`` layers (0: the
+    family's plain attention, no launch), the files checked.  Returns
+    (launches, numbers)."""
+    import shutil
+
+    from multimodal_unlearning_tpu_torch.cli import salun_generate
+    from multimodal_unlearning_tpu_torch.methods import salun
+
+    d, fds = _ram_dir([f"with_{t}.npz" for t in salun.THRESHOLDS])
+    seen = {"batches": 0}
+    acc, save = salun.accumulate_saliency, salun.save_saliency_masks
+
+    def accumulate(grad_fn, params, batches):
+        def counted(p, b):
+            seen["batches"] += 1
+            return grad_fn(p, b)
+        sal = acc(counted, params, batches)
+        leaves = [x for _, x in tree_leaves_with_path(sal)]
+        seen["finite"] = all(bool(torch.isfinite(x).all()) for x in leaves)
+        seen["entries"] = sum(x.numel() for x in leaves)
+        sync()
+        seen["grads_s"] = time.perf_counter() - t0
+        return sal
+
+    def timed_save(*a, **kw):
+        t1 = time.perf_counter()
+        out = save(*a, **kw)
+        seen["save_s"] = time.perf_counter() - t1
+        return out
+
+    salun.accumulate_saliency, salun.save_saliency_masks = accumulate, timed_save
+    try:
+        t0 = time.perf_counter()
+        _, peak, launches = _measured(lambda: salun_generate.main(argv + [f"save_dir={d}"]))
+        wall = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)) / 1e9
+        check_s, read_gb = _check_mask_files(label, d, template)
+    finally:
+        salun.accumulate_saliency, salun.save_saliency_masks = acc, save
+        shutil.rmtree(d, ignore_errors=True)
+        for fd in fds:
+            os.close(fd)
+    n = seen["batches"] * kernel_layers
+    want = dict(dict.fromkeys(kernels.LAUNCHES, 0), flash_fwd=n, flash_bwd_dq=n,
+                flash_bwd_dkv=n)
+    if not seen["finite"] or launches != want or not seen["batches"]:
+        raise AssertionError(f"{label}: saliency finite {seen['finite']}, {seen['batches']} "
+                             f"batches, launches {launches}, expected {want}")
+    numbers = dict(main_s=round(wall, 1), grads_s=round(seen["grads_s"], 1),
+                   rank_and_write_s=round(seen["save_s"], 1), files_gb=round(size, 2),
+                   write_gb_s=round(size / seen["save_s"], 2), check_s=round(check_s, 1),
+                   read_gb=round(read_gb, 2), batches=seen["batches"],
+                   entries=seen["entries"], peak_gib=round(peak, 2),
+                   launches={k: v for k, v in launches.items() if v})
+    print(f"{label}: {json.dumps(numbers)}", flush=True)
+    return launches, numbers
+
+
+class _EcoRecorder:
+    """While active, records the attacked model (``AttackedModel``'s last
+    instance) and each ``generate`` call: its ids, mask, prompts, gate
+    prompts, corrupted embeddings and tokens."""
+
+    def __enter__(self):
+        from multimodal_unlearning_tpu_torch.methods.eco import attacked_model as am
+
+        rec, self.am, self.calls, self.eco = self, am, [], None
+        embeds, generate = am.AttackedModel.corrupted_embeds, am.AttackedModel.generate
+        self._saved = [("corrupted_embeds", embeds), ("generate", generate)]
+
+        def embeds_w(eco, input_ids, prompts, gate_prompts=None):
+            out = embeds(eco, input_ids, prompts, gate_prompts)
+            if rec.calls and "embeds" not in rec.calls[-1]:
+                rec.calls[-1]["embeds"] = out
+            return out
+
+        def generate_w(eco, input_ids, attention_mask, *, max_new_tokens, prompts=None,
+                       gate_prompts=None, **kw):
+            rec.eco = eco
+            rec.calls.append(dict(ids=np.asarray(input_ids), mask=np.asarray(attention_mask),
+                                  prompts=prompts, gate=gate_prompts))
+            out = generate(eco, input_ids, attention_mask, max_new_tokens=max_new_tokens,
+                           prompts=prompts, gate_prompts=gate_prompts, **kw)
+            rec.calls[-1]["tokens"] = out
+            return out
+
+        am.AttackedModel.corrupted_embeds = embeds_w
+        am.AttackedModel.generate = generate_w
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved:
+            setattr(self.am.AttackedModel, name, fn)
+
+
+def _eco_streams(label, eco, calls, names, max_new, exact=True):
+    """Each gated prompt's flagged tokens are exactly its entity's (with
+    ``exact``; else they are counted); every generated token is within
+    TIE_MARGIN of the argmax of one teacher-forced forward over the
+    corrupted prompt embeddings and the tokens before it (up to a row's
+    first eos).  Returns (gated rows, rows that flag exactly their entity,
+    tokens, largest gap)."""
+    from multimodal_unlearning_tpu_torch.models.llama import positions_from_mask
+
+    tok, model, dev = eco.tokenizer, eco.model, eco.device
+    gated, on_entity, n, worst = 0, 0, 0, 0.0
+    for call in calls:
+        ids, mask, toks = call["ids"], call["mask"], call["tokens"]
+        S = ids.shape[1]
+        gate = eco.prompt_classifier.predict(call["gate"], threshold=eco.threshold)
+        pat = eco._pattern(call["prompts"], S, call["gate"])
+        for r, g in enumerate(gate):
+            if not g:
+                continue
+            gated += 1
+            flagged = tok.decode(ids[r][pat[r] == 1])
+            on_entity += flagged == names[call["gate"][r]]
+            if exact and flagged != names[call["gate"][r]]:
+                raise AssertionError(f"{label}: prompt {call['prompts'][r]!r} flags "
+                                     f"{flagged!r}, not its entity {names[call['gate'][r]]!r}")
+        gen = torch.from_numpy(toks).to(dev)
+        full = torch.cat([torch.from_numpy(mask).to(dev),
+                          torch.ones_like(gen, dtype=torch.int32)], dim=1)
+        emb = torch.cat([call["embeds"], model.embed_tokens[gen[:, :-1]].float()], dim=1)
+        with torch.inference_mode():
+            lg = model.forward(inputs_embeds=emb, attention_mask=full[:, :-1],
+                               positions=positions_from_mask(full[:, :-1]),
+                               compute_dtype=torch.float32)["logits"][:, S - 1:].float()
+        for r in range(gen.shape[0]):
+            row = gen[r].tolist()
+            end = row.index(tok.eos_token_id) + 1 if tok.eos_token_id in row else max_new
+            gaps = lg[r, :end].max(dim=-1).values - lg[r, torch.arange(end, device=dev),
+                                                        gen[r, :end]]
+            gap = float(gaps.max())
+            if gap > TIE_MARGIN:
+                raise AssertionError(f"{label}: row {r} token {int(gaps.argmax())} lies {gap:.4f} "
+                                     f"below the teacher-forced argmax (tie margin {TIE_MARGIN})")
+            worst, n = max(worst, gap), n + end
+    return gated, on_entity, n, worst
+
+
+def _eco_ungated(label, eco, names):
+    """A gated forget prompt beside a retain prompt the gate passes: the
+    ungated row's logits equal the clean forward's bit for bit, the flagged
+    row's differ; the kernels' logits within ECO_LOGIT_TOL of f32 plain
+    attention's.  Returns (flagged row's largest change, kernel vs plain)."""
+    from multimodal_unlearning_tpu_torch.cli.nlp_finetune import text_tags
+    from multimodal_unlearning_tpu_torch.config.registry import get_model_identifiers
+    from multimodal_unlearning_tpu_torch.data.nlp import resolve_text_rows
+    from multimodal_unlearning_tpu_torch.evaluation.generate import pad_prompts
+    from multimodal_unlearning_tpu_torch.methods.eco.prepare_prompts import tagged_prompts
+
+    retain = next(r["question"] for r in resolve_text_rows(NLP_DATA, "retain90")
+                  if r.get("name") not in names.values())
+    questions = [next(iter(names)), retain]
+    prompts = tagged_prompts(questions, text_tags(get_model_identifiers("llama2-7b")))
+    tok, dev = eco.tokenizer, eco.device
+    ids, mask = pad_prompts([tok.encode(p, add_special_tokens=True) for p in prompts],
+                            tok.pad_token_id)
+    if eco.prompt_classifier.predict(questions, threshold=eco.threshold) != [1, 0]:
+        raise AssertionError(f"{label}: the gate does not pass {retain!r} alone")
+    attacked = eco(ids, attention_mask=mask, prompts=prompts, gate_prompts=questions)["logits"]
+    with torch.inference_mode():
+        clean = eco.model.forward(torch.from_numpy(ids).to(dev).long(),
+                                  attention_mask=torch.from_numpy(mask).to(dev),
+                                  compute_dtype=torch.float32)["logits"]
+    with torch.inference_mode():
+        plain = eco.model.forward(
+            inputs_embeds=eco.corrupted_embeds(eco._ids(ids), prompts, questions),
+            attention_mask=eco._ids(mask), compute_dtype=eco.compute_dtype,
+            attn_impl="plain")["logits"]
+    change = float((attacked[0] - clean[0]).abs().max())
+    vs_plain = float((attacked - plain).abs().max())
+    if not torch.equal(attacked[1], clean[1]) or change == 0 or vs_plain > ECO_LOGIT_TOL:
+        raise AssertionError(f"{label}: ungated row equal to the clean forward "
+                             f"{torch.equal(attacked[1], clean[1])}, flagged row's change "
+                             f"{change}, kernels vs plain attention {vs_plain} (tol "
+                             f"{ECO_LOGIT_TOL})")
+    return change, vs_plain
+
+
+def _eco_file(label, out_dir, rows):
+    path = os.path.join(out_dir, "eco_prompts.jsonl")
+    with open(path) as f:
+        got = [json.loads(line) for line in f]
+    if len(got) != len(rows) or any(set(g) != {"question", "answer"} for g in got) or \
+            [g["question"] for g in got] != [r["question"] for r in rows]:
+        raise AssertionError(f"{label}: {path} holds {got[:2]}...")
+    return got
+
+
+def _train_detectors(out_dir, log_path):
+    """``cli.eco_train_classifiers`` as it ships on the host, in a
+    subprocess of its own (it uses no card) on ``DETECTOR_THREADS`` cores.
+    Returns {"proc", "dir", "log", "seconds": filled in when it exits}."""
+    import threading
+
+    env = dict(os.environ, OMP_NUM_THREADS=str(DETECTOR_THREADS), CUDA_VISIBLE_DEVICES="")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "multimodal_unlearning_tpu_torch.cli.eco_train_classifiers",
+             f"data_path={NLP_DATA}", f"out_dir={out_dir}"], stdout=log,
+            stderr=subprocess.STDOUT, env=env)
+    job = dict(proc=proc, dir=out_dir, log=log_path)
+    t0 = time.perf_counter()
+    threading.Thread(target=lambda: (proc.wait(), job.update(seconds=time.perf_counter() - t0)),
+                     daemon=True).start()
+    return job
+
+
+def _eco_run(label, ft_dir, out_dir, sync, detectors, args=ECO_ARGS):
+    """10b: ``cli.eco_prepare.main`` (eco_llama2-7b.yaml, f32) on 9a's
+    checkpoint, its checks, then the learned detectors (``detectors``:
+    ``_train_detectors``' job) on the same model.  Returns (launches,
+    numbers)."""
+    from multimodal_unlearning_tpu_torch.cli import eco_prepare
+    from multimodal_unlearning_tpu_torch.cli.nlp_finetune import text_tags
+    from multimodal_unlearning_tpu_torch.config.registry import get_model_identifiers
+    from multimodal_unlearning_tpu_torch.data.nlp import resolve_text_rows
+    from multimodal_unlearning_tpu_torch.methods.eco import get_eco_model
+    from multimodal_unlearning_tpu_torch.methods.eco.prepare_prompts import prepare_eco_prompts
+
+    rows = resolve_text_rows(NLP_DATA, "forget10")
+    names = {r["question"]: r["name"] for r in rows}
+    with _EcoRecorder() as rec:
+        t0 = time.perf_counter()
+        _, peak, launches = _measured(lambda: eco_prepare.main(
+            args + [f"model_path={ft_dir or 'null'}", f"out_dir={out_dir}"]))
+        wall = time.perf_counter() - t0
+    eco = rec.eco
+    n_b, L = len(rec.calls), eco.model_cfg.num_layers
+    max_new = rec.calls[0]["tokens"].shape[1]
+    want = dict(dict.fromkeys(kernels.LAUNCHES, 0), flash_fwd_f32=n_b * L,
+                flash_decode_f32=n_b * (max_new - 1) * L)
+    if launches != want or eco.compute_dtype != torch.float32:
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
+    got = _eco_file(label, out_dir, rows)
+    t1 = time.perf_counter()
+    gated, _, n_tok, gap = _eco_streams(label, eco, rec.calls, names, max_new)
+    change, vs_plain = _eco_ungated(label, eco, names)
+    numbers = dict(main_s=round(wall, 1), batches=[int(c["ids"].shape[0]) for c in rec.calls],
+                   prompt_columns=int(rec.calls[0]["ids"].shape[1]), new_tokens=max_new,
+                   gated=gated, tokens_checked=n_tok, max_gap=round(gap, 6),
+                   flagged_change=round(change, 4), kernels_vs_plain=vs_plain,
+                   peak_gib=round(peak, 2), checks_s=round(time.perf_counter() - t1, 1),
+                   launches={k: v for k, v in launches.items() if v})
+    print(f"{label}: {json.dumps(numbers)}; first answer {got[0]['answer']!r}", flush=True)
+    # the learned detectors, trained on the host meanwhile, drive the same model
+    det_dir = detectors["dir"]
+    t1 = time.perf_counter()
+    code = detectors["proc"].wait(timeout=600)
+    waited = time.perf_counter() - t1
+    if code != 0:
+        with open(detectors["log"]) as f:
+            raise AssertionError(f"{label}: eco_train_classifiers exited {code}: "
+                                 f"{f.read()[-3000:]}")
+    with open(os.path.join(det_dir, "metrics.json")) as f:
+        metrics = json.load(f)
+    learned = get_eco_model(eco.model, eco.tokenizer, [r["question"] for r in rows],
+                            sorted(set(names.values())),
+                            prompt_classifier_path=os.path.join(det_dir, "prompt_classifier"),
+                            token_classifier_path=os.path.join(det_dir, "token_classifier"))
+    t1 = time.perf_counter()
+    with _EcoRecorder() as rec2:
+        out2, _, launches2 = _measured(lambda: prepare_eco_prompts(
+            learned, eco.tokenizer, text_tags(get_model_identifiers("llama2-7b")), NLP_DATA,
+            "forget10", f"{out_dir}/learned"))
+    prepare_s = time.perf_counter() - t1
+    if launches2 != want:
+        raise AssertionError(f"{label} learned: launches {launches2}, expected {want}")
+    _eco_file(f"{label} learned", f"{out_dir}/learned", rows)
+    gated2, on_entity, n_tok2, gap2 = _eco_streams(f"{label} learned", learned, rec2.calls,
+                                                   names, max_new, exact=False)
+    numbers["learned"] = dict(train_s=round(detectors.get("seconds", -1.0), 1),
+                              waited_s=round(waited, 1), prepare_s=round(prepare_s, 1),
+                              metrics=metrics, rows=len(out2), gated=gated2,
+                              flag_their_entity=on_entity, tokens_checked=n_tok2,
+                              max_gap=round(gap2, 6))
+    print(f"{label} learned detectors: {json.dumps(numbers['learned'])}", flush=True)
+    rec2.calls.clear()
+    rec.eco = eco = learned = None
+    rec.calls.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync()
+    return launches, numbers
+
+
+def _eco_ft_run(label, ft_dir, eco_dir, root, sync, args=ECO_FT_ARGS):
+    """10c: ``cli.nlp_forget.main`` with ``forget_loss=eco_ft`` on 10b's
+    prompts from 9a's checkpoint: every step finite, the LoRA b leaves off
+    zero, B1-B3 as the steps' structure gives.  Returns (launches, numbers)."""
+    from multimodal_unlearning_tpu_torch.cli import nlp_forget
+    from multimodal_unlearning_tpu_torch.config.registry import get_model_identifiers
+
+    mcfg = common.build_model_config(get_model_identifiers("llama2-7b"))
+    with _CliRecorder(nlp_forget) as rec:
+        t0 = time.perf_counter()
+        _, peak, launches = _measured(lambda: nlp_forget.main(
+            args + [f"model_path={ft_dir or 'null'}", f"eco_prompts_path={eco_dir}",
+                    f"save_dir={os.path.join(root, 'eco_ft')}"]))
+        wall = time.perf_counter() - t0
+    _check_steps(label, rec.steps)
+    accum = int(_arg(args, "gradient_accumulation_steps", 2))
+    want = _expected_launches("eco_ft", {}, mcfg, None, steps=len(rec.steps) * accum)
+    b_max = max(float(b.detach().abs().max())
+                for p, b in tree_leaves_with_path(rec.loop["state"].trainable) if p[-1] == "b")
+    if len(rec.steps) != 2 or launches != want or not b_max > 0:
+        raise AssertionError(f"{label}: {len(rec.steps)} steps, launches {launches} (expected "
+                             f"{want}), max |b| {b_max}")
+    print(f"{label}: main() {wall:.1f} s; max |b| {b_max:.3e}", flush=True)
+    _report_steps(label, rec.steps, launches, peak, METHODS_PEAK_BOUND_GIB)
+    numbers = dict(main_s=round(wall, 1), steps=[round(m["wall"], 3) for m in rec.steps],
+                   losses=[round(m["loss"], 5) for m in rec.steps], peak_gib=round(peak, 2),
+                   launches={k: v for k, v in launches.items() if v})
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def _sweep_run(label, root, args=SWEEP_ARGS, device="0"):
+    """10d: ``orchestrate.run_exps`` with one loss, forget then evaluation
+    as subprocesses; a second run finds both artifacts and launches
+    nothing.  Returns its numbers."""
+    from multimodal_unlearning_tpu_torch.orchestrate import run_exps
+
+    save = os.path.join(root, "sweep", "grad_ascent_sweep")
+    logs = os.path.join(root, "sweep", "logs")
+    argv = args + [f"devices=[{device}]", f"log_root={logs}", f"save_dir={save}"]
+    codes, seconds, launched = [], [], []
+    run = run_exps.subprocess.run
+    for attempt in range(2):
+        def counted(*a, **kw):
+            launched.append(attempt)
+            return run(*a, **kw)
+
+        run_exps.subprocess.run = counted
+        t0 = time.perf_counter()
+        try:
+            run_exps.main(argv)
+        except SystemExit as e:
+            codes.append(e.code)
+        finally:
+            run_exps.subprocess.run = run
+        seconds.append(round(time.perf_counter() - t0, 1))
+    log_files = sorted(os.listdir(os.path.join(logs, "grad_ascent")))
+    agg = os.path.join(save, "eval_results", "eval_log_aggregated.json")
+    if codes != [0, 0] or launched != [0, 0] or log_files != [
+            "eval_grad_ascent.log", "forget_grad_ascent.log"] or not os.path.exists(
+            os.path.join(save, "model.safetensors")) or not os.path.exists(agg):
+        tails = {f: open(os.path.join(logs, "grad_ascent", f)).read()[-1500:] for f in log_files}
+        raise AssertionError(f"{label}: exit codes {codes}, subprocesses {launched}, logs "
+                             f"{log_files}: {tails}")
+    numbers = dict(first_run_s=seconds[0], second_run_s=seconds[1], subprocesses=len(launched),
+                   logs=log_files)
+    print(f"{label}: {json.dumps(numbers)}", flush=True)
+    return numbers
+
+
+def run_methods_path(ft_dir, sync=torch.cuda.synchronize, salun_tiny_args=(),
+                     salun_7b_args=SALUN_7B_ARGS, eco_args=ECO_ARGS, eco_ft_args=ECO_FT_ARGS,
+                     sweep_args=SWEEP_ARGS, sweep_device="0"):
+    """Phase 10 on 9a's checkpoint ``ft_dir`` (a random init where it is
+    None): 10a SalUn, 10b ECO, 10c eco_ft forgetting, 10d the sweep.
+    Returns each sub-phase's launches and numbers."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="methods_")
+    out, numbers, phase_s = {}, {}, {}
+    detectors = _train_detectors(os.path.join(root, "detectors"),
+                                 os.path.join(root, "detectors.log"))
+    try:
+        t0 = time.perf_counter()
+        _, numbers["10a_tiny"] = _salun_run("10a salun.yaml", list(salun_tiny_args),
+                                            _mask_template("tiny-llama-test"), 0, sync)
+        with cut_depth("llama2-7b", SALUN_DEPTH):
+            out["10a"], numbers["10a"] = _salun_run(
+                f"10a llama2-7b at {SALUN_DEPTH} layers", list(salun_7b_args),
+                _mask_template("llama2-7b"), SALUN_DEPTH, sync)
+        phase_s["10a"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        eco_dir = os.path.join(root, "eco")
+        out["10b"], numbers["10b"] = _eco_run("10b eco_prepare", ft_dir, eco_dir, sync,
+                                              detectors, list(eco_args))
+        phase_s["10b"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        out["10c"], numbers["10c"] = _eco_ft_run("10c forget eco_ft", ft_dir, eco_dir, root,
+                                                 sync, list(eco_ft_args))
+        phase_s["10c"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        numbers["10d"] = _sweep_run("10d run_exps", root, list(sweep_args), sweep_device)
+        phase_s["10d"] = time.perf_counter() - t0
+        print(f"phase 10 seconds by sub-phase: "
+              f"{json.dumps({k: round(v, 1) for k, v in phase_s.items()})}", flush=True)
+        out["numbers"] = numbers
+        return out
+    finally:
+        if detectors["proc"].poll() is None:
+            detectors["proc"].kill()
+            detectors["proc"].wait()
         shutil.rmtree(root, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
@@ -4983,6 +5655,11 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
+    if "--methods-only" in sys.argv[1:]:  # phase 2's f32 cases and phase 10: no result line
+        f32_err, f32_rec = check_f32(dev, gen)
+        torch.cuda.empty_cache()
+        print(json.dumps({"phase10": run_methods_path(None), "f32_phase2": f32_rec}))
+        return 0
     if "--nlp-only" in sys.argv[1:]:  # phase 2 at the nlp shapes and phase 9: no result line
         nlp_err, nlp_rec = check_nlp(dev, gen)
         torch.cuda.empty_cache()
@@ -4998,10 +5675,11 @@ def main() -> int:
     b8_err, b8_rec = check_b8(dev, gen)
     qwen_err, qwen_rec = check_qwen(dev, gen)
     nlp_err, nlp_rec = check_nlp(dev, gen)
+    f32_err, f32_rec = check_f32(dev, gen)
     torch.cuda.empty_cache()
     if "--kernels-only" in sys.argv[1:]:  # phases 1-2 alone: no main path, no result line
         print(json.dumps({"phase2": dict(b1=b1, b4=b4, b4q=b4q, b5=b5, b6=b6, b7=b7, bwd=bwd,
-                                         b8=b8_rec, qwen=qwen_rec, nlp=nlp_rec)}))
+                                         b8=b8_rec, qwen=qwen_rec, nlp=nlp_rec, f32=f32_rec)}))
         return 0
     if "--qwen-only" in sys.argv[1:]:  # phases 1-2 and 8 alone: no result line
         print(json.dumps({"phase8": run_qwen_path(), "qwen_phase2": qwen_rec}))
@@ -5040,12 +5718,27 @@ def main() -> int:
     qwen = run_qwen_path()
     qwen_eval = qwen.pop("8c_numbers")
     qwen_serving = qwen.pop("8f_numbers")
-    # CLEAR's text stack on Llama-2-7B at full depth, then the results CLIs
+    # CLEAR's text stack on Llama-2-7B at full depth, then the results CLIs,
+    # then CLEAR's methods and the sweep on 9a's checkpoint
     try:
-        nlp = run_nlp_path(mm_results)
+        nlp = run_nlp_path(mm_results, then=run_methods_path)
     finally:
         shutil.rmtree(mm_results, ignore_errors=True)
     nlp_eval = nlp.pop("numbers")
+    methods = nlp.pop("then")
+    methods_numbers = methods.pop("numbers")
+
+    def f32_row(name, source, replaces):
+        """A kernel's f32 instance (ECO): phase 2's numbers at 10b's shapes
+        and its launches in 10b's run of ``cli.eco_prepare``."""
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=methods["10b"][name], max_abs_err=f32_err[name],
+                    **{k: f32_rec[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                     "library_ms")})
+
+    def methods_row(name):
+        """A kernel's launches in SalUn's 7B run (10a) and eco_ft (10c)."""
+        return {k: methods[k].get(name, 0) for k in ("10a", "10c")}
 
     def nlp_row(name, *subphases, **extra):
         """A kernel's text-stack numbers: phase 2's at phase 9's shapes where
@@ -5086,7 +5779,12 @@ def main() -> int:
                            "8h", "8i"),
              # the text stack (phase 9): Llama-2-7B's training and eval shapes
              nlp=nlp_row("flash_fwd", "9a", "9b", "9c_losses", "9c_grad_proj",
-                         "9c_grad_proj_l2", "9d", "9e")),
+                         "9c_grad_proj_l2", "9d", "9e"),
+             methods_launches=methods_row("flash_fwd"),
+             # the f32 instance: ECO's prefill and cache-less forward (phase 10b)
+             f32=f32_row("flash_fwd_f32",
+                         "multimodal_unlearning_tpu_torch/ops/csrc/flash_fwd_f32.cu",
+                         "multimodal_unlearning_tpu/ops/attention.py:117")),
         dict(name="flash_bwd_dq (B2)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_bwd_dq.cu",
              replaces="multimodal_unlearning_tpu/ops/attention.py:219",
@@ -5098,7 +5796,8 @@ def main() -> int:
              d80_launches={k: qwen[f"{k}_by_d"].get("flash_bwd_dq D80", 0)
                            for k in ("8g", "8i")},
              nlp=nlp_row("flash_bwd_dq", "9a", "9b", "9c_losses", "9c_grad_proj",
-                         "9c_grad_proj_l2")),
+                         "9c_grad_proj_l2"),
+             methods_launches=methods_row("flash_bwd_dq")),
         dict(name="flash_bwd_dkv (B3)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
              replaces="multimodal_unlearning_tpu/ops/attention.py:268",
@@ -5109,7 +5808,8 @@ def main() -> int:
              d80_launches={k: qwen[f"{k}_by_d"].get("flash_bwd_dkv D80", 0)
                            for k in ("8g", "8i")},
              nlp=nlp_row("flash_bwd_dkv", "9a", "9b", "9c_losses", "9c_grad_proj",
-                         "9c_grad_proj_l2"), **bwd["dkv"]),
+                         "9c_grad_proj_l2"), methods_launches=methods_row("flash_bwd_dkv"),
+             **bwd["dkv"]),
         dict(name="flash_decode (B4)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/decode_attention.py:51",
@@ -5120,7 +5820,11 @@ def main() -> int:
                            "8f_only_base", "8f_only_ft", "8f_only_rnd", "8f_sampled",
                            "8f_sampled_reversed", "8f_generate"),
              # phase 9's decode: 32 heads on 32, D 128, 8 rows, as phase 2's case
-             nlp=nlp_row("flash_decode", "9d", shape="phase 2's case (B 8, 32 heads on 32)")),
+             nlp=nlp_row("flash_decode", "9d", shape="phase 2's case (B 8, 32 heads on 32)"),
+             # the f32 instance: ECO's decode steps (phase 10b)
+             f32=f32_row("flash_decode_f32",
+                         "multimodal_unlearning_tpu_torch/ops/csrc/flash_decode.cu",
+                         "multimodal_unlearning_tpu/ops/decode_attention.py:51")),
         dict(name="flash_decode_q8 (B4q)", route="cuda",
              source="multimodal_unlearning_tpu_torch/ops/csrc/flash_decode.cu",
              replaces="multimodal_unlearning_tpu/ops/decode_attention.py:71",
@@ -5190,7 +5894,7 @@ def main() -> int:
                     if k not in ("gate_up_m8", "decode_step_ms", "host_us_m8")}),
     ]
     print(json.dumps({"eval": evals, "qwen_eval": qwen_eval, "qwen_serving": qwen_serving,
-                      "nlp_eval": nlp_eval}))
+                      "nlp_eval": nlp_eval, "methods": methods_numbers}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -33,7 +33,8 @@ from multimodal_unlearning_tpu_torch.utils.quantize import (
 __all__ = ["max_grad_norm_of", "dtype_of", "parse_dtype", "model_kind", "is_vlm",
            "build_model_config", "quantize_base_params", "init_or_load_params", "save_model",
            "build_processor", "model_tree", "rank_suffix", "make_tail_padder", "pad_width",
-           "qspec", "freezes_vision", "check_ported", "start_run", "train_flags", "make_tx",
+           "qspec", "freezes_vision", "check_ported", "start_run", "attn_impl_of", "train_flags",
+           "make_tx",
            "dense_trainable", "dense_model_tree", "Trainable", "make_trainable",
            "run_train_loop", "save_final"]
 
@@ -326,16 +327,22 @@ def start_run(cfg, device):
     return save_dir
 
 
+def attn_impl_of(model_cfg) -> str:
+    """The attention kernels ("auto") unless the registry's
+    ``flash_attention2`` is false ("plain": the tiny test families, whose
+    head dim the kernels do not take)."""
+    return "auto" if str(model_cfg.get("flash_attention2", "true")) == "true" else "plain"
+
+
 def train_flags(cfg, model_cfg) -> dict:
     """``make_apply_fn``'s remat, remat_policy and attn_impl: the registry's
     ``gradient_checkpointing`` (``remat`` in the config overrides it),
-    ``remat_policy``, and the attention kernels unless the registry's
-    ``flash_attention2`` is false."""
+    ``remat_policy``, and ``attn_impl_of`` the registry."""
     remat = str(model_cfg.get("gradient_checkpointing", "false")) == "true"
     if cfg.get("remat") is not None:
         remat = bool(cfg.remat)
-    attn = "auto" if str(model_cfg.get("flash_attention2", "true")) == "true" else "plain"
-    return dict(remat=remat, remat_policy=cfg.get("remat_policy") or None, attn_impl=attn)
+    return dict(remat=remat, remat_policy=cfg.get("remat_policy") or None,
+                attn_impl=attn_impl_of(model_cfg))
 
 
 def make_tx(cfg, kind, mcfg, steps_per_epoch: int, max_steps: int, *, optimizer=None,

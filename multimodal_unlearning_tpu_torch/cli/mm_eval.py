@@ -50,7 +50,7 @@ def get_dataloader(quest_strat, quest_key, cap_key, fold, split, bs, ds_size, co
     return DataLoader(ds, bs, collate, drop_last=False)
 
 
-def eval_engine(cfg, model, mcfg, kind, tok, cache_dtype, dtype, device):
+def eval_engine(cfg, model, mcfg, kind, tok, cache_dtype, dtype, device, attn_impl="auto"):
     """With ``engine_generate``, the serving engine that generates each
     task's texts in ONE continuous-batching drain (the same texts as the
     per-batch route), sized from the eval config; else None."""
@@ -71,7 +71,7 @@ def eval_engine(cfg, model, mcfg, kind, tok, cache_dtype, dtype, device):
         spec_ref_len=int(cfg.get("spec_ref_len", 128) or 0) if speculate_k else 0,
         page_size=int(cfg.get("page_size", 0) or 0),
         kv_pool_pages=int(cfg.get("kv_pool_pages", 0) or 0) or None,
-        device=device)
+        attn_impl=attn_impl, device=device)
 
 
 def run(cfg):

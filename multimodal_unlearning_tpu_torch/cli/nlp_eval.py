@@ -20,7 +20,11 @@ Options as in the JAX CLI: ``ds_size``, ``overwrite``, ``quantize_base``
 ``spec_ref_len``, ``page_size``, ``kv_pool_pages``) and
 ``reinitialize_weights`` (the port's own random init from seed 0, not the
 JAX package's stream).  ``aot_param_layouts`` is accepted and ignored; mesh
-axes above 1 raise.  The card is the device unless ``+device=cpu`` is given.
+axes above 1 raise.  Attention follows the registry's ``flash_attention2``
+(``common.attn_impl_of``), as in the training CLIs: a family that turns it
+off (the tiny test families, whose head dim the kernels do not take) runs
+the plain attention on the card too.  The card is the device unless
+``+device=cpu`` is given.
 """
 
 from __future__ import annotations
@@ -73,6 +77,9 @@ def _run(cfg):
         model = common._init_model(kind, mcfg, 0, dtype, device)
 
     _pad_rows, _target = common.make_tail_padder(cfg.batch_size)
+    # the kernels unless the registry turns them off (the tiny test families:
+    # head dim 16, which the kernels do not take)
+    attn = common.attn_impl_of(model_cfg)
 
     def apply_fn(batch):
         B = len(batch["input_ids"])
@@ -82,7 +89,7 @@ def _run(cfg):
         with torch.inference_mode():
             logits = model(torch.from_numpy(ids).to(device).long(),
                            attention_mask=torch.from_numpy(mask).to(device),
-                           compute_dtype=dtype)["logits"]
+                           compute_dtype=dtype, attn_impl=attn)["logits"]
         return {"logits": logits[:B]}
 
     cache_dtype = torch.int8 if str(cfg.get("kv_cache_dtype") or "") == "int8" else dtype
@@ -110,12 +117,12 @@ def _run(cfg):
             max_new_tokens=cfg.generation.max_new_tokens,
             pad_token_id=tok.pad_token_id, eos_token_id=tok.eos_token_id,
             aot_layouts=aot_layouts, cache_dtype=cache_dtype, compute_dtype=dtype,
-            speculate_k=speculate_k, draft_ref=dref)
+            speculate_k=speculate_k, draft_ref=dref, attn_impl=attn)
         return [tok.decode(row, skip_special_tokens=True) for row in gen.cpu().numpy()[:B]]
 
     # engine_generate: each task's generations in one drain of the serving
     # engine (evaluator._nlp_pregenerate); the same texts
-    gen_engine = eval_engine(cfg, model, mcfg, kind, tok, cache_dtype, dtype, device)
+    gen_engine = eval_engine(cfg, model, mcfg, kind, tok, cache_dtype, dtype, device, attn)
 
     aggregated = {}
     zipped = zip(cfg.data_path, cfg.split_list, cfg.question_key, cfg.answer_key,

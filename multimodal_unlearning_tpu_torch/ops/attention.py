@@ -6,7 +6,10 @@ forward is ``mha_reference`` (that module's :77-109), the plain backward
 ``attention_bwd_reference`` (the arithmetic of its ``_bwd`` :323-385).  On a
 CUDA tensor ``flash_attention`` launches the hand-written kernels
 ``csrc/flash_fwd.cu`` and, in the backward pass, ``csrc/flash_bwd_dq.cu`` and
-``csrc/flash_bwd_dkv.cu``; on a CPU tensor it runs the plain versions.  There
+``csrc/flash_bwd_dkv.cu``; on a CPU tensor it runs the plain versions.  An
+f32 forward on a CUDA tensor (ECO's attacked model, ``methods/eco``) runs
+B1's f32 instance ``csrc/flash_fwd_f32.cu``; it has no backward, and the
+backward kernels take bf16 only.  There
 is no other route, and no 128-alignment fallback: the kernels take any
 sequence length (the ViT's 577 too) and head dims 64, 80 (the Qwen2-VL
 towers, 1280 / 16) and 128, forward and backward.
@@ -77,8 +80,11 @@ def _rows(t):
 def _flash_fwd_cuda(q, k, v, kv_mask, causal, q_offset, sm_scale):
     B, Hq, Sq, D = q.shape
     Bk, Hkv, Sk, Dk = k.shape
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise TypeError(f"flash_fwd kernel takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
+    # bf16 runs B1 on the tensor cores, f32 its f32 instance on the CUDA cores
+    name = {torch.bfloat16: "flash_fwd", torch.float32: "flash_fwd_f32"}.get(q.dtype)
+    if name is None or any(t.dtype != q.dtype for t in (k, v)):
+        raise TypeError(f"flash_fwd kernel takes bf16 or f32 q/k/v of one dtype, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
     if any(t.device != q.device for t in (k, v)):
         raise ValueError("q, k and v must be on one device")
     if (Bk, Dk) != (B, D) or v.shape != k.shape or Hq % Hkv or D not in (64, 80, 128):
@@ -94,15 +100,15 @@ def _flash_fwd_cuda(q, k, v, kv_mask, causal, q_offset, sm_scale):
     # [B, Sq, Hq*D] is free
     o = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((B, Hq, Sq, 1), dtype=torch.float32, device=q.device)
-    fn = kernels.launcher("flash_fwd")
+    fn = kernels.launcher(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  None if mask is None else mask.data_ptr(), o.data_ptr(), lse.data_ptr(),
                  B, Hq, Hkv, Sq, Sk, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *o.stride()[:3], float(sm_scale), int(bool(causal)), int(q_offset), stream)
-    kernels.check("flash_fwd", err)
-    kernels.LAUNCHES["flash_fwd"] += 1
+    kernels.check(name, err)
+    kernels.LAUNCHES[name] += 1
     return o, lse
 
 

@@ -10,7 +10,9 @@
 // extent, as the serving engine does, passes a mask narrowed to it).
 // The cache is bf16 (B4, B6) or int8 with f32 scales, one per position and
 // kv-head, the position on the last axis: [L,B,Hkv,1,Smax] dense,
-// [L,Hkv,NP,1,P] paged (B4q, B6q).
+// [L,Hkv,NP,1,P] paged (B4q, B6q); B4 also has an f32 instance, an f32
+// query and output on an f32 cache (ECO's f32 decode steps), whose lanes
+// hold 4 floats of 16 bytes and otherwise run the bf16 body.
 //
 // Replaces multimodal_unlearning_tpu/ops/decode_attention.py:_kernel (B4)
 // and :_kernel_q8 (B4q) (launcher _pallas_decode), and
@@ -92,6 +94,18 @@ struct Lane<__nv_bfloat16, 8> {
   }
 };
 template <>
+struct Lane<float, 4> {
+  using Word = uint4;
+  static constexpr bool kQ8 = false;
+  static __device__ __forceinline__ Word zero() { return make_uint4(0u, 0u, 0u, 0u); }
+  static __device__ __forceinline__ void to_float(const Word& w, float* out) {
+    out[0] = __uint_as_float(w.x);
+    out[1] = __uint_as_float(w.y);
+    out[2] = __uint_as_float(w.z);
+    out[3] = __uint_as_float(w.w);
+  }
+};
+template <>
 struct Lane<int8_t, 8> {
   using Word = uint2;
   static constexpr bool kQ8 = true;
@@ -116,8 +130,38 @@ struct Lane<int8_t, 16> {
 
 template <typename T, int G>
 constexpr int lane_dims() {
-  return sizeof(T) == 1 && G <= 2 ? 16 : 8;
+  return sizeof(T) == 4 ? 4 : sizeof(T) == 1 && G <= 2 ? 16 : 8;
 }
+
+// the query and the output are f32 beside an f32 cache, bf16 otherwise; a
+// lane loads its N dims of a query row with 16-byte loads
+template <typename T>
+struct QO {
+  using type = __nv_bfloat16;
+  template <int N>
+  static __device__ __forceinline__ void load(const type* p, float* out) {
+#pragma unroll
+    for (int h = 0; h < N / 8; ++h)
+      mmu::bf16x8_to_float(*reinterpret_cast<const uint4*>(p + h * 8), out + h * 8);
+  }
+  static __device__ __forceinline__ void store(type* p, float x) { *p = __float2bfloat16(x); }
+};
+template <>
+struct QO<float> {
+  using type = float;
+  template <int N>
+  static __device__ __forceinline__ void load(const type* p, float* out) {
+#pragma unroll
+    for (int h = 0; h < N / 4; ++h) {
+      const float4 w = *reinterpret_cast<const float4*>(p + h * 4);
+      out[h * 4] = w.x;
+      out[h * 4 + 1] = w.y;
+      out[h * 4 + 2] = w.z;
+      out[h * 4 + 3] = w.w;
+    }
+  }
+  static __device__ __forceinline__ void store(type* p, float x) { *p = x; }
+};
 
 template <typename T, int D, int G>
 struct DecLayout {
@@ -129,12 +173,12 @@ struct DecLayout {
 };
 
 struct Args {
-  const __nv_bfloat16* q;
+  const void* q;  // bf16, or f32 beside an f32 cache
   const void *kc, *vc;
   const float *ks, *vs;
   const int* valid;
   const int* table;  // paged only
-  __nv_bfloat16* o;
+  void* o;
   float* ws;      // [splits,B,Hq,D+2] f32 partials: o (unnormalised), m, l (splits > 1)
   int* counters;  // [B*Hkv], 0 between calls (splits > 1)
   int B, Hkv, Smax, layer;
@@ -150,6 +194,9 @@ template <typename T, int D, int G, bool PAGED>
 __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Args a) {
   using L = DecLayout<T, D, G>;
   using E = Lane<T, L::DL>;
+  using Q = QO<T>;
+  const auto* q = static_cast<const typename Q::type*>(a.q);
+  auto* o = static_cast<typename Q::type*>(a.o);
   constexpr int DL = L::DL;
   constexpr int LPK = L::LPK;
   constexpr int KPW = L::KPW;
@@ -202,12 +249,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Args a) {
     float qv[G][DL];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-#pragma unroll
-      for (int h = 0; h < DL / 8; ++h) {
-        const uint4 w =
-            *reinterpret_cast<const uint4*>(a.q + (qrow + g) * D + part * DL + h * 8);
-        mmu::bf16x8_to_float(w, qv[g] + h * 8);
-      }
+      Q::template load<DL>(q + (qrow + g) * D + part * DL, qv[g]);
 #pragma unroll
       for (int e = 0; e < DL; ++e) qv[g][e] *= a.scale_log2;
     }
@@ -253,10 +295,10 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Args a) {
         }
       }
     };
-    // a bf16 cache at GQA groups of 1-2 fetches the next key group while it
-    // scores this one; int8 lanes (twice the keys per load) and the larger
-    // groups' queries and accumulators leave no registers for it
-    constexpr bool PREFETCH = G <= 2 && sizeof(T) == 2;
+    // a bf16 or f32 cache at GQA groups of 1-2 fetches the next key group
+    // while it scores this one; int8 lanes (twice the keys per load) and the
+    // larger groups' queries and accumulators leave no registers for it
+    constexpr bool PREFETCH = G <= 2 && sizeof(T) != 1;
     constexpr int STEP = NWARPS * KPW * UNROLL;
     typename E::Word kw[UNROLL], vw[UNROLL];
     float kscale[UNROLL], vscale[UNROLL];
@@ -353,7 +395,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Args a) {
       }
     }
     if (a.splits == 1) {
-      a.o[(qrow + g) * D + d] = __float2bfloat16(den > 0.f ? num / den : 0.f);
+      Q::store(o + (qrow + g) * D + d, den > 0.f ? num / den : 0.f);
     } else {
       float* w = wrun + (qrow + g) * (D + 2);
       w[d] = num;
@@ -390,7 +432,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(const Args a) {
         num += f * __ldcg(w + d);
       }
     }
-    a.o[(qrow + g) * D + d] = __float2bfloat16(den > 0.f ? num / den : 0.f);
+    Q::store(o + (qrow + g) * D + d, den > 0.f ? num / den : 0.f);
   }
   if (tid == 0) a.counters[tile] = 0;
 }
@@ -455,10 +497,22 @@ extern "C" int mmu_flash_decode_bf16(const void* q, const void* k_cache, const v
                                      int B, int Hq, int Hkv, int Smax, int D, int layer, int S,
                                      int vstride, int per, int splits, float sm_scale,
                                      void* stream) {
-  const Args a{static_cast<const __nv_bfloat16*>(q), k_cache, v_cache, nullptr, nullptr, valid,
-               nullptr, static_cast<__nv_bfloat16*>(o), ws, counters, B, Hkv, Smax, layer, S,
+  const Args a{q, k_cache, v_cache, nullptr, nullptr, valid,
+               nullptr, o, ws, counters, B, Hkv, Smax, layer, S,
                vstride, 0, 0, 0, per, splits, sm_scale * mmu::kLog2e};
   return dispatch<__nv_bfloat16, false>(a, L, Hq, D, stream);
+}
+
+// As mmu_flash_decode_bf16 in f32 throughout: q/o [B,Hq,1,D] and the k/v
+// cache [L,B,Hkv,Smax,D] f32 contiguous (B4's f32 instance, ECO's decode).
+extern "C" int mmu_flash_decode_f32(const void* q, const void* k_cache, const void* v_cache,
+                                    const int* valid, void* o, float* ws, int* counters, int L,
+                                    int B, int Hq, int Hkv, int Smax, int D, int layer, int S,
+                                    int vstride, int per, int splits, float sm_scale,
+                                    void* stream) {
+  const Args a{q, k_cache, v_cache, nullptr, nullptr, valid, nullptr, o, ws, counters, B, Hkv,
+               Smax, layer, S, vstride, 0, 0, 0, per, splits, sm_scale * mmu::kLog2e};
+  return dispatch<float, false>(a, L, Hq, D, stream);
 }
 
 // As mmu_flash_decode_bf16 on an int8 cache [L,B,Hkv,Smax,D] with f32 scales
@@ -469,8 +523,8 @@ extern "C" int mmu_flash_decode_q8(const void* q, const void* k_cache, const voi
                                    int Smax, int D, int layer, int S, int vstride, int per,
                                    int splits, float sm_scale, void* stream) {
   if (k_s == nullptr || v_s == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{static_cast<const __nv_bfloat16*>(q), k_cache, v_cache, k_s, v_s, valid, nullptr,
-               static_cast<__nv_bfloat16*>(o), ws, counters, B, Hkv, Smax, layer, S, vstride, 0,
+  const Args a{q, k_cache, v_cache, k_s, v_s, valid, nullptr,
+               o, ws, counters, B, Hkv, Smax, layer, S, vstride, 0,
                0, 0, per, splits, sm_scale * mmu::kLog2e};
   return dispatch<int8_t, false>(a, L, Hq, D, stream);
 }
@@ -483,8 +537,8 @@ extern "C" int mmu_paged_decode_bf16(const void* q, const void* k_pool, const vo
                                      int* counters, int L, int B, int Hq, int Hkv, int NP, int P,
                                      int MP, int D, int layer, int S, int vstride, int per,
                                      int splits, float sm_scale, void* stream) {
-  const Args a{static_cast<const __nv_bfloat16*>(q), k_pool, v_pool, nullptr, nullptr, valid,
-               table, static_cast<__nv_bfloat16*>(o), ws, counters, B, Hkv, MP * P, layer, S,
+  const Args a{q, k_pool, v_pool, nullptr, nullptr, valid,
+               table, o, ws, counters, B, Hkv, MP * P, layer, S,
                vstride, MP, P, NP, per, splits, sm_scale * mmu::kLog2e};
   return dispatch<__nv_bfloat16, true>(a, L, Hq, D, stream);
 }
@@ -498,8 +552,8 @@ extern "C" int mmu_paged_decode_q8(const void* q, const void* k_pool, const void
                                    int layer, int S, int vstride, int per, int splits,
                                    float sm_scale, void* stream) {
   if (k_s == nullptr || v_s == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{static_cast<const __nv_bfloat16*>(q), k_pool, v_pool, k_s, v_s, valid, table,
-               static_cast<__nv_bfloat16*>(o), ws, counters, B, Hkv, MP * P, layer, S, vstride,
+  const Args a{q, k_pool, v_pool, k_s, v_s, valid, table,
+               o, ws, counters, B, Hkv, MP * P, layer, S, vstride,
                MP, P, NP, per, splits, sm_scale * mmu::kLog2e};
   return dispatch<int8_t, true>(a, L, Hq, D, stream);
 }

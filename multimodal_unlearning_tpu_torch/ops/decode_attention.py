@@ -8,7 +8,9 @@ per position and kv-head (position on the LAST axis).
 
 - ``decode_attention``: one query token per row.  On a CUDA tensor the
   kernel ``csrc/flash_decode.cu`` indexes the layer inside the stacked
-  cache (no slab is copied out): B4 on a bf16 cache, B4q on an int8 one.
+  cache (no slab is copied out): B4 on a bf16 cache, B4q on an int8 one,
+  B4's f32 instance for an f32 query on an f32 cache (ECO's decode steps;
+  every other CUDA route takes bf16 or int8 only).
   It cuts each row's columns into runs by ``decode_split_plan``, one block
   each, and merges the runs' partials in the same launch (the same
   arithmetic as ``chunk_attention_split_reference`` at C = 1).  The mask
@@ -105,15 +107,18 @@ def valid_columns(q, kv_valid, Smax: int):
     return valid, valid.shape[1], valid.stride(0)
 
 
-def _launch_args(q, cache, layer):
+def _launch_args(q, cache, layer, f32=False):
     """Shared checks of the CUDA routes; returns (k, v, k_s, v_s) with the
-    scales None for a bf16 cache."""
+    scales None for a float cache.  ``f32``: the route also takes an f32
+    query beside an f32 cache (the one-token kernel's f32 instance)."""
     quantized = _check_cache(cache)
     k, v = cache["k"], cache["v"]
-    if q.dtype != torch.bfloat16 or k.dtype not in (torch.bfloat16, torch.int8) \
-            or v.dtype != k.dtype:
-        raise TypeError(f"the decode kernels take a bf16 query and a bf16 or int8 cache, got "
-                        f"{q.dtype} and {k.dtype}/{v.dtype}")
+    f32_pair = f32 and q.dtype == torch.float32 and k.dtype == torch.float32
+    if not f32_pair and (q.dtype != torch.bfloat16
+                         or k.dtype not in (torch.bfloat16, torch.int8)) or v.dtype != k.dtype:
+        raise TypeError(f"the decode kernels take a bf16 query and a bf16 or int8 cache"
+                        f"{' (or f32 and f32)' if f32 else ''}, got {q.dtype} and "
+                        f"{k.dtype}/{v.dtype}")
     if any(t.device != q.device for t in cache.values()):
         raise ValueError("q and the cache must be on one device")
     if v.shape != k.shape or (quantized and (
@@ -165,7 +170,7 @@ def decode_scratch(q, Hkv, S):
 
 
 def _decode_cuda(q, cache, layer, kv_valid, sm_scale):
-    k_cache, v_cache, k_s, v_s = _launch_args(q, cache, layer)
+    k_cache, v_cache, k_s, v_s = _launch_args(q, cache, layer, f32=True)
     B, Hq, _, D = q.shape
     L, Bc, Hkv, Smax, Dc = k_cache.shape
     if (Bc, Dc) != (B, D) or Hq % Hkv or Hq // Hkv not in DECODE_GROUPS or D not in (64, 128):
@@ -180,7 +185,9 @@ def _decode_cuda(q, cache, layer, kv_valid, sm_scale):
     o = torch.empty_like(q)
     per, splits, ws, counters = decode_scratch(q, Hkv, S)
     scales = () if k_s is None else (k_s.data_ptr(), v_s.data_ptr())
-    kernels.run("flash_decode" if k_s is None else "flash_decode_q8", q.device, q.data_ptr(),
+    name = ("flash_decode_q8" if k_s is not None else
+            "flash_decode_f32" if q.dtype == torch.float32 else "flash_decode")
+    kernels.run(name, q.device, q.data_ptr(),
                 k_cache.data_ptr(), v_cache.data_ptr(), *scales, valid.data_ptr(), o.data_ptr(),
                 None if ws is None else ws.data_ptr(),
                 None if counters is None else counters.data_ptr(), L, B, Hq, Hkv, Smax, D,

@@ -8,7 +8,8 @@ name that hashes the sources and flags, so a changed source is rebuilt and
 an unchanged one is reused.  Nothing is built when this module is imported.
 
 A library may export more than one kernel (``flash_decode.cu`` holds B4,
-its int8 variant B4q and their paged-cache instances B6 and B6q;
+its f32 instance, its int8 variant B4q and their paged-cache instances B6
+and B6q; ``flash_fwd_f32.cu`` is B1's f32 instance, a library of its own;
 ``chunk_decode.cu`` B5, B5q, B7 and B7q; ``int4_matmul.cu`` B8 alone):
 ``SOURCES`` names the libraries, ``_SIGNATURES`` each kernel's library,
 symbol and argtypes.  The headers ``common.cuh`` and ``mma.cuh`` (cp.async,
@@ -38,6 +39,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = {
     "flash_fwd": "flash_fwd.cu",
+    "flash_fwd_f32": "flash_fwd_f32.cu",
     "flash_decode": "flash_decode.cu",
     "flash_bwd_dq": "flash_bwd_dq.cu",
     "flash_bwd_dkv": "flash_bwd_dkv.cu",
@@ -56,7 +58,11 @@ _PAGED_CHUNK_ARGS = [_P] * 10 + [_I] * 11 + [_F, _P]
 _SIGNATURES = {
     "flash_fwd": ("flash_fwd", "mmu_flash_fwd_bf16",
                   [_P] * 6 + [_I] * 6 + [_LL] * 12 + [_F, _I, _I, _P]),
+    "flash_fwd_f32": ("flash_fwd_f32", "mmu_flash_fwd_f32",
+                      [_P] * 6 + [_I] * 6 + [_LL] * 12 + [_F, _I, _I, _P]),
     "flash_decode": ("flash_decode", "mmu_flash_decode_bf16", [_P] * 7 + [_I] * 11 + [_F, _P]),
+    "flash_decode_f32": ("flash_decode", "mmu_flash_decode_f32",
+                         [_P] * 7 + [_I] * 11 + [_F, _P]),
     "flash_decode_q8": ("flash_decode", "mmu_flash_decode_q8", [_P] * 9 + [_I] * 11 + [_F, _P]),
     "flash_bwd_dq": ("flash_bwd_dq", "mmu_flash_bwd_dq_bf16",
                      [_P] * 8 + [_I] * 6 + [_LL] * 15 + [_F, _I, _I, _P]),

@@ -28,6 +28,12 @@ of each output, one bf16 ulp being 2^-8 of it: max |err| <= 1e-2 of the
 largest plain output.  B8 folds its split-K partials in the launch (the last
 block of a tile sums them in split order), and the one-token decode kernel
 merges its column runs the same way: two calls give the same bits.
+
+The f32 instances of B1 and of the one-token decode kernel (ECO's attacked
+model) compute in f32 by FMA and are held against the plain version in f32
+(TF32 off, as PyTorch's default for matrix products): what differs is the
+summation order and the online softmax's rescaling, a few f32 ulps of sums
+over up to 2,000 terms: 5e-5 absolute on o (|o| <= ~4), 1e-5 on lse.
 """
 
 import numpy as np
@@ -50,6 +56,8 @@ pytestmark = pytest.mark.cuda
 
 O_TOL = 2e-2
 LSE_TOL = 1e-3
+F32_TOL = 5e-5
+F32_LSE_TOL = 1e-5
 
 
 @pytest.fixture
@@ -594,3 +602,94 @@ def test_paged_decode_splits_equal_dense(dev, int8, P):
     assert torch.all(o[2] == 0)
     ref = paged_decode_attention(q, pool, layer, valid, impl="plain")
     torch.testing.assert_close(o.float(), ref.float(), atol=O_TOL, rtol=0)
+
+
+def _randn32(rng, shape, dev):
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,Sq,Sk,D,causal,q_offset,pad",
+    [
+        (8, 32, 32, 128, 128, 128, True, 0, 70),     # ECO's prefill: left-padded rows
+        (2, 32, 8, 200, 200, 128, True, 0, 37),      # GQA
+        (2, 8, 8, 70, 300, 128, True, 230, 0),       # q_offset > 0
+        (3, 4, 2, 129, 129, 64, False, 0, 129),      # a fully padded batch row
+        (2, 4, 4, 37, 93, 80, True, 50, 5),          # D 80, ragged lengths
+        (1, 4, 4, 100, 100, 64, True, 0, 3),         # D 64, causal
+    ],
+    ids=["eco_prefill", "gqa", "q_offset", "dead_row", "ragged_d80", "causal_d64"],
+)
+def test_flash_fwd_f32_matches_plain(dev, B, Hq, Hkv, Sq, Sk, D, causal, q_offset, pad):
+    """B1's f32 instance: f32 in and out, against the plain version in f32;
+    the bf16 kernel's count does not move."""
+    rng = np.random.default_rng(40)
+    q, k, v = (_randn32(rng, (B, h, s, D), dev) for h, s in ((Hq, Sq), (Hkv, Sk), (Hkv, Sk)))
+    mask = torch.ones((B, Sk), dtype=torch.int32, device=dev)
+    mask[0, :pad] = 0
+    before = dict(kernels.LAUNCHES)
+    o, lse = flash_attention_lse(q, k, v, mask, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_fwd_f32"] == before["flash_fwd_f32"] + 1
+    assert kernels.LAUNCHES["flash_fwd"] == before["flash_fwd"]
+    assert o.dtype == torch.float32
+    o_ref, lse_ref = flash_attention_lse(q, k, v, mask, causal=causal, q_offset=q_offset,
+                                         impl="plain")
+    torch.testing.assert_close(o, o_ref, atol=F32_TOL, rtol=0)
+    live = lse_ref > -1e29
+    torch.testing.assert_close(lse[live], lse_ref[live], atol=F32_LSE_TOL, rtol=0)
+    assert torch.all(lse[~live] == -1e30)
+    assert torch.all(o[~live.expand_as(o)] == 0)
+
+
+def test_f32_has_no_backward_kernel(dev):
+    """The backward kernels take bf16 only: an f32 gradient raises instead
+    of running the plain version."""
+    rng = np.random.default_rng(41)
+    q, k, v = (_randn32(rng, (1, 4, 64, 128), dev).requires_grad_() for _ in range(3))
+    o = flash_attention(q, k, v, causal=True)
+    with pytest.raises(TypeError, match="bf16"):
+        o.sum().backward()
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("Smax,S", [(160, 160), (160, 100), (2000, 2000)],
+                         ids=["eco", "narrowed", "split_runs"])
+def test_flash_decode_f32_matches_plain(dev, G, D, Smax, S):
+    """The one-token kernel's f32 instance: ECO's cache of 128 + 32 columns,
+    a mask narrowed to fewer columns, and a row long enough for split runs;
+    an all-invalid row gives 0, two calls give the same bits."""
+    rng = np.random.default_rng(42 + G + D + S)
+    L, B, Hkv, layer = 3, 5, 32 // G if D == 128 else 2, 2
+    cache = {n: _randn32(rng, (L, B, Hkv, Smax, D), dev) for n in ("k", "v")}
+    q = _randn32(rng, (B, Hkv * G, 1, D), dev)
+    valid = torch.zeros((B, Smax), dtype=torch.int32, device=dev)
+    for b, n in enumerate(rng.integers(1, S, B)):
+        valid[b, S - n:S] = 1                   # left-padded rows
+    valid[2] = 0                                # an all-invalid row
+    valid = valid[:, :S]
+    before = dict(kernels.LAUNCHES)
+    o = decode_attention(q, cache, layer, valid)
+    o2 = decode_attention(q, cache, layer, valid)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_decode_f32"] == before["flash_decode_f32"] + 2
+    assert kernels.LAUNCHES["flash_decode"] == before["flash_decode"]
+    assert o.dtype == torch.float32
+    ref = decode_attention(q, cache, layer, valid, impl="plain")
+    torch.testing.assert_close(o, ref, atol=F32_TOL, rtol=0)
+    assert torch.all(o[2] == 0)
+    assert torch.equal(o, o2)
+
+
+def test_f32_decode_routes_refuse_mixed_types(dev):
+    """Only an f32 query on an f32 cache takes the f32 instance; the chunk
+    kernel has no f32 instance and raises."""
+    rng = np.random.default_rng(43)
+    cache = {n: _randn32(rng, (1, 2, 4, 64, 128), dev) for n in ("k", "v")}
+    valid = torch.ones((2, 64), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        decode_attention(_randn(rng, (2, 4, 1, 128), dev), cache, 0, valid)
+    with pytest.raises(TypeError):
+        chunk_decode_attention(_randn32(rng, (2, 4, 3, 128), dev), cache, 0, valid,
+                               torch.zeros(2, dtype=torch.int32, device=dev))

@@ -122,3 +122,24 @@ def test_aggregate_matches_jax(evals):
         else:
             assert np.isfinite(float(t)), name
             np.testing.assert_allclose(float(t), float(j), rtol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("flash", ["false", "true"])
+def test_eval_attention_follows_the_registry(flash, tmp_path, monkeypatch):
+    """``flash_attention2: "false"`` (tiny-llama-test as it ships, head dim
+    16: no kernel takes it on the card) runs the plain attention through
+    the teacher-forced forwards and generation; "true" goes through
+    ``FlashAttention`` and the decode route's kernel path."""
+    from multimodal_unlearning_tpu_torch.ops import attention
+
+    calls = []
+    apply = attention.FlashAttention.apply
+    monkeypatch.setattr(attention.FlashAttention, "apply",
+                        lambda *a: calls.append(1) or apply(*a))
+    entry = dict(dict.__getitem__(tregistry.PRESETS, "tiny-llama-test"))
+    entry["flash_attention2"] = flash
+    monkeypatch.setitem(tregistry.PRESETS, "tiny-llama-test", entry)
+    teval.main(["model_family=tiny-llama-test", "dtype=float32", "ds_size=2",
+                "batch_size=2", "max_length=128", "generation.max_new_tokens=2",
+                f"data_path=[{','.join([DATA] * 4)}]", f"save_dir={tmp_path}", "+device=cpu"])
+    assert bool(calls) == (flash == "true")

@@ -67,7 +67,11 @@ def test_port_imports_with_jax_blocked():
                  "train.checkpoints", "train.loop", "models.hf_bridge",
                  "evaluation", "evaluation.rouge", "evaluation.metrics", "evaluation.generate",
                  "evaluation.evaluator", "cli.mm_eval", "cli.mm_calculate_metrics",
-                 "models.qwen2_vl"):
+                 "models.qwen2_vl", "methods.salun", "methods.eco.corrupt",
+                 "methods.eco.attacked_model", "methods.eco.classifier",
+                 "methods.eco.prepare_prompts", "methods.eco.train_classifiers",
+                 "cli.salun_generate", "cli.eco_prepare", "cli.eco_train_classifiers",
+                 "orchestrate.run_exps"):
         assert f"multimodal_unlearning_tpu_torch.{name}" in mods
 
 
@@ -114,6 +118,14 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(tmp_path):
             "eval_task=[eval_log]", "question_key=[question]", "answer_key=[caption]",
             "base_answer_key=[caption]", "perturbed_answer_key=[perturbed_captions]",
             "save_dir=/nonexistent/never-created"]))
+    from multimodal_unlearning_tpu_torch.cli import eco_prepare, salun_generate
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        salun_generate.run(load_config(config_dir() / "methods", "salun", [
+            "save_dir=/nonexistent/never-created"]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        eco_prepare.run(load_config(config_dir() / "methods", "eco_llama2-7b", [
+            "out_dir=/nonexistent/never-created"]))
     # the metrics CLI reads two eval aggregates and computes on the host: it
     # has no device to ask for, and runs here
     from multimodal_unlearning_tpu_torch.evaluation.metrics import FILE_TO_TASK
